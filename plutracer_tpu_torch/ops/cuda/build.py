@@ -1,0 +1,113 @@
+"""Build and load the CUDA kernels (plutracer_tpu_torch/csrc/*.cu).
+
+One shared library with a plain C interface, compiled by ``nvcc`` for
+Hopper (sm_90a) at first use and loaded with ctypes. Nothing is compiled
+when the package is imported. The library lands in
+``plutracer_tpu_torch/_build/`` under a name that carries a hash of the
+sources and flags, so an edited source is rebuilt and a fresh checkout
+builds its own.
+
+FMA contraction is off and division and sqrt stay IEEE (no fast math):
+the kernels then round exactly as their plain PyTorch versions do on the
+card, which is what makes K1 bit-equal to its plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v",
+]
+
+_vp = ctypes.c_void_p
+_i = ctypes.c_int
+_SIGNATURES = {
+    # packed, n_rows, o, d, t_out, prim_out, B, stream
+    "plu_closest_hit": [_vp, _i, _vp, _vp, _vp, _vp, _i, _vp],
+    # prim, P, mat, M, tex, T, light, L, packed, P_pad, atlas, A, has_images,
+    # o, d, prim0, t0, u, out, B, max_bounces, swapped_mis, origin_pdf,
+    # shading_gate, stream
+    "plu_megakernel": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,
+                       _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+}
+
+
+class Library:
+    """The loaded kernel library plus how it was built."""
+
+    def __init__(self, path: pathlib.Path, seconds: float, log: str):
+        self.path = path
+        self.build_seconds = seconds  # 0.0 when an existing build was loaded
+        self.compiler_log = log  # nvcc's output (ptxas register/spill report)
+        self.lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+
+_LOADED: list = []  # the library once loaded: sources do not change in a process
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libplutracer_kernels_{h.hexdigest()[:16]}.so"
+
+
+def load() -> Library:
+    """The kernel library, compiled on first use in this checkout and
+    loaded once per process."""
+    if _LOADED:
+        return _LOADED[0]
+    path = library_path()
+    seconds, log = 0.0, ""
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, path)
+    _LOADED.append(Library(path, seconds, log))
+    return _LOADED[0]
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
