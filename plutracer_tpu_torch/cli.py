@@ -58,8 +58,9 @@ def resolve_device(name: str) -> torch.device:
 class RenderResult(NamedTuple):
     linear: torch.Tensor  # (H, W, 3) linear radiance on the render device
     out_path: str
-    integrator: str  # "kernel" (K2) or "plain"
+    integrator: str  # "kernel" or "plain"
     render_seconds: float
+    tier: Optional[str] = None  # the kernel path's integrator.kernel_tier: k2, k3 or k4
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -103,7 +104,7 @@ def run(args: List[str]) -> RenderResult:
 
     from plutracer_tpu.semantics import DEFAULT_OPTIONS
     from plutracer_tpu_torch import rng
-    from plutracer_tpu_torch.render.integrator import resolve_integrator_backend
+    from plutracer_tpu_torch.render.integrator import kernel_tier, resolve_integrator_backend
     from plutracer_tpu_torch.render.renderer import render
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
@@ -115,7 +116,9 @@ def run(args: List[str]) -> RenderResult:
     init_end = time.perf_counter()
 
     backend = resolve_integrator_backend(scene, DEFAULT_OPTIONS, device)
-    print(f"rendering on {device} with the {backend} integrator... ")
+    tier = kernel_tier(scene, DEFAULT_OPTIONS) if backend == "kernel" else None
+    print(f"rendering on {device} with the {backend} integrator"
+          f"{f' ({tier})' if tier else ''}... ")
     render_start = time.perf_counter()
     linear = render(scene, width, height, desc.samples, rng.PRNGKey(seed))
     if device.type == "cuda":
@@ -151,7 +154,7 @@ def run(args: List[str]) -> RenderResult:
         out_path = f"image_{time.time_ns()}.bmp"
     write_bmp(out_path, img)
     print(f"wrote {out_path}")
-    return RenderResult(linear, out_path, backend, render_end - render_start)
+    return RenderResult(linear, out_path, backend, render_end - render_start, tier)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
-// Device functions shared by the closest-hit kernel K1 (closest_hit.cu) and
-// the path megakernel K2 (megakernel.cu); the streaming kernel K3 will use
-// them too.
+// Device functions shared by the closest-hit kernel K1 (closest_hit.cu),
+// the path megakernel K2 (megakernel.cu), the stream kernel K3
+// (megakernel_stream.cu) and the one-bounce kernel K4
+// (megakernel_onebounce.cu). path_vertex, at the end, is the one shading
+// vertex all three path kernels run.
 //
 // Each function is the per-ray form of a plain PyTorch op of this package
 // (plutracer_tpu_torch/ops/*.py), written with the same operations in the
@@ -502,6 +504,132 @@ PLU_FN LightSample sample_light(const float* lrow, const float* carrier, V3 p, f
   float pdf = surface_pdf(carrier, p, wi, origin_pdf);
   bool front = dot(ns, -wi) > 0.0f;
   return LightSample{front ? intensity : V3{0.0f, 0.0f, 0.0f}, wi, pdf, false};
+}
+
+// ---------------------------------------------------------------------------
+// one shading vertex (render/integrator.py:plain_bounce), shared by K2, K3
+// and K4
+// ---------------------------------------------------------------------------
+
+// the per-ray state between vertices (integrator.PathState); found is
+// t < T_MAX
+struct PathState {
+  V3 o, d, T, L;
+  bool prev_spec, alive;
+  int prim;
+  float t;
+};
+
+// the scene tables a vertex reads rows from: shared memory in K2, global
+// memory in K3 and K4; the atlas is always in global memory
+struct Tables {
+  const float *prim, *mat, *tex, *light, *atlas;
+  int P, M, T, L, A;
+  bool has_images;
+};
+
+struct Flags {
+  int max_bounces;
+  bool swapped_mis, origin_pdf, shading_gate;
+};
+
+// Vertex i of one ray with its 12 uniforms u. `closest(o, d)` answers a
+// closest-hit query as K1 does (K2: brute force over the shared packed
+// table; K3/K4: the BVH walk of bvh_closest.cuh).
+template <class Closest>
+PLU_FN void path_vertex(const Tables& tb, const Closest& closest, const Flags& fl, int i,
+                        const float* u, PathState& s) {
+  const int nl = tb.L;
+  const V3 zero = V3{0.0f, 0.0f, 0.0f};
+  const bool found = s.t < T_MAX;
+  const float* row = tb.prim + clampi(s.prim, tb.P) * PRIM_W;
+  Detail h = hit_detail(row, s.o, s.d, s.t, found);
+  const bool cur = s.alive && found;
+  const V3 wwo = -s.d;
+  const float* mrow = tb.mat + row_id(row[25], tb.M) * MAT_W;
+  const int mtype = (int)mrow[0];
+  const float* trow = tb.tex + row_id(pmax(mrow[4], 0.0f), tb.T) * TEX_W;
+  V3 albedo = eval_albedo(mrow, trow, h.u, h.v, tb.atlas, tb.A, tb.has_images);
+  Frame fr = make_frame(h.norm, h.dpdu);
+
+  // emitted light at the vertex (first or post-specular only)
+  const int own = (int)row[26];
+  if (cur && (i == 0 || s.prev_spec) && own >= 0 && dot(h.norm, wwo) > 0.0f)
+    s.L = s.L + s.T * ld3(tb.light + clampi(own, tb.L) * LIGHT_W + 4);
+
+  // next-event estimation: one light picked uniformly
+  const int li = min((int)floorf(u[0] * (float)nl), nl - 1);
+  const float* lrow = tb.light + clampi(li, tb.L) * LIGHT_W;
+  const float* carrier = tb.prim + row_id(pmax(lrow[7], 0.0f), tb.P) * PRIM_W;
+  LightSample ls = sample_light(lrow, carrier, h.p, u[1], u[2], u[3], u[4], fl.origin_pdf);
+  V3 eta = ld3(mrow + 5), kk = ld3(mrow + 8);
+  BsdfSample bn = bsdf_sample(fr, mtype, albedo, eta, kk, wwo, u[5], u[6], u[7], true);
+  BsdfSample bs = bsdf_sample(fr, mtype, albedo, eta, kk, wwo, u[9], u[10], u[11], false);
+
+  // three closest-hit queries from the shading point
+  Query sq = closest(h.p, ls.wi);
+  Query nq = closest(h.p, bn.wwi);
+  Query xq = closest(h.p, bs.wwi);
+  const bool s_hits = (int)tb.prim[clampi(sq.prim, tb.P) * PRIM_W + 26] == li;
+  const bool n_hits = (int)tb.prim[clampi(nq.prim, tb.P) * PRIM_W + 26] == li;
+
+  // ---- NEE, light-sampling strategy (integrator._nee_contributions) ----
+  V3 f = (mtype == MAT_DIFFUSE && dot(ls.wi, h.norm) * dot(wwo, h.norm) > 0.0f)
+             ? albedo * INV_PI
+             : zero;
+  const bool unoccl = !sq.found || (!ls.delta && s_hits);
+  float b_pdf = 0.0f;
+  if (mtype == MAT_DIFFUSE) {
+    float wiz = dot(ls.wi, fr.n);
+    b_pdf = dot(wwo, fr.n) * wiz > 0.0f ? fabsf(wiz) * INV_PI : 0.0f;
+  }
+  const float bp = clip_pdf(b_pdf), lp = clip_pdf(ls.pdf);
+  float w = fl.swapped_mis ? (bp * bp) / (bp * bp + lp * lp) : (lp * lp) / (bp * bp + lp * lp);
+  w = (b_pdf == 0.0f && ls.pdf == 0.0f) ? 0.0f : w;
+  w = ls.delta ? 1.0f : w;
+  const bool gate_l = ls.pdf > 0.0f && dot(ls.Li, ls.Li) > 0.0f && dot(f, f) > 0.0f && unoccl;
+  const float scale_l = gate_l ? (fabsf(dot(ls.wi, h.norm)) * w) / lp : 0.0f;
+  const V3 cl = gate_l ? (f * ls.Li) * scale_l : zero;
+
+  // ---- NEE, BSDF-sampling strategy (non-delta lights only) ----
+  const float l_pdf2 =
+      (int)lrow[0] == LIGHT_AREA ? surface_pdf(carrier, h.p, bn.wwi, fl.origin_pdf) : 0.0f;
+  const float bp2 = clip_pdf(bn.pdf), lp2 = clip_pdf(l_pdf2);
+  float w2 = (bp2 * bp2) / (bp2 * bp2 + lp2 * lp2);
+  w2 = (bn.pdf == 0.0f && l_pdf2 == 0.0f) ? 0.0f : w2;
+  w2 = bn.spec ? 1.0f : w2;
+  bool le_gate;
+  if (fl.shading_gate) {
+    // the reference gates emission on the SHADING normal (renderer.cpp:42)
+    le_gate = dot(h.norm, -bn.wwi) > 0.0f;
+  } else {
+    const float* nrow = tb.prim + clampi(nq.prim, tb.P) * PRIM_W;
+    le_gate = dot(detail_norm(nrow, hit_point(h.p, bn.wwi, nq.t, nq.found)), -bn.wwi) > 0.0f;
+  }
+  const V3 Li2 = (nq.found && n_hits && le_gate) ? ld3(lrow + 4) : zero;
+  const bool gate_b = !ls.delta && dot(bn.f, bn.f) > 0.0f && bn.pdf > 0.0f &&
+                      (bn.spec || l_pdf2 != 0.0f) && nq.found && dot(Li2, Li2) > 0.0f;
+  const float scale_b = gate_b ? (fabsf(dot(bn.wwi, h.norm)) * w2) / bp2 : 0.0f;
+  const V3 cb = gate_b ? (bn.f * Li2) * scale_b : zero;
+  if (cur) {
+    s.L = s.L + (s.T * cl) * (float)nl;
+    s.L = s.L + (s.T * cb) * (float)nl;
+  }
+
+  // throughput update (clamped 1e12 per bounce, 1e16 overall) and
+  // termination after the last shading vertex
+  const bool ok = dot(bs.f, bs.f) > 0.0f && bs.pdf > 0.0f;
+  const bool alive_next = cur && ok && i <= fl.max_bounces - 2;
+  if (alive_next) {
+    const float sc = fabsf(dot(bs.wwi, h.norm)) / clip_pdf(bs.pdf);
+    s.T = vmin(s.T * vmin(bs.f * sc, 1.0e12f), 1.0e16f);
+  }
+  s.o = h.p;
+  s.d = bs.wwi;
+  s.prev_spec = bs.spec;
+  s.alive = alive_next;
+  s.prim = xq.prim;
+  s.t = xq.t;
 }
 
 }  // namespace plu

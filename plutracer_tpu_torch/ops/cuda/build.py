@@ -1,8 +1,10 @@
 """Build and load the CUDA kernels (plutracer_tpu_torch/csrc/*.cu).
 
 One shared library with a plain C interface, compiled by ``nvcc`` for
-Hopper (sm_90a) at first use and loaded with ctypes. Nothing is compiled
-when the package is imported. The library lands in
+Hopper (sm_90a) at first use and loaded with ctypes: every ``.cu`` source
+is compiled to an object by its own ``nvcc``, all started together, and
+the objects are linked into the library. Nothing is compiled when the
+package is imported. The library lands in
 ``plutracer_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags, so an edited source is rebuilt and a fresh checkout
 builds its own.
@@ -27,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 ]
 
@@ -41,6 +43,21 @@ _SIGNATURES = {
     # shading_gate, stream
     "plu_megakernel": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,
                        _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    # packed, node_min, node_max, node_skip, leaf_row, line_only, N, margin,
+    # o, d, t_out, prim_out, B, stream
+    "plu_closest_hit_bvh": [_vp, _vp, _vp, _vp, _vp, _vp, _i, ctypes.c_float,
+                            _vp, _vp, _vp, _vp, _i, _vp],
+    # prim, P, mat, M, tex, T, light, L, atlas, A, has_images, the BVH as
+    # above (8), o, d, u, out, B, max_bounces, swapped_mis, origin_pdf,
+    # shading_gate, stream
+    "plu_megakernel_stream": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,
+                              _vp, _vp, _vp, _vp, _vp, _vp, _i, ctypes.c_float,
+                              _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    # the tables and the BVH as above, carry_in, carry_out, u, B, bounce,
+    # max_bounces, swapped_mis, origin_pdf, shading_gate, stream
+    "plu_megakernel_onebounce": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,
+                                 _vp, _vp, _vp, _vp, _vp, _vp, _i, ctypes.c_float,
+                                 _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],
 }
 
 
@@ -93,15 +110,34 @@ def load() -> Library:
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+        nvcc = find_nvcc()
+        tag = f"{path.stem}.{os.getpid()}"
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        objs, procs = [], []
+        try:
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+                objs.append(obj)
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            log = "".join(p.communicate(timeout=900)[0] for p in procs)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True, timeout=300)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        log += link.stdout + link.stderr
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
         os.replace(tmp, path)
     _LOADED.append(Library(path, seconds, log))
     return _LOADED[0]

@@ -1,14 +1,19 @@
-"""K2: the path megakernel (every bounce of every ray in one launch).
+"""K2: the path megakernel (every bounce of every ray in one launch), and
+the kernel path's dispatch.
 
 ``ray_color_kernel`` takes the plain integrator's inputs (scene, rays,
-uniforms u of shape (max_bounces, B, 12)). On CUDA tensors it finds the
-primary hit with K1 and launches the CUDA kernel (csrc/megakernel.cu,
-``ray_color_cuda``); on CPU tensors it runs the plain version,
-render/integrator.ray_color, fed the same uniforms. The kernel replaces the JAX package's unrolled Pallas
-megakernel (plutracer_tpu/ops/pallas/integrator_kernel.py: _build_kernel
-/ _megakernel_call / ray_color_pallas).
+uniforms u of shape (max_bounces, B, 12)) and goes by
+integrator.kernel_tier: "k2" runs ``ray_color_cuda`` (K1 finds the
+primary hit, then the CUDA kernel csrc/megakernel.cu), "k3" the stream
+kernel (stream_kernel.ray_color_stream_cuda), "k4" the wavefront loop of
+render/wavefront.py over the one-bounce kernel. On CPU tensors each takes
+its plain version fed the same uniforms: render/integrator.ray_color, or
+the wavefront loop over integrator.plain_bounce. K2 replaces the JAX
+package's unrolled Pallas megakernel
+(plutracer_tpu/ops/pallas/integrator_kernel.py: _build_kernel /
+_megakernel_call / ray_color_pallas).
 
-``ray_color_cuda.launches`` counts kernel launches.
+``ray_color_cuda.launches`` counts K2's launches.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from plutracer_tpu_torch.ops.tables import pack_tables
 
 
 def _check_inputs(scene, o, d, u, options, tables):
-    from plutracer_tpu_torch.render.integrator import megakernel_eligible
+    from plutracer_tpu_torch.render.integrator import MAX_P, megakernel_eligible
 
     if any(x.requires_grad for x in (o, d, u, *tables)):
         raise NotImplementedError(
@@ -29,9 +34,9 @@ def _check_inputs(scene, o, d, u, options, tables):
         )
     if not o.is_cuda:
         raise ValueError(f"ray_color_cuda: rays must be on a CUDA device, got {o.device}")
-    if not megakernel_eligible(scene, options):
+    if not megakernel_eligible(scene, options) or scene.prim_type.shape[0] > MAX_P:
         raise ValueError("ray_color_cuda: the scene exceeds the megakernel's "
-                         "static limits (see megakernel_eligible)")
+                         "static limits (see megakernel_eligible; P > 64 takes K3)")
     B = o.shape[0]
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
         raise ValueError(f"ray_color_cuda: o, d must be (B, 3), got {tuple(o.shape)}, {tuple(d.shape)}")
@@ -46,13 +51,22 @@ def _check_inputs(scene, o, d, u, options, tables):
 
 def ray_color_kernel(scene, o, d, u, options):
     """Radiance (B, 3) for rays o, d (B, 3) and uniforms u
-    (max_bounces, B, 12). CUDA tensors: ray_color_cuda. CPU tensors: the
-    plain ray_color."""
-    if o.is_cuda:
-        return ray_color_cuda(scene, o, d, u, options)
-    from plutracer_tpu_torch.render.integrator import ray_color
+    (max_bounces, B, 12), by kernel_tier: K2, K3, or the wavefront loop
+    over K4. CPU tensors: the plain versions."""
+    from plutracer_tpu_torch.render.integrator import kernel_tier, ray_color
 
-    return ray_color(scene, o, d, u, options)
+    tier = kernel_tier(scene, options)
+    if tier == "k4":
+        from plutracer_tpu_torch.render.wavefront import ray_color_wavefront
+
+        return ray_color_wavefront(scene, o, d, u, options)
+    if not o.is_cuda:
+        return ray_color(scene, o, d, u, options)
+    if tier == "k3":
+        from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
+
+        return ray_color_stream_cuda(scene, o, d, u, options)
+    return ray_color_cuda(scene, o, d, u, options)
 
 
 def ray_color_cuda(scene, o, d, u, options):

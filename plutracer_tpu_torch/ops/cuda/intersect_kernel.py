@@ -1,4 +1,5 @@
-"""K1: closest hit over the type-partitioned primitive table.
+"""K1: closest hit over the type-partitioned primitive table, and the
+K3 query: the same closest hit found by a walk of the scene's BVH.
 
 ``closest_hit`` runs the CUDA kernel (csrc/closest_hit.cu, launched by
 ``closest_hit_cuda``) on CUDA tensors and its plain PyTorch version
@@ -6,7 +7,15 @@
 (plutracer_tpu/ops/pallas/intersect_kernel.py:_kernel): same table, same
 accept rules, same strict-< fold in table order.
 
-``closest_hit_cuda.launches`` counts kernel launches.
+``closest_hit_bvh`` is the closest-hit query of the stream kernels K3 and
+K4 as a launch of its own (csrc/bvh_closest.cuh, launched by
+``closest_hit_bvh_cuda``), with ``bvh_closest_plain`` as its plain
+version. It replaces the streamed brute force of the JAX package's
+stream kernel (integrator_kernel.py: _closest_stream / _closest_stream3
+over Morton-ordered MegaPack chunks) and answers exactly as K1 does.
+
+``closest_hit_cuda.launches`` and ``closest_hit_bvh_cuda.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from plutracer_tpu_torch.ops.intersect import T_MAX, _BIG
 from plutracer_tpu_torch.scene.types import PRIM_BOX, PRIM_SPHERE
 
 PACK_W = 24
+_NO_ROW = 2**31 - 1
 
 
 def _slab(lo, hi, o, rinv):
@@ -34,12 +44,17 @@ def _slab(lo, hi, o, rinv):
 def packed_ts(packed, o, d):
     """(B, P_pad) t of every ray against every packed row, with the
     kernel's arithmetic (_BIG on a miss)."""
-    o3 = o[:, None, :]
-    d3 = d[:, None, :]
-    ty = packed[None, :, 0]
-    a = packed[None, :, 1:4]
-    b = packed[None, :, 4:7]
-    c = packed[None, :, 7:10]
+    return row_ts(packed[None], o[:, None, :], d[:, None, :])
+
+
+def row_ts(rows, o3, d3):
+    """t of rays o3, d3 (..., 3) against packed rows (..., 24), the
+    leading dimensions broadcast: K1's per-row arithmetic (csrc
+    path_common.cuh packed_row_t), _BIG on a miss."""
+    ty = rows[..., 0]
+    a = rows[..., 1:4]
+    b = rows[..., 4:7]
+    c = rows[..., 7:10]
     rinv = 1.0 / torch.where(d3 == 0.0, 1e-20, d3)
     ox, oy, oz = o3[..., 0], o3[..., 1], o3[..., 2]
     dx, dy, dz = d3[..., 0], d3[..., 1], d3[..., 2]
@@ -52,7 +67,7 @@ def packed_ts(packed, o, d):
     sq = torch.sqrt(torch.clamp(det, min=0.0))
     i1 = qb - sq
     i2 = qb + sq
-    cmin, cmax = _slab(packed[None, :, 11:14], packed[None, :, 14:17], o3, rinv)
+    cmin, cmax = _slab(rows[..., 11:14], rows[..., 14:17], o3, rinv)
     t_s = torch.where((det >= 0.0) & (i1 > 0.0) & (i2 > 0.0) & (cmax >= cmin), i1, _BIG)
 
     # box: slab test, tmin >= 0
@@ -135,3 +150,114 @@ def closest_hit_cuda(packed, o, d):
 
 
 closest_hit_cuda.launches = 0
+
+
+def bvh_closest_plain(packed, bvh, leaf_row, line_only, margin, o, d):
+    """The K3 query's plain version: every ray walks the skip-link BVH
+    (found, prim, t), answering as closest_hit_plain does on every ray
+    that hits (found, prim and t equal). A miss reports found False, prim
+    0 and t _BIG, where closest_hit_plain may report the t of a padding
+    row about 1e30 away; no caller reads t on a miss.
+
+    - A leaf tests its packed row (``leaf_row``) with K1's arithmetic,
+      parent-AABB sphere cull included, and folds the lexicographic
+      minimum of (t, packed row): K1 keeps the first packed row among
+      equal t, and the walk visits rows in tree order.
+    - An internal node's box, padded by ``margin`` on every side, is
+      entered when the ray's LINE crosses it (``line_only`` nodes hold a
+      sphere, whose phantom hits of non-unit rays lie outside its box),
+      else when the ray's [0, best t] overlaps it. NaN passes the test.
+    - Then the walk goes to node + 1, or past the subtree to its skip.
+
+    Rays advance in lockstep; only rays still walking are computed."""
+    B = o.shape[0]
+    N = bvh.num_nodes
+    rinv = 1.0 / torch.where(d == 0.0, 1e-20, d)
+    lo = bvh.node_min - margin
+    hi = bvh.node_max + margin
+    skip = bvh.node_skip.long()
+    leaf_row = leaf_row.long()
+    node = torch.zeros(B, dtype=torch.long, device=o.device)
+    best_t = torch.full((B,), _BIG, dtype=torch.float32, device=o.device)
+    best_row = torch.full((B,), _NO_ROW, dtype=torch.long, device=o.device)
+    walking = torch.arange(B, device=o.device)
+    while walking.numel():
+        n = node[walking]
+        row = leaf_row[n]
+        leaf = row >= 0
+        nxt = skip[n]
+        # leaves: K1's test of the packed row, lexicographic (t, row) fold
+        la, lr = walking[leaf], row[leaf]
+        t = row_ts(packed[lr], o[la], d[la])
+        bt, br = best_t[la], best_row[la]
+        take = (t < bt) | ((t == bt) & (lr < br) & (t < _BIG))
+        best_t[la] = torch.where(take, t, bt)
+        best_row[la] = torch.where(take, lr, br)
+        # internal nodes: the padded box test
+        ia, ni = walking[~leaf], n[~leaf]
+        tmin, tmax = _slab(lo[ni], hi[ni], o[ia], rinv[ia])
+        ray_test = ~(tmax < torch.clamp(tmin, min=0.0)) & ~(tmin > best_t[ia])
+        visit = torch.where(line_only[ni], ~(tmax < tmin), ray_test)
+        nxt[~leaf] = torch.where(visit, ni + 1, nxt[~leaf])
+        node[walking] = nxt
+        walking = walking[nxt < N]
+    hit = best_t < _BIG
+    prim = torch.where(hit, packed[best_row.clamp(max=packed.shape[0] - 1), 10].to(torch.int32), 0)
+    return best_t < T_MAX, prim, best_t
+
+
+def _bvh_args(scene):
+    return (scene.prims_packed, scene.bvh, scene.bvh_leaf_row, scene.bvh_line_only,
+            scene.bvh_margin)
+
+
+def closest_hit_bvh(scene, o, d):
+    """(found, prim, t) for rays o, d (B, 3) by a walk of scene.bvh,
+    equal to closest_hit over scene.prims_packed (t on hits; _BIG on a
+    miss, see bvh_closest_plain). CUDA tensors: the K3
+    query kernel. CPU tensors: bvh_closest_plain."""
+    if o.is_cuda:
+        return closest_hit_bvh_cuda(scene, o, d)
+    return bvh_closest_plain(*_bvh_args(scene), o, d)
+
+
+def bvh_pointers(scene):
+    """The BVH walk's table arguments of a kernel launch (pointers, node
+    count, margin), after checking the tables lie with the packed table on
+    one CUDA device in the dtypes the kernel reads."""
+    packed, bvh, leaf_row, line_only, margin = _bvh_args(scene)
+    want = ((packed, torch.float32), (bvh.node_min, torch.float32),
+            (bvh.node_max, torch.float32), (bvh.node_skip, torch.int32),
+            (leaf_row, torch.int32), (line_only, torch.bool))
+    for x, dtype in want:
+        if not x.is_cuda or x.device != packed.device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"BVH tables must be contiguous {dtype} on {packed.device}, "
+                             f"got {x.dtype} on {x.device}")
+    return (packed.data_ptr(), bvh.node_min.data_ptr(), bvh.node_max.data_ptr(),
+            bvh.node_skip.data_ptr(), leaf_row.data_ptr(), line_only.data_ptr(),
+            bvh.num_nodes, float(margin))
+
+
+def closest_hit_bvh_cuda(scene, o, d):
+    """Launch the K3 query kernel on the current stream (no
+    synchronisation). Raises on anything the kernel does not take, CPU
+    tensors included."""
+    from plutracer_tpu_torch.ops.cuda import build
+
+    _check(scene.prims_packed, o, d)
+    tables = bvh_pointers(scene)
+    B = o.shape[0]
+    t = torch.empty(B, dtype=torch.float32, device=o.device)
+    prim = torch.empty(B, dtype=torch.int32, device=o.device)
+    if B == 0:
+        return t < T_MAX, prim, t
+    rc = build.load().lib.plu_closest_hit_bvh(
+        *tables, o.data_ptr(), d.data_ptr(), t.data_ptr(), prim.data_ptr(), B,
+        torch.cuda.current_stream(o.device).cuda_stream,
+    )
+    build.check(rc, "plu_closest_hit_bvh")
+    closest_hit_bvh_cuda.launches += 1
+    return t < T_MAX, prim, t
+
+
+closest_hit_bvh_cuda.launches = 0

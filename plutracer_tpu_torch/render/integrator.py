@@ -8,16 +8,20 @@ emission only at the first vertex or after a specular bounce, one
 uniformly chosen light per vertex, the reference's MIS and pdf quirks
 behind RenderOptions switches, escaped rays contribute nothing.
 
-``ray_color`` is the plain PyTorch integrator: a Python loop over bounces
-on batched tensors, taking the uniforms ``u`` (max_bounces, B, 12) as an
-input. ``radiance`` draws those uniforms from a threefry key, exactly as
-the JAX package does (uniform(fold_in(key, bounce), (B, 12))), and sends
-the batch either to the CUDA megakernel K2 (ops/cuda/integrator_kernel.py)
-or to ``ray_color``. Both take the same uniforms, so they make the same
-sampling decisions.
+``ray_color`` is the plain PyTorch integrator: a Python loop of
+``plain_bounce`` (one shading vertex for every ray) on batched tensors,
+taking the uniforms ``u`` (max_bounces, B, 12) as an input. ``radiance``
+draws those uniforms from a threefry key, exactly as the JAX package does
+(uniform(fold_in(key, bounce), (B, 12))), and sends the batch either to
+the CUDA kernels (ops/cuda/integrator_kernel.ray_color_kernel: the
+megakernel K2, the stream kernel K3 or the one-bounce kernel K4, as
+``kernel_tier`` says) or to ``ray_color``. All take the same uniforms, so
+they make the same sampling decisions.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -36,14 +40,36 @@ from plutracer_tpu_torch.ops.tables import (
 )
 from plutracer_tpu_torch.ops.texture import eval_color_rows
 
-# static caps of the megakernel K2, the JAX package's megakernel_eligible
-# (plutracer_tpu/ops/pallas/integrator_kernel.py:62-108), kept so the port
-# routes every scene as the reference does
+# static caps of the kernel tiers, the JAX package's megakernel_eligible
+# (plutracer_tpu/ops/pallas/integrator_kernel.py:57-108), kept so the port
+# routes every scene as the reference does: P <= MAX_P takes the
+# megakernel K2, MAX_P < P <= MAX_P_HBM the stream kernel K3 (K4 under
+# options.stream_wavefront), where the packed type segments below
+# HBM_MIN_ROWS rows must sum to at most MAX_P_STREAM (_vmem_rows_ok)
 MAX_P = 64
+MAX_P_STREAM = 40960
+HBM_MIN_ROWS = 24576
+MAX_P_HBM = 1 << 20
 MAX_M = 16
 MAX_T = 8
 MAX_L = 8
 MAX_ATLAS = 4096
+
+
+class PathState(NamedTuple):
+    """The per-ray state carried from one shading vertex to the next (the
+    JAX stream kernel's carry): ray, throughput, radiance so far, whether
+    the last bounce was specular, whether the path is alive, and the hit
+    of the ray (prim, t; found is t < T_MAX)."""
+
+    o: torch.Tensor  # (B,3)
+    d: torch.Tensor  # (B,3)
+    T: torch.Tensor  # (B,3)
+    L: torch.Tensor  # (B,3)
+    prev_spec: torch.Tensor  # (B,) bool
+    alive: torch.Tensor  # (B,) bool
+    prim: torch.Tensor  # (B,) i32
+    t: torch.Tensor  # (B,) f32
 
 
 def _clip_pdf(x):
@@ -106,12 +132,21 @@ def _nee_contributions(
     return contrib_l, contrib_b
 
 
+def _vmem_rows_ok(type_rows) -> bool:
+    """The JAX stream tier's budget (integrator_kernel.py:82-86): packed
+    type segments below HBM_MIN_ROWS rows sum to at most MAX_P_STREAM."""
+    return sum(r for r in type_rows if r < HBM_MIN_ROWS) <= MAX_P_STREAM
+
+
 def megakernel_eligible(scene, options) -> bool:
-    """Static qualification for the megakernel K2 (shapes only)."""
+    """Static qualification for the kernel path (shapes only): K2 up to
+    MAX_P primitives, the stream kernels (which walk scene.bvh) beyond."""
     A = scene.atlas.shape[0]
+    P = scene.prim_type.shape[0]
     return (
         scene.prims_packed is not None
-        and scene.prim_type.shape[0] <= MAX_P
+        and (P <= MAX_P_STREAM or _vmem_rows_ok(scene.packed_type_rows))
+        and P <= MAX_P_HBM
         and scene.mat_type.shape[0] <= MAX_M
         and scene.tex_type.shape[0] <= MAX_T
         and 1 <= scene.light_type.shape[0] <= MAX_L
@@ -120,9 +155,20 @@ def megakernel_eligible(scene, options) -> bool:
     )
 
 
+def kernel_tier(scene, options) -> str:
+    """Which kernel the kernel path runs: "k2" (the megakernel, P <=
+    MAX_P), "k3" (the stream kernel) or "k4" (the one-bounce kernel under
+    a host loop, options.stream_wavefront), as ray_color_pallas
+    dispatches (integrator_kernel.py:2257-2268)."""
+    if scene.prim_type.shape[0] <= MAX_P:
+        return "k2"
+    return "k4" if getattr(options, "stream_wavefront", False) else "k3"
+
+
 def resolve_integrator_backend(scene, options, device) -> str:
-    """'kernel' (K2) or 'plain'. auto = K2 on a CUDA device for scenes
-    within megakernel_eligible's caps, the plain integrator otherwise."""
+    """'kernel' (K2, K3 or K4: kernel_tier) or 'plain'. auto = the kernel
+    path on a CUDA device for scenes within megakernel_eligible's caps,
+    the plain integrator otherwise."""
     backend = getattr(options, "integrator_backend", "auto")
     eligible = megakernel_eligible(scene, options)
     if backend == "auto":
@@ -149,8 +195,8 @@ def draw_uniforms(key, B: int, max_bounces: int, device) -> torch.Tensor:
 
 def radiance(scene, o, d, key, options: RenderOptions = DEFAULT_OPTIONS):
     """Radiance for a batch of primary rays o, d (B,3) with the per-bounce
-    uniforms drawn from `key`. Dispatches to K2 or the plain integrator
-    (resolve_integrator_backend)."""
+    uniforms drawn from `key`. Dispatches to the kernels or the plain
+    integrator (resolve_integrator_backend)."""
     u = draw_uniforms(key, o.shape[0], options.max_bounces, o.device)
     if resolve_integrator_backend(scene, options, o.device) == "kernel":
         from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_kernel
@@ -164,98 +210,110 @@ def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS):
     Returns (B,3) radiance. Every closest-hit query goes through
     intersect.query_lite (K1 on a CUDA device)."""
     B = o.shape[0]
-    num_lights = scene.light_type.shape[0]
     tables = pack_tables(scene)
-    has_images = scene.atlas.shape[0] > 1
-    # the kernel's t is not differentiable: recompute it at the winner
-    # with the plain per-primitive test, accepted only where it agrees the
-    # ray hits (a _BIG sentinel on a found lane would put p at ~4e37)
-    diff_t = o.is_cuda
-
     # primary hit (reference traces it before the bounce loop, renderer.cpp:61)
     found, prim, t = intersect.query_lite(scene, o, d)
-    if diff_t:
-        t0d = intersect.prim_t_rows(o, d, gather_prim(tables, prim))
-        t = torch.where(found & (t0d < intersect.T_MAX), t0d, t)
-
-    T = torch.ones_like(o)
-    L = torch.zeros_like(o)
-    prev_spec = torch.zeros(B, dtype=torch.bool, device=o.device)
-    alive = torch.ones(B, dtype=torch.bool, device=o.device)
+    if o.is_cuda:
+        t = _recompute_t(tables, o, d, found, prim, t)
+    state = PathState(
+        o=o, d=d, T=torch.ones_like(o), L=torch.zeros_like(o),
+        prev_spec=torch.zeros(B, dtype=torch.bool, device=o.device),
+        alive=torch.ones(B, dtype=torch.bool, device=o.device),
+        prim=prim, t=t,
+    )
     for i in range(options.max_bounces):
-        ui = u[i]
-        rows = gather_prim(tables, prim)
-        hit = intersect.hit_detail_rows(o, d, t, prim, found, rows)
-        cur = alive & hit.found
-        wwo = -d
-        mrows = gather_mat(tables, rows.material)
-        mtype = mrows.mtype
-        trows = gather_tex(tables, torch.clamp(mrows.tex, min=0))
-        albedo = eval_color_rows(scene.atlas, mrows, trows, hit.uv, has_images)
-        frame = bsdf_ops.make_frame(hit.norm, hit.dpdu)
+        state = plain_bounce(scene, tables, state, u[i], i, options)
+    return state.L
 
-        # emitted light at the vertex (first or post-specular only)
-        emit_gate = prev_spec if i > 0 else torch.ones_like(prev_spec)
-        own_light = gather_light(tables, torch.clamp(rows.light, min=0))
-        Le = lights.emitted_rows(rows, own_light, hit.norm, wwo)
-        L = L + torch.where((cur & emit_gate)[..., None], T * Le, 0.0)
 
-        # next-event estimation: pick one light uniformly
-        li = torch.clamp(
-            torch.floor(ui[:, 0] * num_lights).to(torch.int32), max=num_lights - 1
-        )
-        lrows = gather_light(tables, li)
-        carrier = gather_prim(tables, torch.clamp(lrows.prim, min=0))
-        ls = lights.sample_light_rows(
-            lrows, carrier, hit.p, ui[:, 1:3], ui[:, 3], ui[:, 4], options
-        )
-        bs_nee = bsdf_ops.bsdf_sample(
-            frame, mtype, albedo, mrows.eta, mrows.k, wwo, ui[:, 5], ui[:, 6:8],
-            non_specular_only=True,
-        )
-        # main BSDF sample for the path extension
-        bs = bsdf_ops.bsdf_sample(
-            frame, mtype, albedo, mrows.eta, mrows.k, wwo, ui[:, 9], ui[:, 10:12]
-        )
+def _recompute_t(tables, o, d, found, prim, t):
+    """The kernel's t is not differentiable: recompute it at the winner
+    with the plain per-primitive test, accepted only where it agrees the
+    ray hits (a _BIG sentinel on a found lane would put p at ~4e37)."""
+    td = intersect.prim_t_rows(o, d, gather_prim(tables, prim))
+    return torch.where(found & (td < intersect.T_MAX), td, t)
 
-        # ONE batched closest-hit query: [shadow | nee-bsdf | extension]
-        O3 = torch.cat([hit.p, hit.p, hit.p], 0)
-        D3 = torch.cat([ls.wi, bs_nee.wwi, bs.wwi], 0)
-        f3, p3, t3 = intersect.query_lite(scene, O3, D3)
-        plight3 = gather_prim_light(tables, p3[: 2 * B])
-        sf, nf, xf = f3[:B], f3[B : 2 * B], f3[2 * B :]
-        xp, xt = p3[2 * B :], t3[2 * B :]
-        s_hits = plight3[:B] == li
-        n_hits = plight3[B:] == li
 
-        if options.shading_normal_le_gate:
-            nee_norm = hit.norm  # unused in this mode
-        else:
-            nrows = gather_prim(tables, p3[B : 2 * B])
-            nee_norm = intersect.hit_detail_rows(
-                hit.p, bs_nee.wwi, t3[B : 2 * B], p3[B : 2 * B], nf, nrows
-            ).norm
-        cl, cb = _nee_contributions(
-            hit, frame, mtype, albedo, wwo, options, ls, bs_nee, lrows, carrier,
-            sf, s_hits, nf, n_hits, nee_norm,
-        )
-        L = L + torch.where(cur[..., None], T * cl * num_lights, 0.0)
-        L = L + torch.where(cur[..., None], T * cb * num_lights, 0.0)
+def plain_bounce(scene, tables, state: PathState, ui, i: int,
+                 options: RenderOptions = DEFAULT_OPTIONS) -> PathState:
+    """One shading vertex of every ray (the plain twin of the one-bounce
+    kernel K4): state at vertex i and its uniforms ui (B, 12) in, the
+    state at vertex i + 1 out."""
+    o, d, T, L, prev_spec, alive, prim, t = state
+    B = o.shape[0]
+    num_lights = scene.light_type.shape[0]
+    has_images = scene.atlas.shape[0] > 1
+    found = t < intersect.T_MAX
 
-        # throughput update + path termination; the per-bounce weight and
-        # the running product are clamped (1e12 / 1e16) so degenerate
-        # x-face frames cannot overflow a live lane to inf
-        ok = (dot(bs.f, bs.f) > 0.0) & (bs.pdf > 0.0)
-        alive_next = cur & ok & (i <= options.max_bounces - 2)
-        w_b = torch.clamp(
-            bs.f * safe_div(dot(bs.wwi, hit.norm).abs(), _clip_pdf(bs.pdf))[..., None],
-            max=1.0e12,
-        )
-        T = torch.where(alive_next[..., None], torch.clamp(T * w_b, max=1.0e16), T)
+    rows = gather_prim(tables, prim)
+    hit = intersect.hit_detail_rows(o, d, t, prim, found, rows)
+    cur = alive & hit.found
+    wwo = -d
+    mrows = gather_mat(tables, rows.material)
+    mtype = mrows.mtype
+    trows = gather_tex(tables, torch.clamp(mrows.tex, min=0))
+    albedo = eval_color_rows(scene.atlas, mrows, trows, hit.uv, has_images)
+    frame = bsdf_ops.make_frame(hit.norm, hit.dpdu)
 
-        if diff_t:
-            xtd = intersect.prim_t_rows(hit.p, bs.wwi, gather_prim(tables, xp))
-            xt = torch.where(xf & (xtd < intersect.T_MAX), xtd, xt)
-        o, d, prev_spec, alive = hit.p, bs.wwi, bs.is_specular, alive_next
-        found, prim, t = xf, xp, xt
-    return L
+    # emitted light at the vertex (first or post-specular only)
+    emit_gate = prev_spec if i > 0 else torch.ones_like(prev_spec)
+    own_light = gather_light(tables, torch.clamp(rows.light, min=0))
+    Le = lights.emitted_rows(rows, own_light, hit.norm, wwo)
+    L = L + torch.where((cur & emit_gate)[..., None], T * Le, 0.0)
+
+    # next-event estimation: pick one light uniformly
+    li = torch.clamp(
+        torch.floor(ui[:, 0] * num_lights).to(torch.int32), max=num_lights - 1
+    )
+    lrows = gather_light(tables, li)
+    carrier = gather_prim(tables, torch.clamp(lrows.prim, min=0))
+    ls = lights.sample_light_rows(
+        lrows, carrier, hit.p, ui[:, 1:3], ui[:, 3], ui[:, 4], options
+    )
+    bs_nee = bsdf_ops.bsdf_sample(
+        frame, mtype, albedo, mrows.eta, mrows.k, wwo, ui[:, 5], ui[:, 6:8],
+        non_specular_only=True,
+    )
+    # main BSDF sample for the path extension
+    bs = bsdf_ops.bsdf_sample(
+        frame, mtype, albedo, mrows.eta, mrows.k, wwo, ui[:, 9], ui[:, 10:12]
+    )
+
+    # ONE batched closest-hit query: [shadow | nee-bsdf | extension]
+    O3 = torch.cat([hit.p, hit.p, hit.p], 0)
+    D3 = torch.cat([ls.wi, bs_nee.wwi, bs.wwi], 0)
+    f3, p3, t3 = intersect.query_lite(scene, O3, D3)
+    plight3 = gather_prim_light(tables, p3[: 2 * B])
+    sf, nf, xf = f3[:B], f3[B : 2 * B], f3[2 * B :]
+    xp, xt = p3[2 * B :], t3[2 * B :]
+    s_hits = plight3[:B] == li
+    n_hits = plight3[B:] == li
+
+    if options.shading_normal_le_gate:
+        nee_norm = hit.norm  # unused in this mode
+    else:
+        nrows = gather_prim(tables, p3[B : 2 * B])
+        nee_norm = intersect.hit_detail_rows(
+            hit.p, bs_nee.wwi, t3[B : 2 * B], p3[B : 2 * B], nf, nrows
+        ).norm
+    cl, cb = _nee_contributions(
+        hit, frame, mtype, albedo, wwo, options, ls, bs_nee, lrows, carrier,
+        sf, s_hits, nf, n_hits, nee_norm,
+    )
+    L = L + torch.where(cur[..., None], T * cl * num_lights, 0.0)
+    L = L + torch.where(cur[..., None], T * cb * num_lights, 0.0)
+
+    # throughput update + path termination; the per-bounce weight and
+    # the running product are clamped (1e12 / 1e16) so degenerate
+    # x-face frames cannot overflow a live lane to inf
+    ok = (dot(bs.f, bs.f) > 0.0) & (bs.pdf > 0.0)
+    alive_next = cur & ok & (i <= options.max_bounces - 2)
+    w_b = torch.clamp(
+        bs.f * safe_div(dot(bs.wwi, hit.norm).abs(), _clip_pdf(bs.pdf))[..., None],
+        max=1.0e12,
+    )
+    T = torch.where(alive_next[..., None], torch.clamp(T * w_b, max=1.0e16), T)
+
+    if o.is_cuda:
+        xt = _recompute_t(tables, hit.p, bs.wwi, xf, xp, xt)
+    return PathState(hit.p, bs.wwi, T, L, bs.is_specular, alive_next, xp, xt)

@@ -28,12 +28,17 @@ from plutracer_tpu_torch.scene.types import (
     PRIM_SPHERE,
     PRIM_TRIANGLE,
     TEX_IMAGE,
+    BvhTables,
     CameraParams,
     Scene,
     SceneDesc,
 )
 
 PRIM_TILE = 8  # rows per type segment of the packed closest-hit table
+# node boxes of the BVH walk are padded by this fraction of the scene's
+# size: a hit that K1's arithmetic accepts on a box face or a triangle
+# edge must never be culled by a node test that rounds the other way
+BVH_MARGIN = 1e-4
 
 
 def build_camera(
@@ -126,6 +131,47 @@ def pack_prims_np(leaves: Dict) -> np.ndarray:
     return np.concatenate(segments, axis=0)
 
 
+def bvh_helpers(prim_type, bvh) -> Dict:
+    """The BVH walk's helper leaves (numpy), from the primitive types and
+    the skip-link tree:
+
+    - ``bvh_leaf_row`` (N,) i32: each leaf's row of ``prims_packed`` (the
+      inverse of packed col 10 over the real rows), -1 at internal nodes;
+    - ``bvh_line_only`` (N,) bool: the node's subtree holds a sphere, so
+      the walk tests it with the LINE slab test only (a phantom hit of a
+      non-unit ray lies outside the sphere's own box at any t);
+    - ``bvh_margin``: the padding of every node box, BVH_MARGIN of the
+      root box's size (diagonal or largest coordinate);
+    - ``packed_type_rows``: the padded rows of each type segment of
+      ``prims_packed`` (sphere, box, triangle), 0 for an absent type."""
+    ptype = np.asarray(prim_type, np.int32)
+    row_of = np.zeros(ptype.shape[0], np.int32)
+    type_rows = []
+    offset = 0
+    for t in (PRIM_SPHERE, PRIM_BOX, PRIM_TRIANGLE):
+        (idx,) = np.nonzero(ptype == t)
+        row_of[idx] = offset + np.arange(idx.size, dtype=np.int32)
+        n_pad = -(-idx.size // PRIM_TILE) * PRIM_TILE
+        type_rows.append(int(n_pad))
+        offset += n_pad
+    node_prim = np.asarray(bvh.node_prim, np.int32)
+    node_skip = np.asarray(bvh.node_skip, np.int64)
+    leaf = node_prim >= 0
+    prim = np.maximum(node_prim, 0)
+    sphere_leaf = leaf & (ptype[prim] == PRIM_SPHERE)
+    csum = np.concatenate([[0], np.cumsum(sphere_leaf)])
+    line_only = csum[node_skip] - csum[np.arange(node_prim.shape[0])] > 0
+    lo = np.asarray(bvh.node_min, np.float64)[0]
+    hi = np.asarray(bvh.node_max, np.float64)[0]
+    scale = max(float(np.linalg.norm(hi - lo)), float(np.abs(lo).max()), float(np.abs(hi).max()))
+    return dict(
+        bvh_leaf_row=np.where(leaf, row_of[prim], -1).astype(np.int32),
+        bvh_line_only=line_only,
+        bvh_margin=BVH_MARGIN * scale,
+        packed_type_rows=tuple(type_rows),
+    )
+
+
 def compile_numpy(desc: SceneDesc, options: RenderOptions = DEFAULT_OPTIONS) -> Dict:
     """The host stage: every Scene field as a numpy leaf (camera as a
     dict of CameraParams fields)."""
@@ -205,8 +251,9 @@ def compile_numpy(desc: SceneDesc, options: RenderOptions = DEFAULT_OPTIONS) -> 
         if parent_max[j, 0] < 3.0e38
     )
     lv.update(parent_min=parent_min, parent_max=parent_max,
-              cull_rows=cull_rows or None)
+              cull_rows=cull_rows or None, bvh=bvh)
     lv["prims_packed"] = pack_prims_np(lv)
+    lv.update(bvh_helpers(lv["prim_type"], bvh))
     _assert_finite(lv)
     return lv
 
@@ -228,8 +275,12 @@ def scene_from_numpy(leaves: Dict) -> Scene:
     """Scene (CPU tensors) from numpy leaves keyed by Scene field name,
     with ``camera`` a dict keyed by CameraParams field name. Accepts both
     this package's ``compile_numpy`` output and the JAX package's
-    compiled leaves; keys that are not Scene fields are ignored."""
+    compiled leaves (whose ``bvh`` is the JAX package's BvhArrays; the
+    walk's helper leaves are derived from it when absent); keys that are
+    not Scene fields are ignored."""
     t = lambda x: torch.as_tensor(np.array(x))
+    if "bvh_leaf_row" not in leaves:
+        leaves = {**leaves, **bvh_helpers(leaves["prim_type"], leaves["bvh"])}
     cam = CameraParams(**{
         f.name: t(leaves["camera"][f.name]) for f in dataclasses.fields(CameraParams)
     })
@@ -240,6 +291,12 @@ def scene_from_numpy(leaves: Dict) -> Scene:
         v = leaves[f.name]
         if f.name == "cull_rows":
             kw[f.name] = tuple(int(r) for r in v) if v else None
+        elif f.name == "packed_type_rows":
+            kw[f.name] = tuple(int(r) for r in v)
+        elif f.name == "bvh_margin":
+            kw[f.name] = float(v)
+        elif f.name == "bvh":
+            kw[f.name] = BvhTables(*(t(getattr(v, g.name)) for g in dataclasses.fields(BvhTables)))
         elif v is not None:
             kw[f.name] = t(v)
     return Scene(camera=cam, **kw)

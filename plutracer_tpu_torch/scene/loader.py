@@ -322,3 +322,21 @@ def load_scene_file(path: str, args: Optional[List[str]] = None) -> SceneDesc:
     with open(path, "r") as f:
         tlv = parse(f.read())
     return load_scene(tlv, args, base_dir=os.path.dirname(os.path.abspath(path)))
+
+
+def sphere_cloud(n: int, seed: int = 0) -> SceneDesc:
+    """A cloud of n random diffuse spheres, built the way
+    tools/experiments/proto_bigp.py's make_table builds its table: centres
+    uniform in [-10, 10]^3, radii uniform in [0.1, 0.5] (numpy draws from
+    `seed`). A closest-hit workload of spheres only."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-10.0, 10.0, (n, 3)).astype(np.float32)
+    radii = rng.uniform(0.1, 0.5, n).astype(np.float32)
+    desc = SceneDesc(resolution=(64, 64), cam_pos=np.array([0.0, 0.0, -30.0], np.float32))
+    m = desc.add_material(MaterialDesc(MAT_DIFFUSE, color=np.full(3, 0.5, np.float32)))
+    for c, r in zip(centres, radii):
+        desc.add_prim(PrimDesc(PRIM_SPHERE, a=c, b=np.array([r, 0.0, 0.0], np.float32),
+                               material=m))
+    desc.add_light(LightDesc(LIGHT_POINT, pos=np.array([0.0, 20.0, 0.0], np.float32),
+                             intensity=np.full(3, 100.0, np.float32)))
+    return desc

@@ -48,7 +48,7 @@ def _move(obj, device):
         **{
             f.name: getattr(obj, f.name).to(device)
             for f in dataclasses.fields(obj)
-            if isinstance(getattr(obj, f.name), (torch.Tensor, CameraParams))
+            if isinstance(getattr(obj, f.name), (torch.Tensor, CameraParams, BvhTables))
         },
     )
 
@@ -69,6 +69,24 @@ class CameraParams:
     focal_distance: torch.Tensor  # ()
 
     def to(self, device) -> "CameraParams":
+        return _move(self, device)
+
+
+@dataclasses.dataclass
+class BvhTables:
+    """The skip-link BVH (scene/bvh.build_bvh) as tensors: N nodes in
+    depth-first order, the JAX package's ops.bvh.BvhArrays."""
+
+    node_min: torch.Tensor  # (N,3) f32
+    node_max: torch.Tensor  # (N,3) f32
+    node_skip: torch.Tensor  # (N,) i32: next node in DFS order skipping this subtree
+    node_prim: torch.Tensor  # (N,) i32: primitive row at a leaf, else -1
+
+    @property
+    def num_nodes(self) -> int:
+        return self.node_skip.shape[0]
+
+    def to(self, device) -> "BvhTables":
         return _move(self, device)
 
 
@@ -117,6 +135,18 @@ class Scene:
     light_prim: torch.Tensor  # (L,) i32 -> primitive row for area lights, or -1
 
     camera: CameraParams
+
+    # the BVH walk of the stream kernels K3/K4 (scene/compile.bvh_helpers):
+    # the tree, each leaf's row of prims_packed (-1 at internal nodes),
+    # whether a node's subtree holds a sphere (such nodes take the padded
+    # LINE test only), and host-side scalars: the node-box padding and the
+    # padded row count of each type segment of prims_packed (sphere, box,
+    # triangle)
+    bvh: BvhTables
+    bvh_leaf_row: torch.Tensor  # (N,) i32
+    bvh_line_only: torch.Tensor  # (N,) bool
+    bvh_margin: float
+    packed_type_rows: Tuple[int, int, int]
 
     # closest-hit kernel table (scene/compile.pack_prims_np), None until built
     prims_packed: Optional[torch.Tensor] = None  # (P_pad, 24)

@@ -8,11 +8,15 @@ without the suite's conftest:
 
 Tolerances: K1 exact (winners and t bit for bit: the kernel and its plain
 version perform the same IEEE float32 operations, built without FMA
-contraction). K2 against the plain ray_color with the same uniforms:
-tests/test_megakernel.py's knife-edge bound (at most 2% of lanes with
-|log1p(a) - log1p(b)| > 1e-3, log1p means within 0.02). Renders against
-the goldens: tests/test_golden.py's bounds, with the p99 allowance for
-mesh0 stated at that test.
+contraction), and the K3 query exact against K1 (the same row tests, the
+same tie rule). K2 and K3 against the plain ray_color with the same
+uniforms: tests/test_megakernel.py's knife-edge bound (at most 2% of
+lanes with |log1p(a) - log1p(b)| > 1e-3, log1p means within 0.02). K4
+against K3: tests/test_megakernel.py's wavefront bound (at most 0.5% of
+lanes over 1e-3, log1p means within 0.01). Renders against the goldens:
+tests/test_golden.py's bounds, with the p99 allowance for mesh0 stated at
+that test, and the mesh scenes under tests/test_torch_stream.py's
+structural bound (repeated here: this file imports no jax).
 """
 
 import pathlib
@@ -28,9 +32,12 @@ from plutracer_tpu_torch.ops.camera import generate_rays
 from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
 from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
     closest_hit,
+    closest_hit_bvh,
+    closest_hit_bvh_cuda,
     closest_hit_cuda,
     closest_hit_plain,
 )
+from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda, ray_color_stream_cuda
 from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color
 from plutracer_tpu_torch.render.renderer import pixel_centers, render
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
@@ -74,6 +81,32 @@ def test_k1_bit_equal_to_plain(dev, name):
         assert torch.equal(f, pf) and torch.equal(p, pp) and torch.equal(t, pt)
 
 
+def interior_rays(s, n, dev):
+    """Random rays from inside the scene's box, unit directions."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    lo, hi = s.prim_a.min(0).values - 1.0, s.prim_b.max(0).values + 1.0
+    o = lo + (hi - lo) * torch.rand((n, 3), generator=g).to(dev)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g).to(dev), dim=-1)
+    return o, d
+
+
+def knife_edge_close(out, ref, frac_bound=0.02, mean_bound=0.02):
+    assert torch.isfinite(out).all()
+    a, b = torch.log1p(out.clamp(min=0.0)), torch.log1p(ref.clamp(min=0.0))
+    assert ((a - b).abs() > 1e-3).float().mean().item() <= frac_bound
+    assert abs(a.mean().item() - b.mean().item()) <= mean_bound
+
+
+def structural_close(img, golden, what):
+    """tests/test_torch_stream.py's structural_close: at most 3% of pixels
+    whose largest channel |log1p(a) - log1p(b)| exceeds 0.05, mean at most
+    0.01 (the triangle self-hit knife edge flips whole paths)."""
+    assert img.shape == golden.shape and np.isfinite(img).all(), what
+    diff = np.abs(np.log1p(np.maximum(img, 0.0)) - np.log1p(np.maximum(golden, 0.0)))
+    frac, mean = float((diff.max(-1) > 0.05).mean()), float(diff.mean())
+    assert frac <= 0.03 and mean <= 0.01, f"{what}: {frac} of pixels over 0.05, mean {mean}"
+
+
 @pytest.mark.parametrize("name", ["demo-box", "dof", "textured0"])
 @pytest.mark.parametrize("options", [DEFAULT_OPTIONS, TEXTBOOK_OPTIONS], ids=["reference", "textbook"])
 def test_k2_matches_plain(dev, name, options):
@@ -83,10 +116,44 @@ def test_k2_matches_plain(dev, name, options):
     out = ray_color_kernel(s, o, d, u, options)
     assert ray_color_cuda.launches == before + 1
     ref = ray_color(s, o, d, u, options)
-    assert torch.isfinite(out).all()
-    a, b = torch.log1p(out.clamp(min=0.0)), torch.log1p(ref.clamp(min=0.0))
-    assert ((a - b).abs() > 1e-3).float().mean().item() <= 0.02
-    assert abs(a.mean().item() - b.mean().item()) <= 0.02
+    knife_edge_close(out, ref)
+
+
+@pytest.mark.parametrize("name", ["demo-box", "sphere-grid", "mesh0", "mesh1"])
+def test_k3_query_bit_equal_to_k1(dev, name):
+    """Camera rays, and extension rays from their hit points (the rays
+    that start on a surface, where the self-hit knife edge lives)."""
+    s, o, d = scene_and_rays(name, 128, dev)
+    f0, _, t0 = closest_hit(s.prims_packed, o, d)
+    p = o + d * torch.where(f0, t0, 1.0)[:, None]
+    for ro, rd in ((o, d), (p, interior_rays(s, o.shape[0], dev)[1]), interior_rays(s, 4096, dev)):
+        before = closest_hit_bvh_cuda.launches
+        got = closest_hit_bvh(s, ro, rd)
+        assert closest_hit_bvh_cuda.launches == before + 1
+        want = closest_hit(s.prims_packed, ro, rd)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[2][want[0]], want[2][want[0]])  # t on hits
+
+
+@pytest.mark.parametrize("name", ["sphere-grid", "mesh0", "mesh1", "mesh-tex"])
+def test_k3_matches_plain(dev, name):
+    s, o, d = scene_and_rays(name, 96, dev)
+    u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
+    before = ray_color_stream_cuda.launches
+    out = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS)
+    assert ray_color_stream_cuda.launches == before + 1
+    knife_edge_close(out, ray_color(s, o, d, u, DEFAULT_OPTIONS))
+
+
+@pytest.mark.parametrize("sort", ["none", "compact", "morton", "morton5"])
+def test_k4_matches_k3(dev, sort):
+    s, o, d = scene_and_rays("mesh0", 96, dev)
+    u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
+    opts = DEFAULT_OPTIONS.replace(stream_wavefront=True, stream_sort=sort)
+    before = onebounce_cuda.launches
+    out = ray_color_kernel(s, o, d, u, opts)
+    assert onebounce_cuda.launches == before + opts.max_bounces
+    knife_edge_close(out, ray_color_stream_cuda(s, o, d, u, DEFAULT_OPTIONS), 0.005, 0.01)
 
 
 def test_uniforms_on_card_equal_cpu(dev):
@@ -104,8 +171,7 @@ def test_uniforms_on_card_equal_cpu(dev):
 @pytest.mark.parametrize("name,p99_bound", [("demo-box", 0.05), ("textured0", 0.05),
                                             ("sphere-grid", 0.05), ("mesh0", 0.1)])
 def test_render_golden_on_card(dev, name, p99_bound):
-    """K1 + K2 (demo-box, textured0) and the plain integrator with K1
-    answering its queries (sphere-grid, mesh0: P > 64)."""
+    """K1 + K2 (demo-box, textured0) and K3 (sphere-grid, mesh0: P > 64)."""
     s = compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"), ["/res", "64x48"]),
                       device=dev)
     img = render(s, 64, 48, 2, rng.PRNGKey(42)).cpu().numpy()
@@ -114,6 +180,30 @@ def test_render_golden_on_card(dev, name, p99_bound):
     diff = np.abs(np.log1p(np.maximum(img, 0.0)) - np.log1p(np.maximum(golden, 0.0)))
     assert np.quantile(diff, 0.99) < p99_bound and diff.mean() < 0.01, (
         f"{name}: p99 {np.quantile(diff, 0.99)} mean {diff.mean()}")
+
+
+@pytest.mark.parametrize("name", ["mesh0", "mesh1", "mesh2", "mesh-tex"])
+def test_render_golden_structural_on_card(dev, name):
+    """The mesh scenes through K3 against their goldens, structurally, each
+    at its golden's size (tests/test_golden.py: mesh2's is 24x18)."""
+    golden = np.load(REPO / "tests" / "goldens" / f"repo-{name}.npz")["linear"].astype(np.float32)
+    h, w = golden.shape[:2]
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"), ["/res", f"{w}x{h}"]),
+                      device=dev)
+    before = ray_color_stream_cuda.launches
+    img = render(s, w, h, 2, rng.PRNGKey(42)).cpu().numpy()
+    assert ray_color_stream_cuda.launches == before + 4
+    structural_close(img, golden, name)
+
+
+def test_cli_on_card_k3(dev, tmp_path):
+    out = tmp_path / "out.bmp"
+    before = ray_color_stream_cuda.launches
+    res = cli.run([str(REPO / "scenes" / "mesh0.urn"), "/res", "64x48", "/smp", "2",
+                   "/o", str(out), "/seed", "1"])
+    assert res.integrator == "kernel" and res.tier == "k3"
+    assert ray_color_stream_cuda.launches == before + 4
+    assert torch.isfinite(res.linear).all()
 
 
 def test_cli_on_card(dev, tmp_path):

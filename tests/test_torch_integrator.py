@@ -10,6 +10,8 @@ root at 0), and log1p means within 0.02. K2 itself is held to the plain
 ray_color on a card in tests/test_torch_cuda.py.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -25,7 +27,9 @@ from plutracer_tpu.semantics import DEFAULT_OPTIONS
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
 from plutracer_tpu_torch.render.integrator import (
+    MAX_ATLAS,
     draw_uniforms,
+    kernel_tier,
     megakernel_eligible,
     ray_color,
     resolve_integrator_backend,
@@ -107,14 +111,21 @@ def test_backend_routing():
     demo = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "8x8"]))
     grid = compile_scene(load_scene_file("scenes/sphere-grid.urn", ["/res", "8x8"]))
     assert megakernel_eligible(demo, DEFAULT_OPTIONS)
-    assert not megakernel_eligible(grid, DEFAULT_OPTIONS)  # P = 122 > 64
+    assert megakernel_eligible(grid, DEFAULT_OPTIONS)  # P = 122 > 64: the stream tier
+    assert kernel_tier(demo, DEFAULT_OPTIONS) == "k2"
+    assert kernel_tier(grid, DEFAULT_OPTIONS) == "k3"
+    assert kernel_tier(grid, DEFAULT_OPTIONS.replace(stream_wavefront=True)) == "k4"
     assert resolve_integrator_backend(demo, DEFAULT_OPTIONS, "cuda") == "kernel"
-    assert resolve_integrator_backend(grid, DEFAULT_OPTIONS, "cuda") == "plain"
+    assert resolve_integrator_backend(grid, DEFAULT_OPTIONS, "cuda") == "kernel"
     assert resolve_integrator_backend(demo, DEFAULT_OPTIONS, "cpu") == "plain"
     forced = DEFAULT_OPTIONS.replace(integrator_backend="kernel")
     assert resolve_integrator_backend(demo, forced, "cpu") == "kernel"
+    # a scene beyond the caps: an image atlas over MAX_ATLAS texels
+    big_atlas = dataclasses.replace(grid, atlas=torch.zeros((MAX_ATLAS + 1, 3)))
+    assert not megakernel_eligible(big_atlas, DEFAULT_OPTIONS)
+    assert resolve_integrator_backend(big_atlas, DEFAULT_OPTIONS, "cuda") == "plain"
     with pytest.raises(ValueError, match="static limits"):
-        resolve_integrator_backend(grid, forced, "cuda")
+        resolve_integrator_backend(big_atlas, forced, "cuda")
     with pytest.raises(ValueError):
         resolve_integrator_backend(demo, DEFAULT_OPTIONS.replace(integrator_backend="xla"), "cpu")
 

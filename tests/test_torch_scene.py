@@ -35,10 +35,21 @@ def jax_leaves(js):
 
 
 def assert_scene_equals_leaves(scene, leaves):
+    """Every Scene field the leaves hold; the BVH walk's helper fields,
+    which only the port has, are derived from the bvh leaf and held in
+    tests/test_torch_bvh.py."""
     for f in dataclasses.fields(Scene):
+        if f.name not in leaves:
+            assert f.name in ("bvh_leaf_row", "bvh_line_only", "bvh_margin", "packed_type_rows")
+            continue
         got = getattr(scene, f.name)
         want = leaves[f.name]
-        if f.name == "camera":
+        if f.name == "bvh":
+            for g in ("node_min", "node_max", "node_skip", "node_prim"):
+                a, b = getattr(got, g).numpy(), np.asarray(getattr(want, g))
+                assert a.dtype == b.dtype and a.shape == b.shape, g
+                np.testing.assert_array_equal(a, b, err_msg=g)
+        elif f.name == "camera":
             for g in dataclasses.fields(CameraParams):
                 a = getattr(got, g.name).numpy()
                 b = want[g.name]
