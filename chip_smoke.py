@@ -25,23 +25,47 @@ both main paths of the port on the card:
      256x256 and 16 samples per pixel, through K3; then one mesh1 render
      with stream_wavefront, through K4;
 11.  the sphere-grid, mesh0, mesh1, mesh2 and mesh-tex goldens through K3
-     (each at its golden's size: 64x48, mesh2 24x18).
+     (each at its golden's size: 64x48, mesh2 24x18);
+12.  K5, the telemetry of K2 and K3: the debug launches on a demo-box
+     512x512 pass and a mesh1 256x256 pass against the plain
+     ray_color(debug=True), radiance with debug on against off, times with
+     and without, ptxas registers of both instantiations;
+13.  gradients: the kernel path's autograd Function against plain autograd
+     (demo-box 256x256 through K2, mesh1 128x128 through K3), finite, one
+     central finite difference per field; forward and backward times;
+14.  training: optimize_scene on demo-box 256x256, n = 2 (the flagship's
+     phase-1 shape), from perturbed albedo: 8 steps of the log loss and 8
+     of the ab loss, a 4 + 4 run resumed from its checkpoint against a
+     straight 8, steps/s and samples/s, and one step of each loss split
+     into the real make_train_step's halves (loss_and_grads, its forward
+     traces, apply), the cost of deterministic algorithms, and what
+     optimize_scene adds.
 
 Every phase asserts and prints its seconds; any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
 
-The second-to-last line is one JSON object with each kernel's launches in
+The third-to-last line is one JSON object with each kernel's launches in
 its main path's run (counts set to 0 just before, read just after), its
-largest difference from the plain version, and both times (CUDA events,
-mean over repeated launches; K4's per launch). The K3 query runs inside
-K3 and K4 on the main path; its own launch is used only here, so its
-entry reports 0 launches. The last line is {"ok": true, "device": ...}.
+largest difference from the plain version, both times (CUDA events,
+mean over repeated launches; K4's per launch), and its bound: the least
+time the card could take for the work at these inputs, the larger of the
+bytes it must move over HBM's 3.35 TB/s and the float32 operations its
+code does on these inputs over 67 TFLOP/s (NVIDIA's H100 SXM peaks; see
+``work_bound``). The path kernels' bounds count only the vertices the
+pass runs (K5's cur channel) and each vertex's cheapest branch
+(``SHADE_OPS``), so they are lower bounds. No single PyTorch call computes any of these functions,
+so library_ms is null. The K3 query runs inside K3 and K4 on the main
+path; its own launch is used only here, so its entry reports 0 launches.
+The next line is the card's name and power limit; the last line is
+{"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -63,7 +87,81 @@ K2_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1019"
 K3_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1883"
 KQ_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1451"
 K4_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1920"
+K5_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1229"
 PLAIN_CHUNK = 4096  # rays per closest_hit_plain call: it builds a (B, P) matrix
+
+# NVIDIA H100 SXM peaks (data sheet): HBM3 bytes/s, float32 (non-tensor) op/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations of one packed-row test (path_common.cuh packed_row_t,
+# hand-counted: subtractions, products, sums, min/max, compares, the fold)
+ROW_OPS = (50, 26, 60)  # sphere, box, triangle
+# one BVH node test (the padded slab: 6 sub, 6 mul, 10 min/max, 3 compares)
+NODE_OPS = 25
+# path_vertex outside its three queries, on its cheapest branch, counted
+# from path_common.cuh (an add, product, division, compare, select, min/max,
+# fabs or transcendental counts 1; a negation 0): the hit detail of a
+# sphere 47 (a box 51), the frame 19, a point light's sample 16, a mirror's
+# two BSDF samples 96, and 109 for the emission test, the light pick, the
+# MIS weights and NEE gates, the radiance and the throughput updates.
+# Dearer branches (a triangle hit, a diffuse or glass BSDF, an area light's
+# two pdfs) do more, so the vertex bound is a lower bound.
+SHADE_OPS = 47 + 19 + 16 + 96 + 109
+# K5's extra work per vertex: Ld's 3 sums and the channel sum's 2, the T
+# max's 2, three selects and two int-to-float conversions (the 12 stores
+# are bytes)
+K5_OPS = 12
+# phases 13 and 14: the gradient checks' scenes and sizes, the training size
+GRAD_CASES = (("demo-box", 256), ("mesh1", 128))
+TRAIN_RES = 256
+SPLIT_ROUNDS = 5  # rounds of the train-step split (phase 14)
+
+
+def work_bound(nbytes: float, ops: float):
+    """(bound ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def query_ops(scene) -> float:
+    """Operations of one brute-force closest-hit query over the packed
+    table (K1's and K2's queries test every row)."""
+    return sum(r * ops for r, ops in zip(scene.packed_type_rows, ROW_OPS)) + 3
+
+
+def walk_ops(scene) -> float:
+    """A lower bound on one BVH walk's operations: a root-to-leaf path of
+    node tests and one leaf's row test (the walk visits at least that)."""
+    depth = max(1, int(np.ceil(np.log2(max(scene.num_prims, 2)))))
+    return depth * NODE_OPS + max(ROW_OPS) + 3
+
+
+def table_bytes(scene, bvh=False) -> float:
+    """The scene tables a path kernel reads once (packed, prim, mat, tex,
+    light rows; the BVH for the stream kernels; the atlas)."""
+    n = (scene.prims_packed.numel() + scene.num_prims * 32 + scene.mat_type.shape[0] * 12
+         + scene.tex_type.shape[0] * 12 + scene.num_lights * 8 + scene.atlas.numel())
+    if bvh:
+        n += scene.bvh.num_nodes * 9  # node min/max, skip, leaf row, line flag
+    return 4.0 * n
+
+
+def path_work(scene, B, live, q_ops, bvh=False):
+    """(bytes, operations) of one path-kernel pass over B rays in which
+    `live` vertices run (a path that ended or escaped does no more work;
+    K5's cur channel counts the rest): the rays read and the radiance
+    written once, the uniforms of the running vertices, the tables once
+    (K2 also reads the primary hit K1 hands it); the primary query of every
+    ray, and per running vertex its shading and three queries."""
+    nbytes = B * (24 + 12) + live * 12 * 4 + table_bytes(scene, bvh) + (0 if bvh else B * 8)
+    return nbytes, B * q_ops + live * (SHADE_OPS + 3 * q_ops)
+
+
+def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
 
 
 def card_line() -> str:
@@ -114,6 +212,24 @@ def structural_check(img, golden, what):
     assert frac <= 0.03 and mean <= 0.01, what
 
 
+def ptxas_report(log: str):
+    """{kernel: ptxas lines} from nvcc's -Xptxas -v output; a templated
+    path kernel is named with its K5 instantiation, <debug> or <plain>."""
+    import re
+
+    out, kernel = {}, "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = next(k for k in ("closest_hit_bvh_kernel", "closest_hit_kernel",
+                                    "megakernel_stream", "megakernel_onebounce", "megakernel")
+                        if k in line)
+            m = re.search(name + r"ILb([01])E", line)
+            kernel = name + ("" if m is None else ("<debug>" if m.group(1) == "1" else "<plain>"))
+        if "registers" in line or "spill" in line:
+            out.setdefault(kernel, []).append(line.strip())
+    return out
+
+
 class PhaseClock:
     """Prints each phase's wall seconds as the next begins."""
 
@@ -132,7 +248,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
 
-    from plutracer_tpu.semantics import DEFAULT_OPTIONS
+    from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
     from plutracer_tpu_torch import cli, rng
     from plutracer_tpu_torch.ops.camera import generate_rays
     from plutracer_tpu_torch.ops.cuda import build
@@ -163,14 +279,9 @@ def main() -> int:
     lib = build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s wall ({lib.build_seconds:.2f} s nvcc) "
           f"-> {lib.path.name}")
-    kernel = "?"
-    for line in lib.compiler_log.splitlines():
-        if "Compiling entry function" in line:
-            kernel = next(k for k in ("closest_hit_bvh_kernel", "closest_hit_kernel",
-                                      "megakernel_stream", "megakernel_onebounce", "megakernel")
-                          if k in line)
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas {kernel}: {line.strip()}")
+    for kernel, lines in ptxas_report(lib.compiler_log).items():
+        for line in lines:
+            print(f"  ptxas {kernel}: {line}")
 
     # the main path's shapes: demo-box at its own 512x512, pass 0's rays
     scene = compile_scene(load_scene_file(str(ROOT / "scenes" / "demo-box.urn")), device=dev)
@@ -255,16 +366,23 @@ def main() -> int:
         print(f"golden repo-{name}: p99 {p99:.3e} (bound 0.05), mean {mean:.3e} (bound 0.01)")
         assert p99 < 0.05 and mean < 0.01, name
 
-    big = big_scene_phases(phase, dev, card)
+    k1_bound = work_bound(B * (24 + 8) + scene.prims_packed.numel() * 4.0, B * query_ops(scene))
+    print(f"bound: K1 {k1_bound[0]:.6f} ms ({k1_bound[1]}) at B={B}")
+
+    big, mesh1_pass = big_scene_phases(phase, dev, card)
+    # K2's bound counts the vertices the pass runs: phase 12 reads them
+    k5, k2_bound = telemetry_phase(phase, card, lib, (scene, o, d, u, k2_ms), mesh1_pass)
+    gradient_phase(phase, dev, card)
+    training_phase(phase, dev, card)
     phase()
 
     kernels = [
-        {"name": "K1 closest_hit", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
-         "launches": launches["K1"], "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "K2 path megakernel", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": launches["K2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        entry("K1 closest_hit", K1_SOURCE, K1_REPLACES, launches["K1"], k1_err, k1_ms,
+              k1_plain_ms, k1_bound),
+        entry("K2 path megakernel", K2_SOURCE, K2_REPLACES, launches["K2"], k2_err, k2_ms,
+              k2_plain_ms, k2_bound),
         *big,
+        k5,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -345,8 +463,9 @@ def step_times(scene, o, d, u, opts, step, passes):
 
 def big_scene_phases(phase, dev, card):
     """Phases 7-11: the stream tier (K3, its BVH query, K4). Returns the
-    kernels' entries of the JSON line."""
-    from plutracer_tpu.semantics import DEFAULT_OPTIONS
+    kernels' entries of the JSON line and the mesh1 pass (scene, o, d, u,
+    K3 ms)."""
+    from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
     from plutracer_tpu_torch import cli, rng
     from plutracer_tpu_torch.ops.camera import generate_rays
     from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
@@ -520,20 +639,323 @@ def big_scene_phases(phase, dev, card):
         else:
             structural_check(img, golden, name)
 
+    # bounds at the timed shapes. K3's and K4's work depends on the data:
+    # only the vertices a path reaches run (K5's cur channel counts them on
+    # the timed pass), and each query is at least a root-to-leaf walk
+    _, tele = ray_color_stream_cuda(mesh1, o, d, u, DEFAULT_OPTIONS, debug=True)
+    live = tele[:, 8].sum(1).double().cpu()  # running vertices per bounce
+    vert_ops = SHADE_OPS + 3 * walk_ops(mesh1)
+    B = o.shape[0]
+    k3_bound = work_bound(*path_work(mesh1, B, live.sum().item(), walk_ops(mesh1), bvh=True))
+    q_bound = work_bound(B * 32 + table_bytes(mesh1, True), B * walk_ops(mesh1))
+    k4_bound = work_bound(B * (16 * 4 * 2 + 48) + table_bytes(mesh1, True),
+                          live.mean().item() * vert_ops)
+    print(f"bounds (mesh1 256x256 pass, {int(live.sum().item())} running vertices of "
+          f"{B * mb}): K3 {k3_bound[0]:.6f} ms ({k3_bound[1]}), query {q_bound[0]:.6f} ms "
+          f"({q_bound[1]}), K4 {k4_bound[0]:.6f} ms a launch ({k4_bound[1]})")
+
     k3_launches = launches["mesh1"] + launches["mesh2"]
     return [
-        {"name": "K3 stream kernel", "route": "cuda", "source": K3_SOURCE,
-         "replaces": K3_REPLACES, "launches": k3_launches, "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        entry("K3 stream kernel", K3_SOURCE, K3_REPLACES, k3_launches, k3_err, k3_ms,
+              k3_plain_ms, k3_bound),
         # the query runs inside every K3 launch (and K4's); standalone only here
-        {"name": "K3 query bvh_closest (inside K3 and K4; own launch off the main path)",
-         "route": "cuda", "source": KQ_SOURCE, "replaces": KQ_REPLACES,
-         "launches": query_launches,
-         "max_abs_err": q_err, "ms": q_ms, "plain_ms": q_plain_ms},
-        {"name": "K4 one-bounce kernel (ms per launch)", "route": "cuda", "source": K4_SOURCE,
-         "replaces": K4_REPLACES, "launches": k4_launches, "max_abs_err": k4_err,
-         "ms": k4_launch_ms, "plain_ms": k4_plain_ms},
-    ]
+        entry("K3 query bvh_closest (inside K3 and K4; own launch off the main path)",
+              KQ_SOURCE, KQ_REPLACES, query_launches, q_err, q_ms, q_plain_ms, q_bound),
+        entry("K4 one-bounce kernel (ms per launch)", K4_SOURCE, K4_REPLACES, k4_launches,
+              k4_err, k4_launch_ms, k4_plain_ms, k4_bound),
+    ], (mesh1, o, d, u, k3_ms)
+
+
+def channel_report(dbg, ref, what, stream=False):
+    """K5 against the plain ray_color(debug=True): per channel the largest
+    difference and the fraction of lanes equal at every vertex. Asserts
+    every channel equal on every lane and vertex (K2 and K3 run the plain
+    version's IEEE operations, so their state is bit-equal). K3's xt is
+    compared where either query hit (on a miss the walk reports BIG where
+    K1 may report a padding row near 1e30)."""
+    from plutracer_tpu_torch.ops.cuda import DBG_CHANNELS
+
+    assert dbg.shape == ref.shape, (tuple(dbg.shape), tuple(ref.shape))
+    worst = 0.0
+    for c, name in enumerate(DBG_CHANNELS):
+        a, b = dbg[:, c], ref[:, c]
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        if stream and name == "xt":
+            same |= (a >= 1e5) & (b >= 1e5)
+        lanes = same.all(0).double().mean().item()
+        diff = torch.where(same, 0.0, (a - b).abs()).max().item()
+        worst = max(worst, diff if np.isfinite(diff) else float("inf"))
+        print(f"K5 {what} channel {c:2d} {name:12s}: lanes equal {lanes:.6f}, "
+              f"largest difference {diff:.6e}")
+        bad = int((~same).any(0).sum().item())
+        assert bad == 0, f"K5 {what}: channel {name} differs on {bad} lanes"
+    return worst
+
+
+def telemetry_phase(phase, card, lib, demo_pass, mesh1_pass):
+    """Phase 12: K5 in K2 (demo-box 512x512 pass) and in K3 (mesh1
+    256x256 pass). Returns K5's entry of the JSON line and K2's bound on
+    the demo-box pass (the vertices it runs are read from K5's cur
+    channel)."""
+    from plutracer_tpu_torch.ops.cuda import DBG_C, DBG_CHANNELS
+    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
+    from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
+    from plutracer_tpu_torch.render.integrator import ray_color
+    from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS as OPTS
+
+    phase("12 K5 telemetry")
+    scene, o, d, u, k2_ms = demo_pass
+    mesh1, mo, md, mu, k3_ms = mesh1_pass
+    mb, B = OPTS.max_bounces, o.shape[0]
+    # the path: one debug pass of each tier, counts set to 0 just before
+    ray_color_cuda.debug_launches = ray_color_stream_cuda.debug_launches = 0
+    L2, dbg2 = ray_color_kernel(scene, o, d, u, OPTS, debug=True)
+    L3, dbg3 = ray_color_kernel(mesh1, mo, md, mu, OPTS.replace(stream_wavefront=True),
+                                debug=True)
+    torch.cuda.synchronize()
+    k5_launches = {"K2": ray_color_cuda.debug_launches, "K3": ray_color_stream_cuda.debug_launches}
+    print(f"K5 path: a demo-box 512x512 debug pass (K2) and a mesh1 256x256 debug pass (K3, "
+          f"under stream_wavefront too), launches {k5_launches}")
+    assert k5_launches == {"K2": 1, "K3": 1}, k5_launches
+    assert dbg2.shape == (mb, DBG_C, B) and dbg3.shape == (mb, DBG_C, mo.shape[0])
+    for what, L, plain_L in (("K2 demo-box", L2, ray_color_kernel(scene, o, d, u, OPTS)),
+                             ("K3 mesh1", L3, ray_color_stream_cuda(mesh1, mo, md, mu, OPTS))):
+        eq = torch.equal(L, plain_L)
+        print(f"K5 {what}: radiance with debug on bit-equal to debug off: {eq}")
+        assert eq, what
+    ref_L2, ref2 = ray_color(scene, o, d, u, OPTS, debug=True)
+    ref_L3, ref3 = ray_color(mesh1, mo, md, mu, OPTS, debug=True)
+    knife_edge_check(L2, ref_L2, "K5 (K2) radiance vs plain ray_color(debug=True)")
+    knife_edge_check(L3, ref_L3, "K5 (K3) radiance vs plain ray_color(debug=True)")
+    err = max(channel_report(dbg2, ref2, "K2 demo-box 512x512"),
+              channel_report(dbg3, ref3, "K3 mesh1 256x256", stream=True))
+    k5_k2_ms = time_ms(lambda: ray_color_cuda(scene, o, d, u, OPTS, debug=True), reps=20)
+    k2_again = time_ms(lambda: ray_color_cuda(scene, o, d, u, OPTS), reps=20)
+    k5_k3_ms = time_ms(lambda: ray_color_stream_cuda(mesh1, mo, md, mu, OPTS, debug=True), reps=10)
+    k3_again = time_ms(lambda: ray_color_stream_cuda(mesh1, mo, md, mu, OPTS), reps=10)
+    plain_ms = time_ms(lambda: ray_color(scene, o, d, u, OPTS, debug=True), reps=3, warmup=1)
+    print(f"K5 time: K2 demo-box B={B} debug {k5_k2_ms:.4f} ms vs plain instantiation "
+          f"{k2_again:.4f} ms (phase 4: {k2_ms:.4f}); K3 mesh1 B={mo.shape[0]} debug "
+          f"{k5_k3_ms:.4f} ms vs {k3_again:.4f} ms (phase 8: {k3_ms:.4f}); plain "
+          f"ray_color(debug=True) demo-box {plain_ms:.4f} ms ({card})")
+    for kernel, lines in ptxas_report(lib.compiler_log).items():
+        if kernel.startswith(("megakernel<", "megakernel_stream<")):
+            print(f"K5 ptxas {kernel}: {' | '.join(lines)}")
+    live = dbg2[:, DBG_CHANNELS.index("cur")].sum().item()  # vertices the pass runs
+    k2_bytes, k2_ops = path_work(scene, B, live, query_ops(scene))
+    k2_bound = work_bound(k2_bytes, k2_ops)
+    # K5 writes every vertex's channels, those of ended paths too
+    bound = work_bound(k2_bytes + B * mb * DBG_C * 4, k2_ops + B * mb * K5_OPS)
+    print(f"bounds (demo-box 512x512 pass, {int(live)} running vertices of {B * mb}): K2 "
+          f"{k2_bound[0]:.6f} ms ({k2_bound[1]}), K5 (K2 debug) {bound[0]:.6f} ms ({bound[1]})")
+    return entry("K5 telemetry (K2/K3 debug instantiation; ms: K2 demo-box pass)", K2_SOURCE,
+                 K5_REPLACES, k5_launches["K2"] + k5_launches["K3"], err, k5_k2_ms, plain_ms,
+                 bound), k2_bound
+
+
+def make_loss(scene, w, h, backend, dtype=torch.float32):
+    """tests/test_grad.py's make_loss: one render_pass (stratum 1, n = 2),
+    pixels clipped at 20, the mean of squares (summed in `dtype`)."""
+    from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.parallel.sharded import apply_params
+    from plutracer_tpu_torch.render.renderer import render_pass
+    from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+
+    opts = DEFAULT_OPTIONS.replace(integrator_backend=backend)
+
+    def loss(params):
+        img = render_pass(apply_params(scene, params), rng.PRNGKey(0), 1, w, h, 2, opts)
+        img = torch.clamp(img, max=20.0).to(dtype)
+        return torch.sum(img * img) / img.numel()
+
+    return loss
+
+
+def loss_grads(loss, params):
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    return dict(zip(leaves, torch.autograd.grad(loss(leaves), list(leaves.values()))))
+
+
+def gradient_phase(phase, dev, card):
+    """Phase 13: gradients through the kernel path's autograd Function
+    (render/integrator.KernelRadiance) against plain autograd."""
+    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda
+    from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
+    from plutracer_tpu_torch.parallel.sharded import get_params
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+
+    phase("13 gradients")
+    for (name, res), counter in zip(GRAD_CASES, (ray_color_cuda, ray_color_stream_cuda)):
+        scene = compile_scene(load_scene_file(str(ROOT / "scenes" / f"{name}.urn"),
+                                              ["/res", f"{res}x{res}"]), device=dev)
+        params = get_params(scene)
+        kernel_loss, plain_loss = (make_loss(scene, res, res, b) for b in ("kernel", "plain"))
+        before = counter.launches
+        got = loss_grads(kernel_loss, params)
+        assert counter.launches == before + 1, "the Function's forward did not run the kernel"
+        want = loss_grads(plain_loss, params)
+        for f in got:
+            g, w = got[f], want[f]
+            assert torch.isfinite(g).all() and torch.isfinite(w).all(), f"{name} {f}"
+            scale = w.abs().max().item()
+            diff = (g - w).abs().max().item()
+            print(f"gradient {name} {res}x{res} {f}: Function vs plain autograd largest "
+                  f"difference {diff:.3e} of {scale:.3e}, bit-equal {torch.equal(g, w)}")
+            assert diff <= 1e-5 * scale + 1e-12, f"{name} {f}"
+        # one central difference per field at its largest entry (float64 sum)
+        fd_loss = make_loss(scene, res, res, "kernel", torch.float64)
+        g64 = loss_grads(fd_loss, params)
+        for f, g in g64.items():
+            if not g.abs().max() > 0:
+                continue
+            idx = np.unravel_index(int(g.abs().argmax()), g.shape)
+            eps = 1e-2 * max(0.1, abs(float(params[f][idx])))
+            plus, minus = dict(params), dict(params)
+            delta = torch.zeros_like(params[f])
+            delta[idx] = eps
+            plus[f], minus[f] = params[f] + delta, params[f] - delta
+            with torch.no_grad():
+                fd = (fd_loss(plus).item() - fd_loss(minus).item()) / (2 * eps)
+            ad = g[idx].item()
+            print(f"gradient {name} {f}{tuple(int(i) for i in idx)}: autograd {ad:.6e}, "
+                  f"central difference {fd:.6e}")
+            assert abs(ad - fd) <= 2e-2 * abs(fd) + 1e-6, f"{name} {f}"
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: kernel_loss(params), reps=3, warmup=1)
+        fb_ms = time_ms(lambda: loss_grads(kernel_loss, params), reps=3, warmup=1)
+        plain_fb_ms = time_ms(lambda: loss_grads(plain_loss, params), reps=3, warmup=1)
+        print(f"gradient time {name} {res}x{res} (B={res * res}): kernel forward {fwd_ms:.4f} ms, "
+              f"Function forward + plain backward {fb_ms:.4f} ms, plain forward + backward "
+              f"{plain_fb_ms:.4f} ms ({card})")
+
+
+def training_phase(phase, dev, card):
+    """Phase 14: optimize_scene on demo-box 256x256, n = 2."""
+    import dataclasses
+
+    from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.diff.optim import Adam
+    from plutracer_tpu_torch.diff.optimize import InverseRenderConfig, optimize_scene
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_cuda
+    from plutracer_tpu_torch.parallel import sharded
+    from plutracer_tpu_torch.render.renderer import render
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+
+    phase("14 training")
+    W = H = TRAIN_RES
+    scene = compile_scene(load_scene_file(str(ROOT / "scenes" / "demo-box.urn"),
+                                          ["/res", f"{W}x{H}"]), device=dev)
+    target = render(scene, W, H, 4, rng.PRNGKey(11))  # 16 spp, through K1 + K2
+    true = sharded.get_params(scene)
+    init = dict(true)
+    init["mat_color"] = true["mat_color"] * 0.5  # perturbed albedo
+    log_cfg = InverseRenderConfig(width=W, height=H, n=2, steps=8, log_every=4,
+                                  learning_rate=3e-2, loss_space="log",
+                                  trainable=("mat_color",))
+    ab_cfg = dataclasses.replace(log_cfg, loss_space="ab", learning_rate=1e-2,
+                                 loss_downsample=8)
+    runs = {}
+    for what, cfg, start in (("log", log_cfg, init), ("ab", ab_cfg, None)):
+        start = start if start is not None else runs["log"][0]
+        stats = {}
+        closest_hit_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses = optimize_scene(scene, target, cfg, init_params=start, stats_out=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        passes = 2 if cfg.loss_space == "ab" else 1
+        samples = W * H * passes * cfg.steps
+        mae = (params["mat_color"] - true["mat_color"]).abs().mean().item()
+        print(f"training {what}: {cfg.steps} steps in {wall:.3f} s, {cfg.steps / wall:.4f} steps/s, "
+              f"{samples / wall:.1f} samples/s ({W}x{H} x {passes} pass(es) a step), K1 launches "
+              f"{closest_hit_cuda.launches}, losses {[round(x, 6) for x in losses]}, albedo MAE "
+              f"{(start['mat_color'] - true['mat_color']).abs().mean().item():.5f} -> {mae:.5f}, "
+              f"nonfinite {stats} ({card})")
+        assert all(np.isfinite(losses)) and len(losses) == cfg.steps
+        assert stats["nonfinite_grad_frac_max"] == 0.0, stats
+        assert closest_hit_cuda.launches > 0
+        runs[what] = (params, losses, wall)
+    # a run stopped after 4 steps and resumed from its checkpoint (warm:
+    # its wall against the first log run's shows that run's warm-up)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(pathlib.Path(tmp) / "train.ckpt.npz")
+        t0 = time.perf_counter()
+        optimize_scene(scene, target, dataclasses.replace(log_cfg, steps=4, checkpoint_path=ck),
+                       init_params=init)
+        params, losses = optimize_scene(scene, target,
+                                        dataclasses.replace(log_cfg, checkpoint_path=ck),
+                                        init_params=init)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3 / log_cfg.steps
+    ref_params, ref_losses, _ = runs["log"]
+    same = losses == ref_losses and all(torch.equal(params[k], ref_params[k]) for k in params)
+    print(f"training resume: 4 + 4 steps from the checkpoint bit-equal to 8 straight: {same}; "
+          f"{warm_ms:.4f} ms a step with checkpoints, against the first log run's "
+          f"{runs['log'][2] * 1e3 / log_cfg.steps:.4f} ({card})")
+    assert same
+    # one step of each loss by part: the real make_train_step, built as
+    # optimize_scene builds it, at step 0's key; CUDA events, the parts
+    # interleaved over SPLIT_ROUNDS rounds (the eager step's times spread
+    # from call to call), medians
+    tflat = target.reshape(-1, 3)
+    key = rng.fold_in(rng.PRNGKey(log_cfg.seed), 0)
+    for what, cfg in (("log", log_cfg), ("ab", ab_cfg)):
+        step = sharded.make_train_step(
+            scene, W, H, cfg.n, optimizer=Adam(cfg.learning_rate), loss_space=cfg.loss_space,
+            trainable=cfg.trainable, project_nonnegative=cfg.project_nonnegative,
+            loss_downsample=cfg.loss_downsample, loss_clamp=cfg.loss_clamp)
+        state = step.init(init)
+        halves = lambda: step.loss_and_grads(init, tflat, key, 0)
+        _, grads, nf = halves()
+        apply_ms = time_ms(lambda: step.apply(init, state, grads, nf), reps=20)
+        parts = {"step": [], "loss_and_grads": [], "forward traces": [], "nondeterministic": []}
+        for _ in range(SPLIT_ROUNDS):
+            parts["step"].append(time_ms(lambda: step(init, state, tflat, key, 0), 1, 0))
+            lg, fwd = loss_and_grads_ms(sharded, halves)
+            parts["loss_and_grads"].append(lg)
+            parts["forward traces"].append(fwd)
+            # the same half without torch's deterministic algorithms
+            deterministic = sharded._deterministic
+            sharded._deterministic = contextlib.nullcontext
+            try:
+                parts["nondeterministic"].append(time_ms(halves, 1, 0))
+            finally:
+                sharded._deterministic = deterministic
+        med = {k: statistics.median(v) for k, v in parts.items()}
+        spread = ", ".join(f"{k} {min(v):.1f}-{max(v):.1f}" for k, v in parts.items())
+        print(f"training step split ({what} loss, {W}x{H}, medians of {SPLIT_ROUNDS}): step "
+              f"{med['step']:.4f} ms = loss_and_grads {med['loss_and_grads']:.4f} (forward traces "
+              f"{med['forward traces']:.4f}, backward and gradient filter "
+              f"{med['loss_and_grads'] - med['forward traces']:.4f}) + apply (Adam) "
+              f"{apply_ms:.4f} + remainder {med['step'] - med['loss_and_grads'] - apply_ms:.4f}; "
+              f"loss_and_grads without deterministic algorithms {med['nondeterministic']:.4f} "
+              f"(their cost {med['loss_and_grads'] - med['nondeterministic']:.4f}); optimize_scene "
+              f"{runs[what][2] * 1e3 / cfg.steps:.4f} ms a step; ranges ms: {spread} ({card})")
+
+
+def loss_and_grads_ms(sharded, fn):
+    """(ms, forward-trace ms) of one call of fn, a train step's
+    loss_and_grads: CUDA events around the call and around each call of
+    the step's _trace_stratum inside it."""
+    events = []
+    trace = sharded._trace_stratum
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = trace(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    sharded._trace_stratum = timed
+    try:
+        total = time_ms(fn, 1, 0)
+    finally:
+        sharded._trace_stratum = trace
+    return total, sum(s.elapsed_time(e) for s, e in events)
 
 
 if __name__ == "__main__":

@@ -68,7 +68,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args and args[0] == "/i":
         args.pop(0)
-        from plutracer_tpu.urn.repl import run_repl
+        from plutracer_tpu_torch.urn.repl import run_repl
 
         run_repl()
         if not args:
@@ -102,7 +102,7 @@ def run(args: List[str]) -> RenderResult:
     scn_path = args.pop(0)
     print(f"loading scene {scn_path}")
 
-    from plutracer_tpu.semantics import DEFAULT_OPTIONS
+    from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
     from plutracer_tpu_torch import rng
     from plutracer_tpu_torch.render.integrator import kernel_tier, resolve_integrator_backend
     from plutracer_tpu_torch.render.renderer import render
@@ -145,8 +145,8 @@ def run(args: List[str]) -> RenderResult:
     )
     print(watermark, end="")
 
-    from plutracer_tpu.io.bmp import write_bmp
-    from plutracer_tpu.io.font import draw_text
+    from plutracer_tpu_torch.io.bmp import write_bmp
+    from plutracer_tpu_torch.io.font import draw_text
 
     draw_text(img, watermark, (9, 10), (0.2, 0.2, 0.2))  # drop shadow
     draw_text(img, watermark, (8, 8), (1.0, 0.6, 0.0))

@@ -25,6 +25,12 @@
 // __launch_bounds__(128) and a short block. Divergence between material
 // and primitive branches within a warp is the other cost; reordering rays
 // is a later optimisation.
+//
+// K5 (the JAX kernel's debug=True, integrator_kernel.py:1229-1240): with a
+// non-null `dbg` the launch takes the megakernel<true> instantiation, which
+// also writes every vertex's 12 telemetry channels to dbg, laid out
+// (max_bounces, 12, B) as the JAX kernel's output: one coalesced row per
+// channel. The default instantiation is the kernel without them.
 #include <cuda_runtime.h>
 
 #include "path_common.cuh"
@@ -50,10 +56,12 @@ struct Params {
   const int* prim0;
   const float* u;
   float* out;
+  float* dbg;  // (max_bounces, DBG_C, B) telemetry, null when off
   int B, max_bounces;
   int swapped_mis, origin_pdf, shading_gate;
 };
 
+template <bool DEBUG>
 __global__ void __launch_bounds__(BLOCK) megakernel(Params k) {
   extern __shared__ float smem[];
   float* s_packed = smem;
@@ -86,7 +94,8 @@ __global__ void __launch_bounds__(BLOCK) megakernel(Params k) {
   for (int i = 0; i < k.max_bounces; ++i) {
     float u[12];
     for (int j = 0; j < 12; ++j) u[j] = k.u[(size_t)(i * 12 + j) * k.B + ray];
-    path_vertex(tb, closest_hit, fl, i, u, s);
+    path_vertex<DEBUG>(tb, closest_hit, fl, i, u, s,
+                       DEBUG ? k.dbg + (size_t)i * DBG_C * k.B + ray : nullptr, k.B);
   }
   k.out[3 * ray + 0] = s.L.x;
   k.out[3 * ray + 1] = s.L.y;
@@ -100,14 +109,17 @@ extern "C" int plu_megakernel(const float* prim, int P, const float* mat, int M,
                               const float* packed, int P_pad, const float* atlas, int A,
                               int has_images, const float* o, const float* d,
                               const int* prim0, const float* t0, const float* u,
-                              float* out, int B, int max_bounces, int swapped_mis,
-                              int origin_pdf, int shading_gate, void* stream) {
+                              float* out, float* dbg, int B, int max_bounces,
+                              int swapped_mis, int origin_pdf, int shading_gate, void* stream) {
   Params k{prim,  mat, tex, light, packed, atlas, P,  M,  T,  L,
-           P_pad, A,   has_images, o,  d,  t0,    prim0, u, out, B,
+           P_pad, A,   has_images, o,  d,  t0,    prim0, u, out, dbg, B,
            max_bounces, swapped_mis, origin_pdf, shading_gate};
   const size_t smem =
       sizeof(float) * (P_pad * PACK_W + P * PRIM_W + M * MAT_W + T * TEX_W + L * LIGHT_W);
   const int grid = (B + BLOCK - 1) / BLOCK;
-  megakernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(k);
+  if (dbg)
+    megakernel<true><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(k);
+  else
+    megakernel<false><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(k);
   return (int)cudaGetLastError();
 }

@@ -24,6 +24,12 @@
 // between the rays of a warp, not by bandwidth. A path that has ended
 // stops early (its radiance cannot change). Ordered traversal, ray
 // sorting, shared-memory top levels and occupancy tuning are later work.
+//
+// K5 (the JAX stream kernel's debug=True, integrator_kernel.py:1856-1867):
+// with a non-null `dbg` the launch takes megakernel_stream<true>, which
+// writes every vertex's 12 telemetry channels to dbg, (max_bounces, 12, B)
+// as K2's. It runs every vertex of every ray, ended paths included (their
+// radiance cannot change, but the JAX kernel reports their channels too).
 #include <cuda_runtime.h>
 
 #include "bvh_closest.cuh"
@@ -34,10 +40,11 @@ namespace {
 
 constexpr int BLOCK = 128;
 
+template <bool DEBUG>
 __global__ void __launch_bounds__(BLOCK)
     megakernel_stream(const Tables tb, const Bvh bvh, const Flags fl, const float* __restrict__ o,
                       const float* __restrict__ d, const float* __restrict__ u,
-                      float* __restrict__ out, int B) {
+                      float* __restrict__ out, float* __restrict__ dbg, int B) {
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   if (ray >= B) return;
   const BvhWalk walk{bvh};
@@ -52,10 +59,11 @@ __global__ void __launch_bounds__(BLOCK)
   s.prim = q.prim;
   s.t = q.found ? q.t : BIG;
   for (int i = 0; i < fl.max_bounces; ++i) {
-    if (!(s.alive && s.t < T_MAX)) break;  // no later vertex adds radiance
+    if (!DEBUG && !(s.alive && s.t < T_MAX)) break;  // no later vertex adds radiance
     float uu[12];
     for (int j = 0; j < 12; ++j) uu[j] = u[(size_t)(i * 12 + j) * B + ray];
-    path_vertex(tb, walk, fl, i, uu, s);
+    path_vertex<DEBUG>(tb, walk, fl, i, uu, s,
+                       DEBUG ? dbg + (size_t)i * DBG_C * B + ray : nullptr, B);
   }
   out[3 * ray + 0] = s.L.x;
   out[3 * ray + 1] = s.L.y;
@@ -94,13 +102,18 @@ extern "C" int plu_megakernel_stream(const float* prim, int P, const float* mat,
                                      const float* node_max, const int* skip,
                                      const int* leaf_row, const unsigned char* line_only, int N,
                                      float margin, const float* o, const float* d,
-                                     const float* u, float* out, int B, int max_bounces,
-                                     int swapped_mis, int origin_pdf, int shading_gate,
-                                     void* stream) {
+                                     const float* u, float* out, float* dbg, int B,
+                                     int max_bounces, int swapped_mis, int origin_pdf,
+                                     int shading_gate, void* stream) {
   const Tables tb{prim, mat, tex, light, atlas, P, M, T, L, A, has_images != 0};
   const Bvh bvh{packed, node_min, node_max, skip, leaf_row, line_only, N, margin};
   const Flags fl{max_bounces, swapped_mis != 0, origin_pdf != 0, shading_gate != 0};
-  megakernel_stream<<<(B + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(tb, bvh, fl, o,
-                                                                                d, u, out, B);
+  const int grid = (B + BLOCK - 1) / BLOCK;
+  if (dbg)
+    megakernel_stream<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(tb, bvh, fl, o, d, u, out,
+                                                                      dbg, B);
+  else
+    megakernel_stream<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(tb, bvh, fl, o, d, u, out,
+                                                                       dbg, B);
   return (int)cudaGetLastError();
 }

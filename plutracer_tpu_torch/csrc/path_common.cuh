@@ -533,12 +533,23 @@ struct Flags {
   bool swapped_mis, origin_pdf, shading_gate;
 };
 
+// the per-bounce telemetry channels of K5 (the JAX megakernel's debug
+// output, integrator_kernel.py:1229-1240; ops/cuda/__init__.py DBG_CHANNELS)
+constexpr int DBG_C = 12;
+
 // Vertex i of one ray with its 12 uniforms u. `closest(o, d)` answers a
 // closest-hit query as K1 does (K2: brute force over the shared packed
 // table; K3/K4: the BVH walk of bvh_closest.cuh).
-template <class Closest>
+//
+// DEBUG (K5): also write the vertex's DBG_C telemetry channels to
+// dbg[c * stride], where dbg points at this ray's entry of vertex i's first
+// channel row: the caller's (max_bounces, DBG_C, B) layout has one
+// coalesced row of B floats per channel. The stores read values the vertex
+// computes anyway (only the channel sum of Ld is extra), so the arithmetic
+// of the state, and of L, is the same in both instantiations.
+template <bool DEBUG = false, class Closest>
 PLU_FN void path_vertex(const Tables& tb, const Closest& closest, const Flags& fl, int i,
-                        const float* u, PathState& s) {
+                        const float* u, PathState& s, float* dbg = nullptr, int stride = 0) {
   const int nl = tb.L;
   const V3 zero = V3{0.0f, 0.0f, 0.0f};
   const bool found = s.t < T_MAX;
@@ -623,6 +634,16 @@ PLU_FN void path_vertex(const Tables& tb, const Closest& closest, const Flags& f
   if (alive_next) {
     const float sc = fabsf(dot(bs.wwi, h.norm)) / clip_pdf(bs.pdf);
     s.T = vmin(s.T * vmin(bs.f * sc, 1.0e12f), 1.0e16f);
+  }
+  if constexpr (DEBUG) {
+    const V3 ld = cl + cb;
+    const float ch[DBG_C] = {found ? s.t : BIG,          (float)s.prim,
+                             pmax(pmax(s.T.x, s.T.y), s.T.z), bs.pdf,
+                             dot(bs.f, bs.f),            ls.pdf,
+                             l_pdf2,                     ld.x + ld.y + ld.z,
+                             cur ? 1.0f : 0.0f,          xq.t,
+                             (float)xq.prim,             bs.spec ? 1.0f : 0.0f};
+    for (int c = 0; c < DBG_C; ++c) dbg[(size_t)c * stride] = ch[c];
   }
   s.o = h.p;
   s.d = bs.wwi;

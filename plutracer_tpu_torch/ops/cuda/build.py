@@ -39,20 +39,20 @@ _SIGNATURES = {
     # packed, n_rows, o, d, t_out, prim_out, B, stream
     "plu_closest_hit": [_vp, _i, _vp, _vp, _vp, _vp, _i, _vp],
     # prim, P, mat, M, tex, T, light, L, packed, P_pad, atlas, A, has_images,
-    # o, d, prim0, t0, u, out, B, max_bounces, swapped_mis, origin_pdf,
-    # shading_gate, stream
+    # o, d, prim0, t0, u, out, dbg (K5 telemetry or null), B, max_bounces,
+    # swapped_mis, origin_pdf, shading_gate, stream
     "plu_megakernel": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,
-                       _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+                       _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     # packed, node_min, node_max, node_skip, leaf_row, line_only, N, margin,
     # o, d, t_out, prim_out, B, stream
     "plu_closest_hit_bvh": [_vp, _vp, _vp, _vp, _vp, _vp, _i, ctypes.c_float,
                             _vp, _vp, _vp, _vp, _i, _vp],
     # prim, P, mat, M, tex, T, light, L, atlas, A, has_images, the BVH as
-    # above (8), o, d, u, out, B, max_bounces, swapped_mis, origin_pdf,
-    # shading_gate, stream
+    # above (8), o, d, u, out, dbg (K5 telemetry or null), B, max_bounces,
+    # swapped_mis, origin_pdf, shading_gate, stream
     "plu_megakernel_stream": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,
                               _vp, _vp, _vp, _vp, _vp, _vp, _i, ctypes.c_float,
-                              _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+                              _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     # the tables and the BVH as above, carry_in, carry_out, u, B, bounce,
     # max_bounces, swapped_mis, origin_pdf, shading_gate, stream
     "plu_megakernel_onebounce": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,

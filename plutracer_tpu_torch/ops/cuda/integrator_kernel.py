@@ -13,7 +13,15 @@ package's unrolled Pallas megakernel
 (plutracer_tpu/ops/pallas/integrator_kernel.py: _build_kernel /
 _megakernel_call / ray_color_pallas).
 
-``ray_color_cuda.launches`` counts K2's launches.
+``debug=True`` asks for K5, the per-bounce telemetry of the JAX kernels'
+debug mode (integrator_kernel.py:1229-1240, :1856-1867): the same launch
+of K2 or K3 in its DEBUG instantiation, which also writes (max_bounces,
+DBG_C, B) channels (ops/cuda.DBG_CHANNELS); K4 has none, so a
+debug request under stream_wavefront takes K3, as the JAX package does.
+The plain version is ray_color(..., debug=True).
+
+``ray_color_cuda.launches`` counts K2's launches, ``.debug_launches`` its
+K5 launches (likewise on stream_kernel.ray_color_stream_cuda for K3).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from plutracer_tpu_torch.ops import intersect
+from plutracer_tpu_torch.ops.cuda import DBG_C
 from plutracer_tpu_torch.ops.tables import pack_tables
 
 
@@ -29,8 +38,8 @@ def _check_inputs(scene, o, d, u, options, tables):
 
     if any(x.requires_grad for x in (o, d, u, *tables)):
         raise NotImplementedError(
-            "ray_color_cuda: gradients through the megakernel are not "
-            "implemented yet; use integrator_backend='plain'"
+            "ray_color_cuda: the megakernel has no backward; differentiate through "
+            "render.integrator.radiance (its KernelRadiance Function) or ray_color"
         )
     if not o.is_cuda:
         raise ValueError(f"ray_color_cuda: rays must be on a CUDA device, got {o.device}")
@@ -49,28 +58,30 @@ def _check_inputs(scene, o, d, u, options, tables):
             raise ValueError(f"ray_color_cuda: {name} must be float32 on {o.device}")
 
 
-def ray_color_kernel(scene, o, d, u, options):
+def ray_color_kernel(scene, o, d, u, options, debug: bool = False):
     """Radiance (B, 3) for rays o, d (B, 3) and uniforms u
     (max_bounces, B, 12), by kernel_tier: K2, K3, or the wavefront loop
-    over K4. CPU tensors: the plain versions."""
+    over K4; with debug=True, (radiance, telemetry (max_bounces, DBG_C,
+    B)) from K2 or K3. CPU tensors: the plain versions."""
     from plutracer_tpu_torch.render.integrator import kernel_tier, ray_color
 
     tier = kernel_tier(scene, options)
-    if tier == "k4":
+    if tier == "k4" and not debug:
         from plutracer_tpu_torch.render.wavefront import ray_color_wavefront
 
         return ray_color_wavefront(scene, o, d, u, options)
     if not o.is_cuda:
-        return ray_color(scene, o, d, u, options)
-    if tier == "k3":
+        return ray_color(scene, o, d, u, options, debug=debug)
+    if tier != "k2":
         from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
 
-        return ray_color_stream_cuda(scene, o, d, u, options)
-    return ray_color_cuda(scene, o, d, u, options)
+        return ray_color_stream_cuda(scene, o, d, u, options, debug=debug)
+    return ray_color_cuda(scene, o, d, u, options, debug=debug)
 
 
-def ray_color_cuda(scene, o, d, u, options):
-    """K1 primary hit, then K2 on the current stream (no synchronisation).
+def ray_color_cuda(scene, o, d, u, options, debug: bool = False):
+    """K1 primary hit, then K2 on the current stream (no synchronisation);
+    with debug=True K2's K5 instantiation, returning (radiance, telemetry).
     Raises on anything the kernel does not take: CPU tensors, a scene
     beyond the caps, inputs that require grad."""
     from plutracer_tpu_torch.ops.cuda import build
@@ -78,12 +89,13 @@ def ray_color_cuda(scene, o, d, u, options):
     tables = pack_tables(scene)
     _check_inputs(scene, o, d, u, options, tables)
     B = o.shape[0]
+    mb = options.max_bounces
     out = torch.empty((B, 3), dtype=torch.float32, device=o.device)
+    dbg = torch.empty((mb, DBG_C, B), dtype=torch.float32, device=o.device) if debug else None
     if B == 0:
-        return out
+        return (out, dbg) if debug else out
     found0, prim0, t0 = intersect.query_lite(scene, o, d)
     t0 = torch.where(found0, t0, intersect._BIG)
-    mb = options.max_bounces
     u_soa = u.permute(0, 2, 1).reshape(mb * 12, B).contiguous()
     o_c, d_c = o.contiguous(), d.contiguous()
     atlas = scene.atlas.contiguous()
@@ -95,14 +107,18 @@ def ray_color_cuda(scene, o, d, u, options):
         scene.prims_packed.data_ptr(), scene.prims_packed.shape[0],
         atlas.data_ptr(), atlas.shape[0], int(atlas.shape[0] > 1),
         o_c.data_ptr(), d_c.data_ptr(), prim0.data_ptr(), t0.data_ptr(),
-        u_soa.data_ptr(), out.data_ptr(), B, mb,
+        u_soa.data_ptr(), out.data_ptr(), dbg.data_ptr() if debug else None, B, mb,
         int(options.swapped_light_mis_weight), int(options.origin_distance_pdf),
         int(options.shading_normal_le_gate),
         torch.cuda.current_stream(o.device).cuda_stream,
     )
     build.check(rc, "plu_megakernel")
+    if debug:
+        ray_color_cuda.debug_launches += 1
+        return out, dbg
     ray_color_cuda.launches += 1
     return out
 
 
 ray_color_cuda.launches = 0
+ray_color_cuda.debug_launches = 0

@@ -15,7 +15,8 @@ package's _megakernel_call_stream_onebounce, and its plain version
 CPU tensors.
 
 ``ray_color_stream_cuda.launches`` and ``onebounce_cuda.launches`` count
-kernel launches.
+kernel launches; ``ray_color_stream_cuda.debug_launches`` counts K3's K5
+launches (debug=True: the telemetry of integrator_kernel.ray_color_kernel).
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ def _check(name, scene, tables, tensors, options):
 
     if any(x.requires_grad for x in (*tensors.values(), *tables)):
         raise NotImplementedError(
-            f"{name}: gradients through the stream kernels are not implemented "
-            "yet; use integrator_backend='plain'"
+            f"{name}: the stream kernels have no backward; differentiate through "
+            "render.integrator.radiance (its KernelRadiance Function) or ray_color"
         )
     dev = next(iter(tensors.values())).device
     if dev.type != "cuda":
@@ -62,12 +63,13 @@ def _flag_args(options):
             int(options.origin_distance_pdf), int(options.shading_normal_le_gate))
 
 
-def ray_color_stream_cuda(scene, o, d, u, options):
+def ray_color_stream_cuda(scene, o, d, u, options, debug: bool = False):
     """K3 on the current stream (no synchronisation): radiance (B, 3) for
-    rays o, d (B, 3) and uniforms u (max_bounces, B, 12). Raises on
-    anything the kernel does not take: CPU tensors, a scene off the stream
-    tier, inputs that require grad."""
-    from plutracer_tpu_torch.ops.cuda import build
+    rays o, d (B, 3) and uniforms u (max_bounces, B, 12); with debug=True
+    K3's K5 instantiation, returning (radiance, telemetry (max_bounces,
+    DBG_C, B)). Raises on anything the kernel does not take: CPU tensors,
+    a scene off the stream tier, inputs that require grad."""
+    from plutracer_tpu_torch.ops.cuda import DBG_C, build
     from plutracer_tpu_torch.ops.tables import pack_tables
 
     tables = pack_tables(scene)
@@ -82,19 +84,25 @@ def ray_color_stream_cuda(scene, o, d, u, options):
     u_soa = u.permute(0, 2, 1).reshape(mb * 12, B).contiguous()
     _check("ray_color_stream_cuda", scene, tables, {"o": o, "d": d, "u": u_soa}, options)
     out = torch.empty((B, 3), dtype=torch.float32, device=o.device)
+    dbg = torch.empty((mb, DBG_C, B), dtype=torch.float32, device=o.device) if debug else None
     if B == 0:
-        return out
+        return (out, dbg) if debug else out
     rc = build.load().lib.plu_megakernel_stream(
         *_table_args(scene, tables),
-        o.data_ptr(), d.data_ptr(), u_soa.data_ptr(), out.data_ptr(), B,
+        o.data_ptr(), d.data_ptr(), u_soa.data_ptr(), out.data_ptr(),
+        dbg.data_ptr() if debug else None, B,
         *_flag_args(options), torch.cuda.current_stream(o.device).cuda_stream,
     )
     build.check(rc, "plu_megakernel_stream")
+    if debug:
+        ray_color_stream_cuda.debug_launches += 1
+        return out, dbg
     ray_color_stream_cuda.launches += 1
     return out
 
 
 ray_color_stream_cuda.launches = 0
+ray_color_stream_cuda.debug_launches = 0
 
 
 def onebounce_cuda(scene, tables, carry, u_i, i: int, options):

@@ -17,15 +17,30 @@ the CUDA kernels (ops/cuda/integrator_kernel.ray_color_kernel: the
 megakernel K2, the stream kernel K3 or the one-bounce kernel K4, as
 ``kernel_tier`` says) or to ``ray_color``. All take the same uniforms, so
 they make the same sampling decisions.
+
+Gradients. ``ray_color`` is differentiable as written (the guarded ops of
+ops/safemath.py keep its backward finite). The kernels are not: on the
+kernel path ``radiance`` goes through ``KernelRadiance``, an autograd
+Function whose forward runs the kernel on detached inputs and whose
+backward re-runs ``ray_color`` with the same uniforms and differentiates
+it (the JAX package's _ray_color_pallas_ad, integrator.py:191-237).
+
+Telemetry. ``ray_color(..., debug=True)`` also returns the JAX
+megakernel's per-bounce debug output (integrator_kernel.py:1229-1240):
+(max_bounces, DBG_C, B) float32, channels in the order of
+ops/cuda.DBG_CHANNELS (part of the kernels' C ABI); K2 and K3
+write the same channels (K5, ``ray_color_kernel(..., debug=True)``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from plutracer_tpu.semantics import DEFAULT_OPTIONS, RenderOptions
+from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops import bsdf as bsdf_ops
 from plutracer_tpu_torch.ops import intersect, lights
@@ -55,6 +70,9 @@ MAX_T = 8
 MAX_L = 8
 MAX_ATLAS = 4096
 
+# the scene leaves gradients flow to (parallel/sharded.DIFFERENTIABLE_FIELDS)
+DIFF_LEAVES = ("mat_color", "light_intensity", "tex_c0", "tex_c1")
+
 
 class PathState(NamedTuple):
     """The per-ray state carried from one shading vertex to the next (the
@@ -82,6 +100,8 @@ def _nee_contributions(
 ):
     """Assemble estimate_direct_light (renderer.cpp:5-51) once visibility
     results for the shadow ray and the BSDF-strategy ray are known.
+    Returns the two strategies' contributions and the BSDF direction's
+    light pdf.
 
     Every pdf entering arithmetic is clipped to [1e-12, 1e9] (gates keep
     the raw values), so no inf ever materializes in the weights."""
@@ -129,7 +149,7 @@ def _nee_contributions(
     )
     scale_b = torch.where(gate_b, safe_div(dot(bs.wwi, n).abs() * w2, bp2), 0.0)
     contrib_b = torch.where(gate_b[..., None], bs.f * Li2 * scale_b[..., None], 0.0)
-    return contrib_l, contrib_b
+    return contrib_l, contrib_b, l_pdf2
 
 
 def _vmem_rows_ok(type_rows) -> bool:
@@ -196,19 +216,61 @@ def draw_uniforms(key, B: int, max_bounces: int, device) -> torch.Tensor:
 def radiance(scene, o, d, key, options: RenderOptions = DEFAULT_OPTIONS):
     """Radiance for a batch of primary rays o, d (B,3) with the per-bounce
     uniforms drawn from `key`. Dispatches to the kernels or the plain
-    integrator (resolve_integrator_backend)."""
+    integrator (resolve_integrator_backend); on the kernel path with
+    gradients wanted (grad enabled and o, d or a DIFF_LEAVES field
+    requiring grad), through KernelRadiance."""
     u = draw_uniforms(key, o.shape[0], options.max_bounces, o.device)
     if resolve_integrator_backend(scene, options, o.device) == "kernel":
+        leaves = [getattr(scene, f) for f in DIFF_LEAVES]
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (o, d, *leaves)):
+            return KernelRadiance.apply(scene, options, o, d, u, *leaves)
         from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_kernel
 
         return ray_color_kernel(scene, o, d, u, options)
     return ray_color(scene, o, d, u, options)
 
 
-def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS):
+class KernelRadiance(torch.autograd.Function):
+    """The kernel forward with a plain backward (the JAX package's
+    _ray_color_pallas_ad). apply(scene, options, o, d, u, mat_color,
+    light_intensity, tex_c0, tex_c1): the DIFF_LEAVES fields are explicit
+    inputs that replace the scene's own. Forward: ray_color_kernel (K2, K3
+    or K4 by kernel_tier) on detached inputs. Backward: ray_color with the
+    same uniforms, differentiated by torch.autograd.grad, so the gradients
+    are exactly the plain path's. u gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, scene, options, o, d, u, *leaves):
+        from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_kernel
+
+        ctx.scene, ctx.options = scene, options
+        ctx.save_for_backward(o, d, u, *leaves)
+        sc = dataclasses.replace(scene, **dict(zip(DIFF_LEAVES, (x.detach() for x in leaves))))
+        return ray_color_kernel(sc, o.detach(), d.detach(), u.detach(), options)
+
+    @staticmethod
+    def backward(ctx, g):
+        o, d, u, *leaves = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n)
+                  for x, n in zip((o, d, *leaves), (need[2], need[3], *need[5:]))]
+            sc = dataclasses.replace(ctx.scene, **dict(zip(DIFF_LEAVES, xs[2:])))
+            L = ray_color(sc, xs[0], xs[1], u.detach(), ctx.options)
+            wrt = [x for x in xs if x.requires_grad]
+            got = iter(torch.autograd.grad(L, wrt, g, allow_unused=True, materialize_grads=True)
+                       if wrt else ())
+        grads = [next(got) if x.requires_grad else None for x in xs]
+        return (None, None, grads[0], grads[1], None, *grads[2:])
+
+
+def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS, debug: bool = False):
     """Plain integrator. o, d: (B,3); u: (max_bounces, B, 12) uniforms.
-    Returns (B,3) radiance. Every closest-hit query goes through
-    intersect.query_lite (K1 on a CUDA device)."""
+    Returns (B,3) radiance, and with debug=True also the per-bounce
+    telemetry (max_bounces, DBG_C, B). Every closest-hit query goes
+    through intersect.query_lite (K1 on a CUDA device). Under
+    options.remat_bounces each bounce is rematerialised in the backward
+    (torch.utils.checkpoint)."""
     B = o.shape[0]
     tables = pack_tables(scene)
     # primary hit (reference traces it before the bounce loop, renderer.cpp:61)
@@ -221,8 +283,21 @@ def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS):
         alive=torch.ones(B, dtype=torch.bool, device=o.device),
         prim=prim, t=t,
     )
+    remat = getattr(options, "remat_bounces", False) and torch.is_grad_enabled()
+    dbg = []
     for i in range(options.max_bounces):
-        state = plain_bounce(scene, tables, state, u[i], i, options)
+        if remat:
+            out = checkpoint(plain_bounce, scene, tables, state, u[i], i, options, debug,
+                             use_reentrant=False)
+        else:
+            out = plain_bounce(scene, tables, state, u[i], i, options, debug)
+        if debug:
+            state, ch = out
+            dbg.append(ch)
+        else:
+            state = out
+    if debug:
+        return state.L, torch.stack(dbg)
     return state.L
 
 
@@ -235,10 +310,11 @@ def _recompute_t(tables, o, d, found, prim, t):
 
 
 def plain_bounce(scene, tables, state: PathState, ui, i: int,
-                 options: RenderOptions = DEFAULT_OPTIONS) -> PathState:
+                 options: RenderOptions = DEFAULT_OPTIONS, debug: bool = False):
     """One shading vertex of every ray (the plain twin of the one-bounce
     kernel K4): state at vertex i and its uniforms ui (B, 12) in, the
-    state at vertex i + 1 out."""
+    state at vertex i + 1 out; with debug=True also the vertex's
+    telemetry (DBG_C, B)."""
     o, d, T, L, prev_spec, alive, prim, t = state
     B = o.shape[0]
     num_lights = scene.light_type.shape[0]
@@ -296,7 +372,7 @@ def plain_bounce(scene, tables, state: PathState, ui, i: int,
         nee_norm = intersect.hit_detail_rows(
             hit.p, bs_nee.wwi, t3[B : 2 * B], p3[B : 2 * B], nf, nrows
         ).norm
-    cl, cb = _nee_contributions(
+    cl, cb, l_pdf2 = _nee_contributions(
         hit, frame, mtype, albedo, wwo, options, ls, bs_nee, lrows, carrier,
         sf, s_hits, nf, n_hits, nee_norm,
     )
@@ -314,6 +390,16 @@ def plain_bounce(scene, tables, state: PathState, ui, i: int,
     )
     T = torch.where(alive_next[..., None], torch.clamp(T * w_b, max=1.0e16), T)
 
+    if debug:
+        f32 = lambda x: x.to(torch.float32)
+        Ld = cl + cb
+        ch = torch.stack([
+            torch.where(found, t, intersect._BIG), f32(prim),
+            torch.maximum(torch.maximum(T[:, 0], T[:, 1]), T[:, 2]),
+            bs.pdf, dot(bs.f, bs.f), ls.pdf, l_pdf2,
+            Ld[:, 0] + Ld[:, 1] + Ld[:, 2], f32(cur), xt, f32(xp), f32(bs.is_specular),
+        ])
     if o.is_cuda:
         xt = _recompute_t(tables, hit.p, bs.wwi, xf, xp, xt)
-    return PathState(hit.p, bs.wwi, T, L, bs.is_specular, alive_next, xp, xt)
+    nxt = PathState(hit.p, bs.wwi, T, L, bs.is_specular, alive_next, xp, xt)
+    return (nxt, ch.detach()) if debug else nxt

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from plutracer_tpu.semantics import DEFAULT_OPTIONS, RenderOptions
+from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops.camera import generate_rays
 from plutracer_tpu_torch.render.integrator import radiance
@@ -39,6 +39,16 @@ def _trace_stratum(scene, px0, key, stratum: int, n: int, options: RenderOptions
     lens = (cell + jit_lens) / n
     o, d = generate_rays(scene.camera, px, lens)
     return radiance(scene, o, d, k_path, options)
+
+
+def render_pass(scene, key, stratum: int, width: int, height: int, n: int,
+                options: RenderOptions = DEFAULT_OPTIONS):
+    """One stratified pass: every pixel gets one sample from the given
+    stratum cell, its random numbers drawn from `key` itself (no fold_in
+    by stratum). Returns (H*W, 3) radiance; the function the gradient
+    checks and the train step differentiate."""
+    return _trace_stratum(scene, pixel_centers(width, height, scene.device), key, stratum, n,
+                          options)
 
 
 def render_passes(

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from plutracer_tpu.semantics import DEFAULT_OPTIONS, RenderOptions
+from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
 from plutracer_tpu_torch.ops import intersect
 from plutracer_tpu_torch.ops.tables import pack_tables
 from plutracer_tpu_torch.render.integrator import PathState

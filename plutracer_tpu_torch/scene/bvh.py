@@ -59,7 +59,7 @@ def build_bvh(scene_np, use_native: bool = True) -> BvhArrays:
     semantic oracle and the fallback.
     """
     if use_native and scene_np.prim_type.shape[0] > 1:
-        from plutracer_tpu import native as _native
+        from plutracer_tpu_torch import native as _native
 
         prims10 = np.concatenate(
             [

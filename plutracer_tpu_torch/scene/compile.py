@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from plutracer_tpu.semantics import DEFAULT_OPTIONS, RenderOptions
+from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
 from plutracer_tpu_torch.scene.bvh import build_bvh, parent_bounds_tables
 from plutracer_tpu_torch.scene.loader import box_area, sphere_area, triangle_area
 from plutracer_tpu_torch.scene.types import (

@@ -38,7 +38,7 @@ from plutracer_tpu_torch.scene.types import (
     SceneDesc,
     TextureDesc,
 )
-from plutracer_tpu.urn import EvalContext, Kind, Value, parse
+from plutracer_tpu_torch.urn import EvalContext, Kind, Value, parse
 
 
 class SceneError(Exception):
@@ -201,7 +201,7 @@ class _Loader:
                     )
                 )
             elif t == "img":
-                from plutracer_tpu.io.bmp import read_bmp
+                from plutracer_tpu_torch.io.bmp import read_bmp
 
                 img = read_bmp(os.path.join(self.base_dir, ts[1].get_str()))
                 tid = self.desc.add_texture(TextureDesc(TEX_IMAGE, image=img))

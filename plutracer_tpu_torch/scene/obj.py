@@ -24,7 +24,7 @@ class ObjMesh:
 
 def load_obj(path: str, use_native: bool = True) -> ObjMesh:
     if use_native:
-        from plutracer_tpu import native as _native
+        from plutracer_tpu_torch import native as _native
 
         out = _native.load_obj_native(path)
         if out is not None:

@@ -23,7 +23,7 @@ from plutracer_tpu.render.integrator import ray_color as jax_ray_color
 from plutracer_tpu.render.renderer import pixel_centers as jax_pixel_centers
 from plutracer_tpu.scene import compile_scene as jax_compile
 from plutracer_tpu.scene import load_scene_file as jax_load
-from plutracer_tpu.semantics import DEFAULT_OPTIONS
+from plutracer_tpu.semantics import DEFAULT_OPTIONS as JAX_OPTIONS
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
 from plutracer_tpu_torch.render.integrator import (
@@ -35,8 +35,9 @@ from plutracer_tpu_torch.render.integrator import (
     resolve_integrator_backend,
 )
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
 
-XLA = DEFAULT_OPTIONS.replace(integrator_backend="xla")
+XLA = JAX_OPTIONS.replace(integrator_backend="xla")
 SCENES = ["demo-box", "dof", "textured0"]
 
 
@@ -85,7 +86,7 @@ def test_plain_matches_jax_xla(name):
 def test_plain_matches_jax_pallas_interpret(name):
     js, ts, o, d, seed = setup(name, 16)
     u = port_uniforms(seed, o.shape[0])
-    ref = np.asarray(ray_color_pallas(js, o, d, jax.random.PRNGKey(seed), DEFAULT_OPTIONS,
+    ref = np.asarray(ray_color_pallas(js, o, d, jax.random.PRNGKey(seed), JAX_OPTIONS,
                                       interpret=True))
     # the K2 wrapper on CPU tensors is its plain version
     out = ray_color_kernel(ts, torch.from_numpy(o), torch.from_numpy(d), u, DEFAULT_OPTIONS).numpy()
@@ -96,13 +97,13 @@ def test_plain_matches_jax_pallas_interpret(name):
 def test_plain_matches_jax_quirk_switches(quirks):
     """The MIS, pdf and emission-gate switches, flipped together."""
     flip = quirks == "textbook"
-    opts = DEFAULT_OPTIONS.replace(swapped_light_mis_weight=not flip,
-                                   origin_distance_pdf=not flip,
-                                   shading_normal_le_gate=not flip)
+    quirks = dict(swapped_light_mis_weight=not flip, origin_distance_pdf=not flip,
+                  shading_normal_le_gate=not flip)
+    opts = DEFAULT_OPTIONS.replace(**quirks)
     js, ts, o, d, seed = setup("demo-box", 24, seed=3)
     u = draw_uniforms(rng.PRNGKey(seed), o.shape[0], opts.max_bounces, "cpu")
     ref = np.asarray(jax_ray_color(js, o, d, jax.random.PRNGKey(seed),
-                                   opts.replace(integrator_backend="xla")))
+                                   XLA.replace(**quirks)))
     out = ray_color(ts, torch.from_numpy(o), torch.from_numpy(d), u, opts).numpy()
     assert_knife_edge_close(out, ref, quirks)
 

@@ -24,9 +24,10 @@ from plutracer_tpu.ops import texture as jtexture
 from plutracer_tpu.ops import tonemap as jtonemap
 from plutracer_tpu.scene import compile_scene as jax_compile
 from plutracer_tpu.scene import load_scene_file as jax_load
-from plutracer_tpu.semantics import DEFAULT_OPTIONS
+from plutracer_tpu.semantics import DEFAULT_OPTIONS as JAX_OPTIONS
 from plutracer_tpu_torch.ops import bsdf, camera, intersect, lights, sampling, tables, texture, tonemap
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
 
 B = 2048
 SCENES = ["demo-box", "dof", "textured0", "mesh0"]
@@ -175,19 +176,20 @@ def test_lights(name, origin_pdf):
     js, ts = both(name)
     st = rand_state(ts, 5)
     opts = DEFAULT_OPTIONS.replace(origin_distance_pdf=origin_pdf)
+    jopts = JAX_OPTIONS.replace(origin_distance_pdf=origin_pdf)
     tt, jt = tables.pack_tables(ts), jtables.pack_tables(js)
     lr_t, lr_j = tables.gather_light(tt, t(st["li"])), jtables.gather_light(jt, j(st["li"]))
     car_t = tables.gather_prim(tt, torch.clamp(lr_t.prim, min=0))
     car_j = jtables.gather_prim(jt, jnp.maximum(lr_j.prim, 0))
     u = st["u"]
     got = lights.sample_light_rows(lr_t, car_t, t(st["o"]), t(u[:, 0:2]), t(u[:, 2]), t(u[:, 3]), opts)
-    want = jlights.sample_light_rows(lr_j, car_j, j(st["o"]), j(u[:, 0:2]), j(u[:, 2]), j(u[:, 3]), opts)
+    want = jlights.sample_light_rows(lr_j, car_j, j(st["o"]), j(u[:, 0:2]), j(u[:, 2]), j(u[:, 3]), jopts)
     close(got.Li, want.Li, rtol=1e-4, atol=1e-5)
     close(got.wi, want.wi, rtol=1e-4, atol=1e-5)
     close(got.pdf, want.pdf, rtol=1e-4, atol=1e-5)
     np.testing.assert_array_equal(got.is_delta.numpy(), np.asarray(want.is_delta))
     close(lights.light_pdf_rows(lr_t, car_t, t(st["o"]), t(st["d"]), opts),
-          jlights.light_pdf_rows(lr_j, car_j, j(st["o"]), j(st["d"]), opts), rtol=1e-4, atol=1e-5)
+          jlights.light_pdf_rows(lr_j, car_j, j(st["o"]), j(st["d"]), jopts), rtol=1e-4, atol=1e-5)
     pr_t, pr_j = tables.gather_prim(tt, t(st["pi"])), jtables.gather_prim(jt, j(st["pi"]))
     own_t = tables.gather_light(tt, torch.clamp(pr_t.light, min=0))
     own_j = jtables.gather_light(jt, jnp.maximum(pr_j.light, 0))

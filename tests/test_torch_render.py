@@ -16,11 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from plutracer_tpu.io.bmp import read_bmp
 from plutracer_tpu.render.renderer import render as jax_render
 from plutracer_tpu.scene import compile_scene as jax_compile
 from plutracer_tpu.scene import load_scene_file as jax_load
 from plutracer_tpu_torch import cli, rng
+from plutracer_tpu_torch.io.bmp import read_bmp
 from plutracer_tpu_torch.render.renderer import render
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
@@ -75,14 +75,23 @@ def test_cli_rejects_unported_flags(flag, tmp_path):
 
 def test_package_never_imports_jax(tmp_path):
     """A fresh interpreter: import the port, render a tiny image through the
-    CLI on the CPU, and find no jax module loaded."""
+    CLI and take one train step on the CPU, and find no jax module and no
+    module of the JAX package (plutracer_tpu, plutracer_tpu.*) loaded."""
     code = (
         "import sys\n"
         "import plutracer_tpu_torch.cli as cli\n"
         "import plutracer_tpu_torch.ops.cuda.build, plutracer_tpu_torch.ops.cuda.integrator_kernel\n"
+        "from plutracer_tpu_torch import rng\n"
+        "from plutracer_tpu_torch.diff.optimize import InverseRenderConfig, optimize_scene\n"
+        "from plutracer_tpu_torch.scene import compile_scene, load_scene_file\n"
         f"cli.main([{str(REPO / 'scenes' / 'demo-box.urn')!r}, '/res', '8x6', '/smp', '1',"
         f" '/o', {str(tmp_path / 'x.bmp')!r}, '/device', 'cpu'])\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        f"s = compile_scene(load_scene_file({str(REPO / 'scenes' / 'demo-box.urn')!r}, ['/res', '8x6']))\n"
+        "p, losses = optimize_scene(s, s.atlas.new_zeros((6, 8, 3)), InverseRenderConfig(\n"
+        "    width=8, height=6, n=1, steps=1, trainable=('mat_color',)))\n"
+        "assert len(losses) == 1\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
+        "             or m == 'plutracer_tpu' or m.startswith('plutracer_tpu.'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX')\n"
     )

@@ -34,7 +34,7 @@ from plutracer_tpu.ops.pallas import integrator_kernel as jik
 from plutracer_tpu.render.renderer import pixel_centers as jax_pixel_centers
 from plutracer_tpu.scene import compile_scene as jax_compile
 from plutracer_tpu.scene import load_scene_file as jax_load
-from plutracer_tpu.semantics import DEFAULT_OPTIONS
+from plutracer_tpu.semantics import DEFAULT_OPTIONS as JAX_OPTIONS
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops.camera import generate_rays
 from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda, ray_color_stream_cuda
@@ -51,6 +51,7 @@ from plutracer_tpu_torch.render.integrator import (
 from plutracer_tpu_torch.render.renderer import pixel_centers, render
 from plutracer_tpu_torch.render.wavefront import SORTS, morton_key, ray_color_wavefront
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
 
 REPO_SCENES = ["demo-box", "dof", "textured0", "sphere-grid", "mesh0", "mesh1", "mesh2",
                "mesh-tex"]
@@ -111,8 +112,8 @@ def jax_stream():
     out = {}
     for name in ("sphere-grid", "mesh0", "mesh-tex"):
         js, ts, o, d = setup(name)
-        assert jik.megakernel_eligible(js, DEFAULT_OPTIONS) and js.prim_type.shape[0] > jik.MAX_P
-        ref = jik.ray_color_pallas(js, o, d, jax.random.PRNGKey(KEY), DEFAULT_OPTIONS,
+        assert jik.megakernel_eligible(js, JAX_OPTIONS) and js.prim_type.shape[0] > jik.MAX_P
+        ref = jik.ray_color_pallas(js, o, d, jax.random.PRNGKey(KEY), JAX_OPTIONS,
                                    interpret=True)
         out[name] = (ts, o.copy(), d.copy(), np.asarray(ref))
     return out
@@ -122,8 +123,9 @@ def jax_stream():
 def test_routing_agrees_with_jax_on_repo_scenes(name):
     js = jax_compile(jax_load(f"scenes/{name}.urn", ["/res", "8x8"]))
     ts = compile_scene(load_scene_file(f"scenes/{name}.urn", ["/res", "8x8"]))
-    for opts in (DEFAULT_OPTIONS, DEFAULT_OPTIONS.replace(stream_wavefront=True)):
-        assert megakernel_eligible(ts, opts) == jik.megakernel_eligible(js, opts)
+    for kw in ({}, {"stream_wavefront": True}):
+        opts = DEFAULT_OPTIONS.replace(**kw)
+        assert megakernel_eligible(ts, opts) == jik.megakernel_eligible(js, JAX_OPTIONS.replace(**kw))
         stream = js.prim_type.shape[0] > jik.MAX_P
         want = "k2" if not stream else ("k4" if opts.stream_wavefront else "k3")
         assert kernel_tier(ts, opts) == want
@@ -155,8 +157,9 @@ def shapes(P, type_rows=None, M=4, T=2, L=1, A=1):
 ], ids=str)
 def test_routing_agrees_with_jax_at_the_edges(case):
     js, ts = shapes(**case)
-    for opts in (DEFAULT_OPTIONS, DEFAULT_OPTIONS.replace(dtype="bfloat16")):
-        assert megakernel_eligible(ts, opts) == jik.megakernel_eligible(js, opts), case
+    for kw in ({}, {"dtype": "bfloat16"}):
+        assert megakernel_eligible(ts, DEFAULT_OPTIONS.replace(**kw)) == \
+            jik.megakernel_eligible(js, JAX_OPTIONS.replace(**kw)), case
 
 
 @pytest.mark.parametrize("name,allowance", [("sphere-grid", 0.02), ("mesh0", 0.03)])
@@ -216,9 +219,9 @@ def test_morton_key_bit_equal_to_jax():
 def test_wavefront_matches_jax_wavefront():
     js, ts, o, d = setup("sphere-grid")
     o, d = o.copy(), d.copy()
-    opts = DEFAULT_OPTIONS.replace(stream_wavefront=True, stream_sort="morton",
-                                   max_bounces=WAVEFRONT_BOUNCES)
-    ref = np.asarray(jik.ray_color_pallas(js, o, d, jax.random.PRNGKey(KEY), opts,
+    kw = dict(stream_wavefront=True, stream_sort="morton", max_bounces=WAVEFRONT_BOUNCES)
+    opts = DEFAULT_OPTIONS.replace(**kw)
+    ref = np.asarray(jik.ray_color_pallas(js, o, d, jax.random.PRNGKey(KEY), JAX_OPTIONS.replace(**kw),
                                           interpret=True))
     out = radiance(ts, torch.from_numpy(o), torch.from_numpy(d), rng.PRNGKey(KEY),
                    opts.replace(integrator_backend="kernel")).numpy()
