@@ -17,20 +17,26 @@
 // K4 share. Each block copies the scene tables (packed closest-hit table,
 // prim, mat, tex, light: under 21 KB at the caps) into shared memory once,
 // so every row fetch is an indexed shared load; the image atlas stays in
-// global memory (read through L1/L2). Per vertex the thread runs three
-// closest-hit queries over all P rows (shadow, NEE-BSDF, extension), which
-// with the shading math is a few thousand flops and no device-memory
-// traffic beyond the uniforms: the kernel is bounded by register pressure
-// (occupancy) and the latency of dependent math, not by bytes. Hence
-// __launch_bounds__(128) and a short block. Divergence between material
-// and primitive branches within a warp is the other cost; reordering rays
-// is a later optimisation.
+// global memory (read through L1/L2). The kernel does a few thousand flops
+// a vertex and no device-memory traffic beyond the uniforms: it is bounded
+// by operations, register pressure (occupancy) and the latency of
+// dependent math, not by bytes. What the design does about it:
+// - a path that has ended stops (about half of demo-box's vertices run);
+// - a vertex issues only the queries whose answer can reach the result
+//   (path_vertex), and those share ONE pass over the table (closest3): each
+//   row is read from shared memory once for up to three rays, and its
+//   origin-only terms are computed once;
+// - __launch_bounds__ on a short block (BLOCK below).
+// Divergence between material and primitive branches within a warp is
+// the other cost; reordering rays is later work.
 //
 // K5 (the JAX kernel's debug=True, integrator_kernel.py:1229-1240): with a
 // non-null `dbg` the launch takes the megakernel<true> instantiation, which
 // also writes every vertex's 12 telemetry channels to dbg, laid out
 // (max_bounces, 12, B) as the JAX kernel's output: one coalesced row per
-// channel. The default instantiation is the kernel without them.
+// channel, and runs every vertex of every ray (ended paths report their
+// channels too) with every query. The default instantiation is the kernel
+// without them.
 #include <cuda_runtime.h>
 
 #include "path_common.cuh"
@@ -39,13 +45,19 @@ using namespace plu;
 
 namespace {
 
+// threads a block, with __launch_bounds__(BLOCK, 1): the fastest launch
+// bounds without spills on the demo-box pass, from a sweep of block sizes
+// and minimum blocks (PERF.md, Findings)
 constexpr int BLOCK = 128;
 
-// K1's brute force over the packed table in shared memory
+// K1's brute force over the packed table in shared memory: a vertex's
+// queries share one pass over the rows (closest3)
 struct BruteForce {
   const float* packed;
   int n;
-  __device__ Query operator()(V3 o, V3 d) const { return closest(packed, n, o, d); }
+  __device__ void three(V3 o, const V3* dirs, const bool* want, bool, Query* q) const {
+    closest3(packed, n, o, dirs, want, q);
+  }
 };
 
 struct Params {
@@ -62,7 +74,7 @@ struct Params {
 };
 
 template <bool DEBUG>
-__global__ void __launch_bounds__(BLOCK) megakernel(Params k) {
+__global__ void __launch_bounds__(BLOCK, 1) megakernel(Params k) {
   extern __shared__ float smem[];
   float* s_packed = smem;
   float* s_prim = s_packed + k.P_pad * PACK_W;
@@ -92,6 +104,7 @@ __global__ void __launch_bounds__(BLOCK) megakernel(Params k) {
   PathState s{ld3(k.o + 3 * ray), ld3(k.d + 3 * ray), V3{1.0f, 1.0f, 1.0f},
               V3{0.0f, 0.0f, 0.0f}, false, true, k.prim0[ray], k.t0[ray]};
   for (int i = 0; i < k.max_bounces; ++i) {
+    if (!DEBUG && !(s.alive && s.t < T_MAX)) break;  // no later vertex adds radiance
     float u[12];
     for (int j = 0; j < 12; ++j) u[j] = k.u[(size_t)(i * 12 + j) * k.B + ray];
     path_vertex<DEBUG>(tb, closest_hit, fl, i, u, s,

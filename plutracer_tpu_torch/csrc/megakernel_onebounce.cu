@@ -11,13 +11,16 @@
 // prim (a scene row, exact in float32) | t; the uniforms of the bounce are
 // (12, B); the bounce index is an argument. The vertex is path_common.cuh's
 // path_vertex with the BVH walk of bvh_closest.cuh, the body K3 runs, so a
-// lane computes exactly what it computes in K3.
+// lane computes exactly what it computes in K3, and it gains what K3's
+// redesign gained (the walk layout, the queries a vertex skips).
 //
 // Design: one thread per lane, every read and write of the carry and the
 // uniforms coalesced (structure of arrays). What bounds it is what bounds
 // K3 (the walk's dependent loads and divergence), plus one round trip of
 // the 64-byte carry through device memory per lane and bounce. A lane whose
-// path has ended is copied through with alive = 0.
+// path has ended is copied through with alive = 0; a lane that ends at this
+// vertex leaves prim 0 and t BIG (its extension query is not run), which no
+// later step reads: the host loop's sort keys and K4 test alive first.
 #include <cuda_runtime.h>
 
 #include "bvh_closest.cuh"
@@ -26,11 +29,14 @@ using namespace plu;
 
 namespace {
 
+// threads a block, with __launch_bounds__(BLOCK, 1): the fastest launch
+// bounds without spills on the mesh1 launch, from a sweep of block sizes and
+// minimum blocks (PERF.md, Findings; without a minimum K4 spills)
 constexpr int BLOCK = 128;
 constexpr int CARRY_W = 16;
 
-__global__ void __launch_bounds__(BLOCK)
-    megakernel_onebounce(const Tables tb, const Bvh bvh, const Flags fl,
+__global__ void __launch_bounds__(BLOCK, 1)
+    megakernel_onebounce(const Tables tb, const Walk walk, const Flags fl,
                          const float* __restrict__ cin, float* __restrict__ cout,
                          const float* __restrict__ u, int B, int bounce) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -42,7 +48,7 @@ __global__ void __launch_bounds__(BLOCK)
   if (s.alive && s.t < T_MAX) {
     float uu[12];
     for (int j = 0; j < 12; ++j) uu[j] = u[(size_t)j * B + lane];
-    path_vertex(tb, BvhWalk{bvh}, fl, bounce, uu, s);
+    path_vertex(tb, WalkQueries{walk}, fl, bounce, uu, s);
   } else {
     s.alive = false;
   }
@@ -57,18 +63,15 @@ __global__ void __launch_bounds__(BLOCK)
 extern "C" int plu_megakernel_onebounce(const float* prim, int P, const float* mat, int M,
                                         const float* tex, int T, const float* light, int L,
                                         const float* atlas, int A, int has_images,
-                                        const float* packed, const float* node_min,
-                                        const float* node_max, const int* skip,
-                                        const int* leaf_row, const unsigned char* line_only,
-                                        int N, float margin, const float* cin,
-                                        float* cout,
+                                        const float* packed, const int* nodes,
+                                        const float* rows, const float* cin, float* cout,
                                         const float* u, int B, int bounce, int max_bounces,
                                         int swapped_mis, int origin_pdf, int shading_gate,
                                         void* stream) {
   const Tables tb{prim, mat, tex, light, atlas, P, M, T, L, A, has_images != 0};
-  const Bvh bvh{packed, node_min, node_max, skip, leaf_row, line_only, N, margin};
+  const Walk walk{packed, (const int4*)nodes, (const float4*)rows};
   const Flags fl{max_bounces, swapped_mis != 0, origin_pdf != 0, shading_gate != 0};
   megakernel_onebounce<<<(B + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(
-      tb, bvh, fl, cin, cout, u, B, bounce);
+      tb, walk, fl, cin, cout, u, B, bounce);
   return (int)cudaGetLastError();
 }

@@ -43,20 +43,18 @@ _SIGNATURES = {
     # swapped_mis, origin_pdf, shading_gate, stream
     "plu_megakernel": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,
                        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
-    # packed, node_min, node_max, node_skip, leaf_row, line_only, N, margin,
-    # o, d, t_out, prim_out, B, stream
-    "plu_closest_hit_bvh": [_vp, _vp, _vp, _vp, _vp, _vp, _i, ctypes.c_float,
-                            _vp, _vp, _vp, _vp, _i, _vp],
-    # prim, P, mat, M, tex, T, light, L, atlas, A, has_images, the BVH as
-    # above (8), o, d, u, out, dbg (K5 telemetry or null), B, max_bounces,
+    # packed, walk_nodes, walk_rows, o, d, t_out, prim_out, B, stream
+    "plu_closest_hit_bvh": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _vp],
+    # prim, P, mat, M, tex, T, light, L, atlas, A, has_images, the walk as
+    # above (3), o, d, u, out, dbg (K5 telemetry or null), B, max_bounces,
     # swapped_mis, origin_pdf, shading_gate, stream
     "plu_megakernel_stream": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,
-                              _vp, _vp, _vp, _vp, _vp, _vp, _i, ctypes.c_float,
+                              _vp, _vp, _vp,
                               _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
-    # the tables and the BVH as above, carry_in, carry_out, u, B, bounce,
+    # the tables and the walk as above, carry_in, carry_out, u, B, bounce,
     # max_bounces, swapped_mis, origin_pdf, shading_gate, stream
     "plu_megakernel_onebounce": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,
-                                 _vp, _vp, _vp, _vp, _vp, _vp, _i, ctypes.c_float,
+                                 _vp, _vp, _vp,
                                  _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],
 }
 

@@ -9,10 +9,12 @@ accept rules, same strict-< fold in table order.
 
 ``closest_hit_bvh`` is the closest-hit query of the stream kernels K3 and
 K4 as a launch of its own (csrc/bvh_closest.cuh, launched by
-``closest_hit_bvh_cuda``), with ``bvh_closest_plain`` as its plain
-version. It replaces the streamed brute force of the JAX package's
-stream kernel (integrator_kernel.py: _closest_stream / _closest_stream3
-over Morton-ordered MegaPack chunks) and answers exactly as K1 does.
+``closest_hit_bvh_cuda``): an ordered walk of the scene's traversal
+layout (scene.walk_nodes, scene.walk_rows), with ``walk_closest_plain``
+as its plain version. It replaces the streamed brute force of the JAX
+package's stream kernel (integrator_kernel.py: _closest_stream /
+_closest_stream3 over Morton-ordered MegaPack chunks) and answers exactly
+as K1 does.
 
 ``closest_hit_cuda.launches`` and ``closest_hit_bvh_cuda.launches`` count
 kernel launches.
@@ -152,90 +154,139 @@ def closest_hit_cuda(packed, o, d):
 closest_hit_cuda.launches = 0
 
 
-def bvh_closest_plain(packed, bvh, leaf_row, line_only, margin, o, d):
-    """The K3 query's plain version: every ray walks the skip-link BVH
-    (found, prim, t), answering as closest_hit_plain does on every ray
-    that hits (found, prim and t equal). A miss reports found False, prim
-    0 and t _BIG, where closest_hit_plain may report the t of a padding
-    row about 1e30 away; no caller reads t on a miss.
+_POP = 1 << 40  # walk_closest_plain: the ray's next step is a pop of its stack
 
-    - A leaf tests its packed row (``leaf_row``) with K1's arithmetic,
-      parent-AABB sphere cull included, and folds the lexicographic
-      minimum of (t, packed row): K1 keeps the first packed row among
-      equal t, and the walk visits rows in tree order.
-    - An internal node's box, padded by ``margin`` on every side, is
-      entered when the ray's LINE crosses it (``line_only`` nodes hold a
-      sphere, whose phantom hits of non-unit rays lie outside its box),
-      else when the ray's [0, best t] overlaps it. NaN passes the test.
-    - Then the walk goes to node + 1, or past the subtree to its skip.
 
-    Rays advance in lockstep; only rays still walking are computed."""
+def walk_closest_plain(packed, nodes, rows, o, d, any_hit: bool = False, count: bool = False):
+    """The K3 query's plain version: every ray walks the traversal layout
+    of scene/compile.walk_tables (``nodes`` = scene.walk_nodes, ``rows`` =
+    scene.walk_rows) as csrc/bvh_closest.cuh does, and answers (found,
+    prim, t) as closest_hit_plain does on every ray that hits (a miss
+    reports prim 0 and t _BIG). With count=True also (nodes, leaves,
+    rows) per ray: the internal node records the walk visited (each tests
+    both children's boxes), the leaves it visited, and (B, 3) the rows it
+    tested of each type (sphere, box, triangle).
+
+    - An internal node tests both children's padded boxes: a child whose
+      subtree holds a sphere is entered when the ray's LINE crosses its
+      box, any other when the ray's [0, best t] overlaps it (NaN enters).
+      If both enter, the walk goes to the one whose box the ray enters
+      first and pushes the other with its entry t (-inf for a LINE
+      child); a pushed child is skipped when popped if its entry t now
+      exceeds best t.
+    - A leaf tests its 1 to 4 rows with K1's arithmetic and folds the
+      lexicographic minimum of (t, packed row), so the answer does not
+      depend on the order of the visits.
+    - ``any_hit``: the shadow ray of a point light, which needs only
+      found: best t starts at T_MAX (so the walk culls what lies beyond)
+      and the walk stops at the first row with t < T_MAX.
+
+    Rays advance in lockstep, one step a ray per round."""
+    from plutracer_tpu_torch.scene.compile import WALK_LEAF_ROWS, WALK_STACK
+
     B = o.shape[0]
-    N = bvh.num_nodes
+    dev = o.device
     rinv = 1.0 / torch.where(d == 0.0, 1e-20, d)
-    lo = bvh.node_min - margin
-    hi = bvh.node_max + margin
-    skip = bvh.node_skip.long()
-    leaf_row = leaf_row.long()
-    node = torch.zeros(B, dtype=torch.long, device=o.device)
-    best_t = torch.full((B,), _BIG, dtype=torch.float32, device=o.device)
-    best_row = torch.full((B,), _NO_ROW, dtype=torch.long, device=o.device)
-    walking = torch.arange(B, device=o.device)
-    while walking.numel():
-        n = node[walking]
-        row = leaf_row[n]
-        leaf = row >= 0
-        nxt = skip[n]
-        # leaves: K1's test of the packed row, lexicographic (t, row) fold
-        la, lr = walking[leaf], row[leaf]
-        t = row_ts(packed[lr], o[la], d[la])
-        bt, br = best_t[la], best_row[la]
-        take = (t < bt) | ((t == bt) & (lr < br) & (t < _BIG))
-        best_t[la] = torch.where(take, t, bt)
-        best_row[la] = torch.where(take, lr, br)
-        # internal nodes: the padded box test
-        ia, ni = walking[~leaf], n[~leaf]
-        tmin, tmax = _slab(lo[ni], hi[ni], o[ia], rinv[ia])
-        ray_test = ~(tmax < torch.clamp(tmin, min=0.0)) & ~(tmin > best_t[ia])
-        visit = torch.where(line_only[ni], ~(tmax < tmin), ray_test)
-        nxt[~leaf] = torch.where(visit, ni + 1, nxt[~leaf])
-        node[walking] = nxt
-        walking = walking[nxt < N]
-    hit = best_t < _BIG
+    boxes = nodes.view(torch.float32)[:, :12]
+    sides = ((boxes[:, 0:3], boxes[:, 3:6]), (boxes[:, 6:9], boxes[:, 9:12]))
+    child = nodes[:, 12:14].long()
+    flags = nodes[:, 14].long()
+    stack = torch.zeros((B, WALK_STACK), dtype=torch.long, device=dev)
+    stack_t = torch.zeros((B, WALK_STACK), dtype=torch.float32, device=dev)
+    sp = torch.zeros(B, dtype=torch.long, device=dev)
+    ref = torch.zeros(B, dtype=torch.long, device=dev)  # the root
+    best_t = torch.full((B,), T_MAX if any_hit else _BIG, dtype=torch.float32, device=dev)
+    best_row = torch.full((B,), _NO_ROW, dtype=torch.long, device=dev)
+    visits = torch.zeros(B, dtype=torch.long, device=dev)
+    leaves = torch.zeros(B, dtype=torch.long, device=dev)
+    tested = torch.zeros((B, 3), dtype=torch.long, device=dev)
+    active = torch.arange(B, device=dev)
+    while active.numel():
+        r = ref[active]
+        # internal nodes: both children's box tests
+        m = (r >= 0) & (r != _POP)
+        ia, n = active[m], r[m]
+        oi, ri, bt = o[ia], rinv[ia], best_t[ia]
+        enter, tmin, line = [], [], []
+        for side, (lo, hi) in enumerate(sides):
+            tmn, tmx = _slab(lo[n], hi[n], oi, ri)
+            ln = ((flags[n] >> side) & 1) == 1
+            ok = torch.where(ln, ~(tmx < tmn), ~(tmx < torch.clamp(tmn, min=0.0)) & ~(tmn > bt))
+            enter.append(ok & (child[n, side] != 0))
+            tmin.append(tmn)
+            line.append(ln)
+        el, er = enter
+        rfirst = tmin[1] < tmin[0]
+        near = torch.where(rfirst, child[n, 1], child[n, 0])
+        far = torch.where(rfirst, child[n, 0], child[n, 1])
+        far_t = torch.where(rfirst, torch.where(line[0], -torch.inf, tmin[0]),
+                            torch.where(line[1], -torch.inf, tmin[1]))
+        both = el & er
+        pb = ia[both]
+        stack[pb, sp[pb]] = far[both]
+        stack_t[pb, sp[pb]] = far_t[both]
+        sp[pb] += 1
+        ref[ia] = torch.where(both, near, torch.where(el, child[n, 0],
+                                                      torch.where(er, child[n, 1], _POP)))
+        visits[ia] += 1
+        # leaves: their rows, lexicographic (t, packed row) fold
+        m = r < 0
+        la, code = active[m], -1 - r[m]
+        first, cnt = code >> 2, (code & 3) + 1
+        for k in range(WALK_LEAF_ROWS):
+            has = k < cnt
+            ka, row = la[has], first[has] + k
+            t = row_ts(rows[row], o[ka], d[ka])
+            prow = rows[row, 10].long()
+            bt, br = best_t[ka], best_row[ka]
+            take = (t < bt) | ((t == bt) & (prow < br) & (t < _BIG))
+            best_t[ka] = torch.where(take, t, bt)
+            best_row[ka] = torch.where(take, prow, br)
+            tested.index_put_((ka, rows[row, 0].long()), torch.ones_like(ka), accumulate=True)
+        ref[la] = _POP
+        leaves[la] += 1
+        # pops (rays whose previous step ended), culled by the entry t
+        m = r == _POP
+        finished = torch.zeros(B, dtype=torch.bool, device=dev)
+        finished[active[m & (sp[active] == 0)]] = True
+        pa = active[m & (sp[active] > 0)]
+        sp[pa] -= 1
+        ent, ent_t = stack[pa, sp[pa]], stack_t[pa, sp[pa]]
+        ref[pa] = torch.where(ent_t > best_t[pa], _POP, ent)
+        if any_hit:
+            finished[active] |= best_t[active] < T_MAX
+        active = active[~finished[active]]
+    found = best_t < T_MAX
+    hit = found if any_hit else best_t < _BIG
     prim = torch.where(hit, packed[best_row.clamp(max=packed.shape[0] - 1), 10].to(torch.int32), 0)
-    return best_t < T_MAX, prim, best_t
-
-
-def _bvh_args(scene):
-    return (scene.prims_packed, scene.bvh, scene.bvh_leaf_row, scene.bvh_line_only,
-            scene.bvh_margin)
+    t = torch.where(found, best_t, _BIG) if any_hit else best_t
+    out = (found, prim, t)
+    return out + (visits, leaves, tested) if count else out
 
 
 def closest_hit_bvh(scene, o, d):
-    """(found, prim, t) for rays o, d (B, 3) by a walk of scene.bvh,
-    equal to closest_hit over scene.prims_packed (t on hits; _BIG on a
-    miss, see bvh_closest_plain). CUDA tensors: the K3
-    query kernel. CPU tensors: bvh_closest_plain."""
+    """(found, prim, t) for rays o, d (B, 3) by a walk of the scene's
+    traversal layout (scene.walk_nodes / walk_rows), equal to closest_hit
+    over scene.prims_packed (t on hits; _BIG on a miss, see
+    walk_closest_plain). CUDA tensors: the K3 query kernel. CPU tensors:
+    walk_closest_plain."""
     if o.is_cuda:
         return closest_hit_bvh_cuda(scene, o, d)
-    return bvh_closest_plain(*_bvh_args(scene), o, d)
+    return walk_closest_plain(scene.prims_packed, scene.walk_nodes, scene.walk_rows, o, d)
 
 
-def bvh_pointers(scene):
-    """The BVH walk's table arguments of a kernel launch (pointers, node
-    count, margin), after checking the tables lie with the packed table on
-    one CUDA device in the dtypes the kernel reads."""
-    packed, bvh, leaf_row, line_only, margin = _bvh_args(scene)
-    want = ((packed, torch.float32), (bvh.node_min, torch.float32),
-            (bvh.node_max, torch.float32), (bvh.node_skip, torch.int32),
-            (leaf_row, torch.int32), (line_only, torch.bool))
+def walk_pointers(scene):
+    """The walk's table arguments of a kernel launch (packed table, node
+    records, walk rows), after checking they lie on one CUDA device in the
+    dtypes the kernel reads."""
+    want = ((scene.prims_packed, torch.float32), (scene.walk_nodes, torch.int32),
+            (scene.walk_rows, torch.float32))
+    dev = scene.prims_packed.device
     for x, dtype in want:
-        if not x.is_cuda or x.device != packed.device or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"BVH tables must be contiguous {dtype} on {packed.device}, "
+        if not x.is_cuda or x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"walk tables must be contiguous {dtype} on {dev}, "
                              f"got {x.dtype} on {x.device}")
-    return (packed.data_ptr(), bvh.node_min.data_ptr(), bvh.node_max.data_ptr(),
-            bvh.node_skip.data_ptr(), leaf_row.data_ptr(), line_only.data_ptr(),
-            bvh.num_nodes, float(margin))
+    return tuple(x.data_ptr() for x, _ in want)
 
 
 def closest_hit_bvh_cuda(scene, o, d):
@@ -245,7 +296,7 @@ def closest_hit_bvh_cuda(scene, o, d):
     from plutracer_tpu_torch.ops.cuda import build
 
     _check(scene.prims_packed, o, d)
-    tables = bvh_pointers(scene)
+    tables = walk_pointers(scene)
     B = o.shape[0]
     t = torch.empty(B, dtype=torch.float32, device=o.device)
     prim = torch.empty(B, dtype=torch.int32, device=o.device)

@@ -3,7 +3,8 @@ for scenes of 64 < P <= 2^20 primitives.
 
 ``ray_color_stream_cuda`` launches K3 (csrc/megakernel_stream.cu): every
 bounce of every ray in one launch, the primary hit found in the kernel,
-every closest-hit query a walk of scene.bvh. It replaces the JAX
+every closest-hit query a walk of the scene's traversal layout
+(scene.walk_nodes / walk_rows). It replaces the JAX
 package's _megakernel_call_stream, and its plain version is
 render/integrator.ray_color fed the same uniforms.
 
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from plutracer_tpu_torch.ops.cuda.intersect_kernel import bvh_pointers
+from plutracer_tpu_torch.ops.cuda.intersect_kernel import walk_pointers
 
 
 def _check(name, scene, tables, tensors, options):
@@ -54,7 +55,7 @@ def _table_args(scene, tables):
         tables.tex.data_ptr(), tables.tex.shape[0],
         tables.light.data_ptr(), tables.light.shape[0],
         atlas.data_ptr(), atlas.shape[0], int(atlas.shape[0] > 1),
-        *bvh_pointers(scene),
+        *walk_pointers(scene),
     )
 
 

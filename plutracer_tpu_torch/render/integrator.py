@@ -12,7 +12,8 @@ behind RenderOptions switches, escaped rays contribute nothing.
 ``plain_bounce`` (one shading vertex for every ray) on batched tensors,
 taking the uniforms ``u`` (max_bounces, B, 12) as an input. ``radiance``
 draws those uniforms from a threefry key, exactly as the JAX package does
-(uniform(fold_in(key, bounce), (B, 12))), and sends the batch either to
+(uniform(fold_in(key, bounce), (B, 12))), and ``radiance_of_uniforms``
+sends the batch either to
 the CUDA kernels (ops/cuda/integrator_kernel.ray_color_kernel: the
 megakernel K2, the stream kernel K3 or the one-bounce kernel K4, as
 ``kernel_tier`` says) or to ``ray_color``. All take the same uniforms, so
@@ -215,11 +216,17 @@ def draw_uniforms(key, B: int, max_bounces: int, device) -> torch.Tensor:
 
 def radiance(scene, o, d, key, options: RenderOptions = DEFAULT_OPTIONS):
     """Radiance for a batch of primary rays o, d (B,3) with the per-bounce
-    uniforms drawn from `key`. Dispatches to the kernels or the plain
+    uniforms drawn from `key`: radiance_of_uniforms."""
+    u = draw_uniforms(key, o.shape[0], options.max_bounces, o.device)
+    return radiance_of_uniforms(scene, o, d, u, options)
+
+
+def radiance_of_uniforms(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS):
+    """Radiance for primary rays o, d (B,3) and their uniforms u
+    (max_bounces, B, 12). Dispatches to the kernels or the plain
     integrator (resolve_integrator_backend); on the kernel path with
     gradients wanted (grad enabled and o, d or a DIFF_LEAVES field
     requiring grad), through KernelRadiance."""
-    u = draw_uniforms(key, o.shape[0], options.max_bounces, o.device)
     if resolve_integrator_backend(scene, options, o.device) == "kernel":
         leaves = [getattr(scene, f) for f in DIFF_LEAVES]
         if torch.is_grad_enabled() and any(x.requires_grad for x in (o, d, *leaves)):

@@ -39,6 +39,12 @@ PRIM_TILE = 8  # rows per type segment of the packed closest-hit table
 # size: a hit that K1's arithmetic accepts on a box face or a triangle
 # edge must never be culled by a node test that rounds the other way
 BVH_MARGIN = 1e-4
+# the walk layout of the stream kernels (csrc/bvh_closest.cuh, whose
+# constants of the same names must agree): rows a leaf holds at most, the
+# per-thread stack's entries, the width of a walk row
+WALK_LEAF_ROWS = 4
+WALK_STACK = 32
+WALK_ROW_W = 20
 
 
 def build_camera(
@@ -131,19 +137,10 @@ def pack_prims_np(leaves: Dict) -> np.ndarray:
     return np.concatenate(segments, axis=0)
 
 
-def bvh_helpers(prim_type, bvh) -> Dict:
-    """The BVH walk's helper leaves (numpy), from the primitive types and
-    the skip-link tree:
-
-    - ``bvh_leaf_row`` (N,) i32: each leaf's row of ``prims_packed`` (the
-      inverse of packed col 10 over the real rows), -1 at internal nodes;
-    - ``bvh_line_only`` (N,) bool: the node's subtree holds a sphere, so
-      the walk tests it with the LINE slab test only (a phantom hit of a
-      non-unit ray lies outside the sphere's own box at any t);
-    - ``bvh_margin``: the padding of every node box, BVH_MARGIN of the
-      root box's size (diagonal or largest coordinate);
-    - ``packed_type_rows``: the padded rows of each type segment of
-      ``prims_packed`` (sphere, box, triangle), 0 for an absent type."""
+def _packed_rows(prim_type):
+    """(row_of, type_rows): each primitive's row of ``prims_packed`` (the
+    inverse of packed col 10 over the real rows) and the padded rows of
+    each type segment (sphere, box, triangle; 0 for an absent type)."""
     ptype = np.asarray(prim_type, np.int32)
     row_of = np.zeros(ptype.shape[0], np.int32)
     type_rows = []
@@ -154,6 +151,28 @@ def bvh_helpers(prim_type, bvh) -> Dict:
         n_pad = -(-idx.size // PRIM_TILE) * PRIM_TILE
         type_rows.append(int(n_pad))
         offset += n_pad
+    return row_of, tuple(type_rows)
+
+
+def packed_type_rows(prim_type) -> Tuple[int, int, int]:
+    """The padded rows of each type segment of ``prims_packed`` (sphere,
+    box, triangle), 0 for an absent type."""
+    return _packed_rows(prim_type)[1]
+
+
+def bvh_helpers(prim_type, bvh) -> Dict:
+    """What the walk layout reads of the skip-link tree beyond its boxes
+    (numpy), from the primitive types and the tree:
+
+    - ``leaf_row`` (N,) i32: each leaf's row of ``prims_packed``, -1 at
+      internal nodes;
+    - ``line_only`` (N,) bool: the node's subtree holds a sphere, so the
+      walk tests it with the LINE slab test only (a phantom hit of a
+      non-unit ray lies outside the sphere's own box at any t);
+    - ``margin``: the padding of every node box, BVH_MARGIN of the root
+      box's size (diagonal or largest coordinate)."""
+    ptype = np.asarray(prim_type, np.int32)
+    row_of, _ = _packed_rows(ptype)
     node_prim = np.asarray(bvh.node_prim, np.int32)
     node_skip = np.asarray(bvh.node_skip, np.int64)
     leaf = node_prim >= 0
@@ -165,11 +184,84 @@ def bvh_helpers(prim_type, bvh) -> Dict:
     hi = np.asarray(bvh.node_max, np.float64)[0]
     scale = max(float(np.linalg.norm(hi - lo)), float(np.abs(lo).max()), float(np.abs(hi).max()))
     return dict(
-        bvh_leaf_row=np.where(leaf, row_of[prim], -1).astype(np.int32),
-        bvh_line_only=line_only,
-        bvh_margin=BVH_MARGIN * scale,
-        packed_type_rows=tuple(type_rows),
+        leaf_row=np.where(leaf, row_of[prim], -1).astype(np.int32),
+        line_only=line_only,
+        margin=BVH_MARGIN * scale,
     )
+
+
+def leaf_ref(first, count):
+    """A walk child reference to the leaf of rows [first, first + count)
+    of walk_rows (count 1 to WALK_LEAF_ROWS): -1 - (4 first + count - 1).
+    An internal node is referenced by its index (> 0, the root is never a
+    child), an absent child by 0."""
+    return -1 - (np.asarray(first, np.int64) * 4 + np.asarray(count, np.int64) - 1)
+
+
+def walk_tables(prim_type, bvh, prims_packed) -> Dict:
+    """The traversal layout of the stream kernels' walk, built from the
+    reference tree (which it does not change: its nodes are a subset of
+    the tree's, so every node box still holds its spheres' cull boxes) and
+    bvh_helpers' leaf rows, LINE flags and margin:
+
+    - ``walk_rows`` (P, WALK_ROW_W) f32: the packed rows in the tree's
+      leaf order, so a subtree's rows are contiguous; cols 0:17 as
+      prims_packed, col 10 the row's index in prims_packed (the tie key
+      of the lexicographic fold; the scene row is read from prims_packed
+      for the winner), cols 17:20 zero;
+    - ``walk_nodes`` (Nw, 16) i32, one 64-byte record per internal node,
+      root first, in depth-first order: both children's boxes padded by
+      `margin` (cols 0:12, float32 bits: left lo, left hi, right lo,
+      right hi), the children's references (cols 12, 13: see leaf_ref),
+      flags (col 14: bit 0 the left, bit 1 the right subtree holds a
+      sphere, so it is entered on the LINE test only), col 15 zero.
+      A subtree of at most WALK_LEAF_ROWS primitives is one leaf.
+
+    Returns the two tables and ``walk_depth``, the deepest internal
+    node's depth (the walk's stack holds at most walk_depth + 1 entries;
+    it must fit WALK_STACK)."""
+    h = bvh_helpers(prim_type, bvh)
+    node_prim = np.asarray(bvh.node_prim, np.int32)
+    skip = np.asarray(bvh.node_skip, np.int64)
+    line_only = h["line_only"]
+    lo = np.asarray(bvh.node_min, np.float32) - np.float32(h["margin"])
+    hi = np.asarray(bvh.node_max, np.float32) + np.float32(h["margin"])
+    N = node_prim.shape[0]
+    leaf = node_prim >= 0
+    csum = np.concatenate([[0], np.cumsum(leaf)])
+    n_leaves = csum[skip] - csum[np.arange(N)]
+    order = h["leaf_row"].astype(np.int64)[leaf]  # packed rows in leaf order
+    rows = np.array(prims_packed, np.float32)[order, :WALK_ROW_W]
+    rows[:, 10] = order.astype(np.float32)
+    rows[:, 17:] = 0.0
+
+    if N == 1:  # a one-primitive scene: the root is a leaf
+        left, right = np.zeros(1, np.int64), np.zeros(1, np.int64)
+        left[0] = leaf_ref(0, 1)
+        boxes = np.concatenate([lo[:1], hi[:1], np.zeros((1, 6), np.float32)], 1)
+        flags = line_only[:1].astype(np.int64)
+        depth = np.zeros(1, np.int64)
+    else:
+        internal = ~leaf & ((n_leaves > WALK_LEAF_ROWS) | (np.arange(N) == 0))
+        idx = np.flatnonzero(internal)
+        walk_index = np.cumsum(internal) - 1
+        kids = (idx + 1, skip[idx + 1])  # left child, right child (pre-order)
+        left, right = (np.where(internal[c], walk_index[c], leaf_ref(csum[c], n_leaves[c]))
+                       for c in kids)
+        boxes = np.concatenate([lo[kids[0]], hi[kids[0]], lo[kids[1]], hi[kids[1]]], 1)
+        flags = line_only[kids[0]].astype(np.int64) | (line_only[kids[1]].astype(np.int64) << 1)
+        depth = np.zeros(idx.shape[0], np.int64)
+        for i in range(idx.shape[0]):  # children follow their parent
+            for c in (left[i], right[i]):
+                if c > 0:
+                    depth[c] = depth[i] + 1
+    refs = np.stack([left, right, flags, np.zeros_like(flags)], 1).astype(np.int32)
+    nodes = np.concatenate([np.ascontiguousarray(boxes, np.float32).view(np.int32), refs], 1)
+    walk_depth = int(depth.max())
+    if walk_depth + 1 > WALK_STACK:
+        raise ValueError(f"walk_tables: the tree is {walk_depth} internal levels deep; the "
+                         f"walk's stack holds {WALK_STACK} entries")
+    return dict(walk_nodes=np.ascontiguousarray(nodes), walk_rows=rows, walk_depth=walk_depth)
 
 
 def compile_numpy(desc: SceneDesc, options: RenderOptions = DEFAULT_OPTIONS) -> Dict:
@@ -253,7 +345,8 @@ def compile_numpy(desc: SceneDesc, options: RenderOptions = DEFAULT_OPTIONS) -> 
     lv.update(parent_min=parent_min, parent_max=parent_max,
               cull_rows=cull_rows or None, bvh=bvh)
     lv["prims_packed"] = pack_prims_np(lv)
-    lv.update(bvh_helpers(lv["prim_type"], bvh))
+    lv["packed_type_rows"] = packed_type_rows(lv["prim_type"])
+    lv.update(walk_tables(lv["prim_type"], bvh, lv["prims_packed"]))
     _assert_finite(lv)
     return lv
 
@@ -276,11 +369,12 @@ def scene_from_numpy(leaves: Dict) -> Scene:
     with ``camera`` a dict keyed by CameraParams field name. Accepts both
     this package's ``compile_numpy`` output and the JAX package's
     compiled leaves (whose ``bvh`` is the JAX package's BvhArrays; the
-    walk's helper leaves are derived from it when absent); keys that are
-    not Scene fields are ignored."""
+    walk layout and the packed type rows are derived when absent); keys
+    that are not Scene fields are ignored."""
     t = lambda x: torch.as_tensor(np.array(x))
-    if "bvh_leaf_row" not in leaves:
-        leaves = {**leaves, **bvh_helpers(leaves["prim_type"], leaves["bvh"])}
+    if "walk_nodes" not in leaves:
+        leaves = {**leaves, "packed_type_rows": packed_type_rows(leaves["prim_type"]),
+                  **walk_tables(leaves["prim_type"], leaves["bvh"], leaves["prims_packed"])}
     cam = CameraParams(**{
         f.name: t(leaves["camera"][f.name]) for f in dataclasses.fields(CameraParams)
     })
@@ -293,8 +387,6 @@ def scene_from_numpy(leaves: Dict) -> Scene:
             kw[f.name] = tuple(int(r) for r in v) if v else None
         elif f.name == "packed_type_rows":
             kw[f.name] = tuple(int(r) for r in v)
-        elif f.name == "bvh_margin":
-            kw[f.name] = float(v)
         elif f.name == "bvh":
             kw[f.name] = BvhTables(*(t(getattr(v, g.name)) for g in dataclasses.fields(BvhTables)))
         elif v is not None:
@@ -305,6 +397,16 @@ def scene_from_numpy(leaves: Dict) -> Scene:
 def compile_scene(
     desc: SceneDesc,
     options: RenderOptions = DEFAULT_OPTIONS,
-    device="cpu",
+    device=None,
 ) -> Scene:
+    """The compiled Scene on `device`: the CUDA card unless the caller
+    names another device. Without a card and without an explicit device
+    it raises; it never falls back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "compile_scene: no CUDA device is available; pass device='cpu' to "
+                "compile the scene onto the CPU"
+            )
+        device = "cuda"
     return scene_from_numpy(compile_numpy(desc, options)).to(device)

@@ -136,17 +136,15 @@ class Scene:
 
     camera: CameraParams
 
-    # the BVH walk of the stream kernels K3/K4 (scene/compile.bvh_helpers):
-    # the tree, each leaf's row of prims_packed (-1 at internal nodes),
-    # whether a node's subtree holds a sphere (such nodes take the padded
-    # LINE test only), and host-side scalars: the node-box padding and the
-    # padded row count of each type segment of prims_packed (sphere, box,
-    # triangle)
+    # the reference BVH (scene/bvh.build_bvh), and the padded row count of
+    # each type segment of prims_packed (sphere, box, triangle; host-side)
     bvh: BvhTables
-    bvh_leaf_row: torch.Tensor  # (N,) i32
-    bvh_line_only: torch.Tensor  # (N,) bool
-    bvh_margin: float
     packed_type_rows: Tuple[int, int, int]
+    # the same tree laid out for the stream kernels K3/K4's walk
+    # (scene/compile.walk_tables): 64-byte internal-node records holding
+    # both children's padded boxes, and the packed rows in leaf order
+    walk_nodes: torch.Tensor  # (Nw, 16) i32 (cols 0:12 float32 bits)
+    walk_rows: torch.Tensor  # (P, 20) f32
 
     # closest-hit kernel table (scene/compile.pack_prims_np), None until built
     prims_packed: Optional[torch.Tensor] = None  # (P_pad, 24)

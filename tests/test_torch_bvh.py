@@ -1,9 +1,11 @@
 """The port's BVH tables and its plain BVH walk (the K3 query's plain
-version) against the JAX package's BVH and the brute-force closest hit.
+version, closest_hit_bvh on CPU tensors: walk_closest_plain over the
+walk layout; tests/test_torch_walk.py holds the layout itself) against
+the JAX package's BVH and the brute-force closest hit.
 
 Tolerances: none where both sides run the same arithmetic. The tree and
 its leaves are the same numpy build as the JAX package's, so they are
-equal; bvh_closest_plain tests the same packed rows with K1's arithmetic
+equal; the walk tests the same packed rows with K1's arithmetic
 as closest_hit_plain, so found and prim are equal bit for bit on every
 ray and t on every hit (on a miss the walk reports _BIG, where the
 brute force may report a padding row about 1e30 away). Against JAX's
@@ -23,18 +25,19 @@ from plutracer_tpu.scene import load_scene_file as jax_load
 from plutracer_tpu_torch.ops.camera import generate_rays
 from plutracer_tpu_torch.ops.intersect import T_MAX
 from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
-    bvh_closest_plain,
     closest_hit_bvh,
     closest_hit_plain,
+    walk_closest_plain,
 )
 from plutracer_tpu_torch.render.renderer import pixel_centers
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+from plutracer_tpu_torch.scene.compile import bvh_helpers
 from plutracer_tpu_torch.scene.loader import sphere_cloud
 from plutracer_tpu_torch.scene.types import PRIM_TRIANGLE, PrimDesc, SceneDesc
 
 
 def load(name, res=32):
-    return compile_scene(load_scene_file(f"scenes/{name}.urn", ["/res", f"{res}x{res}"]))
+    return compile_scene(load_scene_file(f"scenes/{name}.urn", ["/res", f"{res}x{res}"]), device="cpu")
 
 
 def camera_rays(s, res=32, seed=0):
@@ -67,7 +70,7 @@ def cloud_rays(n, seed=2):
 
 def assert_same_answer(s, o, d):
     want = closest_hit_plain(s.prims_packed, o, d)
-    got = closest_hit_bvh(s, o, d)  # CPU tensors: bvh_closest_plain
+    got = closest_hit_bvh(s, o, d)  # CPU tensors: walk_closest_plain
     for name, a, b in zip(("found", "prim"), got, want):
         assert torch.equal(a, b), f"{name}: {(a != b).sum().item()} rays differ"
     f = want[0]
@@ -89,7 +92,8 @@ def test_bvh_equals_jax(name):
 @pytest.mark.parametrize("name", ["demo-box", "sphere-grid", "mesh0"])
 def test_leaf_row_inverts_packed_col10(name):
     s = load(name, 8)
-    node_prim, leaf_row = s.bvh.node_prim, s.bvh_leaf_row
+    h = bvh_helpers(s.prim_type, s.bvh)
+    node_prim, leaf_row = s.bvh.node_prim, torch.from_numpy(h["leaf_row"])
     leaf = node_prim >= 0
     assert torch.equal(leaf_row >= 0, leaf)
     # each leaf's packed row reports the leaf's primitive, and the leaves
@@ -103,7 +107,7 @@ def test_leaf_row_inverts_packed_col10(name):
     sphere_leaf = leaf & (s.prim_type[node_prim.clamp(min=0).long()] == 0)
     skip = s.bvh.node_skip.tolist()
     want = [bool(sphere_leaf[n:skip[n]].any()) for n in range(s.bvh.num_nodes)]
-    assert s.bvh_line_only.tolist() == want
+    assert h["line_only"].tolist() == want
 
 
 @pytest.mark.parametrize("name", ["demo-box", "sphere-grid", "mesh0"])
@@ -117,8 +121,8 @@ def test_walk_equals_brute_force_on_scenes(name):
 
 
 def test_walk_equals_brute_force_on_sphere_cloud():
-    s = compile_scene(sphere_cloud(512, seed=0))
-    assert s.num_prims == 512 and bool(s.bvh_line_only[0])
+    s = compile_scene(sphere_cloud(512, seed=0), device="cpu")
+    assert s.num_prims == 512 and bool(bvh_helpers(s.prim_type, s.bvh)["line_only"][0])
     f, _, _ = assert_same_answer(s, *cloud_rays(4096))
     assert f.float().mean() > 0.1
 
@@ -144,7 +148,7 @@ def test_tie_goes_to_lower_packed_row():
     desc.add_prim(tri((1, 0, 0), (0, 1, 0), (1, 1, 0)))
     desc.add_prim(tri((1, 0, 0), (0, 1, 0), (-2, -2, 0)))
     desc.add_prim(tri((10, 0, 0), (11, 0, 0), (10, 1, 0)))
-    s = compile_scene(desc)
+    s = compile_scene(desc, device="cpu")
     leaves = [p for p in s.bvh.node_prim.tolist() if p >= 0]
     assert leaves.index(1) < leaves.index(0)
     o = torch.tensor([[0.5, 0.5, 1.0]])
@@ -154,12 +158,11 @@ def test_tie_goes_to_lower_packed_row():
 
 
 def test_walk_takes_scene_tables():
-    """closest_hit_bvh on CPU tensors is bvh_closest_plain over the
-    scene's tables."""
+    """closest_hit_bvh on CPU tensors is walk_closest_plain over the
+    scene's walk layout."""
     s = load("sphere-grid", 8)
     o, d = camera_rays(s, 8)
-    want = bvh_closest_plain(s.prims_packed, s.bvh, s.bvh_leaf_row, s.bvh_line_only,
-                             s.bvh_margin, o, d)
+    want = walk_closest_plain(s.prims_packed, s.walk_nodes, s.walk_rows, o, d)
     for a, b in zip(closest_hit_bvh(s, o, d), want):
         assert torch.equal(a, b)
 

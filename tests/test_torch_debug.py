@@ -70,7 +70,7 @@ def both():
     for name in ("demo-box", "sphere-grid"):
         args = ["/res", f"{RES}x{RES}"]
         js = jax_compile(jax_load(f"scenes/{name}.urn", args))
-        ts = compile_scene(load_scene_file(f"scenes/{name}.urn", args))
+        ts = compile_scene(load_scene_file(f"scenes/{name}.urn", args), device="cpu")
         px0 = jax_pixel_centers(RES, RES)
         k1, k2 = jax.random.split(jax.random.PRNGKey(0))
         o, d = jax_generate_rays(js.camera, px0 + jax.random.uniform(k1, px0.shape),

@@ -77,7 +77,7 @@ def jax_grads():
 
         params = jax_get_params(js)
         g = jax.grad(loss)(params)
-        out[name] = (compile_scene(load_scene_file(f"scenes/{name}.urn", args)),
+        out[name] = (compile_scene(load_scene_file(f"scenes/{name}.urn", args), device="cpu"),
                      {k: np.asarray(v) for k, v in params.items()},
                      {k: np.asarray(v) for k, v in g.items()})
     return out
@@ -157,7 +157,7 @@ def test_grad_matches_finite_differences(name):
     from these pixels). The squares are summed in float64 here: a float32
     sum of 1,296 pixels moves by about 2e-6 of the loss between the two
     evaluations, as much as the smallest fields' whole difference."""
-    scene = compile_scene(load_scene_file(f"scenes/{name}.urn", ["/res", f"{W}x{H}"]))
+    scene = compile_scene(load_scene_file(f"scenes/{name}.urn", ["/res", f"{W}x{H}"]), device="cpu")
     loss = port_loss(scene, dtype=torch.float64)
     params = get_params(scene)
     g = port_grads(loss, params)
@@ -174,7 +174,7 @@ def test_grad_matches_finite_differences(name):
 
 @pytest.mark.parametrize("name", ["demo-box", "dof", "textured0", "sphere-grid"])
 def test_grads_finite_on_repo_scenes(name):
-    scene = compile_scene(load_scene_file(f"scenes/{name}.urn", ["/res", "16x12"]))
+    scene = compile_scene(load_scene_file(f"scenes/{name}.urn", ["/res", "16x12"]), device="cpu")
     g = port_grads(port_loss(scene, 16, 12, 1), get_params(scene))
     for k, v in g.items():
         assert torch.isfinite(v).all(), f"{name}: non-finite gradient in {k}"
@@ -182,7 +182,7 @@ def test_grads_finite_on_repo_scenes(name):
 
 
 def test_remat_bounces_bit_equal():
-    scene = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "16x12"]))
+    scene = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "16x12"]), device="cpu")
     params = get_params(scene)
     plain = port_grads(port_loss(scene, 16, 12), params)
     remat = port_grads(port_loss(scene, 16, 12, options=DEFAULT_OPTIONS.replace(
@@ -197,7 +197,7 @@ def test_kernel_function_matches_plain_autograd():
     the plain path, for the scene leaves and the rays."""
     from plutracer_tpu_torch.render.integrator import DIFF_LEAVES, KernelRadiance, radiance
 
-    scene = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "12x8"]))
+    scene = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "12x8"]), device="cpu")
     g = np.random.default_rng(0)
     B = 96
     o0 = torch.from_numpy(g.uniform(-1.0, 1.0, (B, 3)).astype(np.float32)) + scene.camera.pos

@@ -45,7 +45,7 @@ def setup(name, res, seed=7):
     """Both scenes, jittered camera rays (numpy) and the JAX key."""
     args = ["/res", f"{res}x{res}"]
     js = jax_compile(jax_load(f"scenes/{name}.urn", args))
-    ts = compile_scene(load_scene_file(f"scenes/{name}.urn", args))
+    ts = compile_scene(load_scene_file(f"scenes/{name}.urn", args), device="cpu")
     px0 = jax_pixel_centers(res, res)
     k1, k2 = jax.random.split(jax.random.PRNGKey(0))
     o, d = jax_generate_rays(js.camera, px0 + jax.random.uniform(k1, px0.shape),
@@ -109,8 +109,8 @@ def test_plain_matches_jax_quirk_switches(quirks):
 
 
 def test_backend_routing():
-    demo = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "8x8"]))
-    grid = compile_scene(load_scene_file("scenes/sphere-grid.urn", ["/res", "8x8"]))
+    demo = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "8x8"]), device="cpu")
+    grid = compile_scene(load_scene_file("scenes/sphere-grid.urn", ["/res", "8x8"]), device="cpu")
     assert megakernel_eligible(demo, DEFAULT_OPTIONS)
     assert megakernel_eligible(grid, DEFAULT_OPTIONS)  # P = 122 > 64: the stream tier
     assert kernel_tier(demo, DEFAULT_OPTIONS) == "k2"
@@ -132,7 +132,7 @@ def test_backend_routing():
 
 
 def test_cuda_launcher_rejects_cpu_and_grad():
-    s = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "4x4"]))
+    s = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "4x4"]), device="cpu")
     o = torch.zeros((16, 3))
     d = torch.ones((16, 3))
     u = torch.rand((DEFAULT_OPTIONS.max_bounces, 16, 12))

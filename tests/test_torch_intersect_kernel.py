@@ -82,7 +82,7 @@ def test_plain_tie_goes_to_first_packed_row():
 
 
 def test_cuda_launcher_rejects_cpu_tensors():
-    s = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "8x8"]))
+    s = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "8x8"]), device="cpu")
     o = torch.zeros((4, 3))
     d = torch.ones((4, 3))
     with pytest.raises(ValueError, match="CUDA"):

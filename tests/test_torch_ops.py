@@ -37,7 +37,7 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 def both(name):
     args = ["/res", "24x24"]
     return (jax_compile(jax_load(f"scenes/{name}.urn", args)),
-            compile_scene(load_scene_file(f"scenes/{name}.urn", args)))
+            compile_scene(load_scene_file(f"scenes/{name}.urn", args), device="cpu"))
 
 
 def t(x):

@@ -40,7 +40,7 @@ def assert_golden_bounds(img, ref, what):
 def test_render_matches_jax_and_golden(name):
     path = str(REPO / "scenes" / f"{name}.urn")
     args = ["/res", f"{W}x{H}"]
-    img = render(compile_scene(load_scene_file(path, args)), W, H, N, rng.PRNGKey(SEED)).numpy()
+    img = render(compile_scene(load_scene_file(path, args), device="cpu"), W, H, N, rng.PRNGKey(SEED)).numpy()
     ref = np.asarray(jax_render(jax_compile(jax_load(path, args)), W, H, N,
                                 jax.random.PRNGKey(SEED)))
     assert_golden_bounds(img, ref, f"{name} vs JAX")
@@ -86,7 +86,8 @@ def test_package_never_imports_jax(tmp_path):
         "from plutracer_tpu_torch.scene import compile_scene, load_scene_file\n"
         f"cli.main([{str(REPO / 'scenes' / 'demo-box.urn')!r}, '/res', '8x6', '/smp', '1',"
         f" '/o', {str(tmp_path / 'x.bmp')!r}, '/device', 'cpu'])\n"
-        f"s = compile_scene(load_scene_file({str(REPO / 'scenes' / 'demo-box.urn')!r}, ['/res', '8x6']))\n"
+        f"s = compile_scene(load_scene_file({str(REPO / 'scenes' / 'demo-box.urn')!r}, ['/res', '8x6']),"
+        " device='cpu')\n"
         "p, losses = optimize_scene(s, s.atlas.new_zeros((6, 8, 3)), InverseRenderConfig(\n"
         "    width=8, height=6, n=1, steps=1, trainable=('mat_color',)))\n"
         "assert len(losses) == 1\n"

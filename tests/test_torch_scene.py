@@ -35,12 +35,12 @@ def jax_leaves(js):
 
 
 def assert_scene_equals_leaves(scene, leaves):
-    """Every Scene field the leaves hold; the BVH walk's helper fields,
-    which only the port has, are derived from the bvh leaf and held in
-    tests/test_torch_bvh.py."""
+    """Every Scene field the leaves hold; the packed type rows and the
+    BVH's traversal layout, which only the port has, are derived from the
+    leaves and held in tests/test_torch_bvh.py and test_torch_walk.py."""
     for f in dataclasses.fields(Scene):
         if f.name not in leaves:
-            assert f.name in ("bvh_leaf_row", "bvh_line_only", "bvh_margin", "packed_type_rows")
+            assert f.name in ("packed_type_rows", "walk_nodes", "walk_rows")
             continue
         got = getattr(scene, f.name)
         want = leaves[f.name]
@@ -67,7 +67,7 @@ def assert_scene_equals_leaves(scene, leaves):
 def test_compile_matches_jax(name):
     args = ["/res", "40x30"]
     leaves = jax_leaves(jax_compile(jax_load(f"scenes/{name}.urn", args)))
-    scene = compile_scene(load_scene_file(f"scenes/{name}.urn", args))
+    scene = compile_scene(load_scene_file(f"scenes/{name}.urn", args), device="cpu")
     assert_scene_equals_leaves(scene, leaves)
 
 
@@ -84,7 +84,7 @@ def test_scene_from_numpy_round_trip(name):
 def test_demo_box_tables():
     """The slice's configuration: demo-box compiles to P=9, M=8, T=2, L=1
     with spheres 6 and 7 under the phantom-hit cull."""
-    s = compile_scene(load_scene_file("scenes/demo-box.urn"))
+    s = compile_scene(load_scene_file("scenes/demo-box.urn"), device="cpu")
     assert (s.num_prims, s.mat_type.shape[0], s.tex_type.shape[0], s.num_lights) == (9, 8, 2, 1)
     assert s.cull_rows == (6, 7)
     assert tuple(s.prims_packed.shape) == (16, 24)

@@ -98,7 +98,7 @@ def setup(name, res=16):
     """Both scenes and test_megakernel.py's camera rays (numpy)."""
     args = ["/res", f"{res}x{res}"]
     js = jax_compile(jax_load(f"scenes/{name}.urn", args))
-    ts = compile_scene(load_scene_file(f"scenes/{name}.urn", args))
+    ts = compile_scene(load_scene_file(f"scenes/{name}.urn", args), device="cpu")
     px0 = jax_pixel_centers(res, res)
     k1, k2 = jax.random.split(jax.random.PRNGKey(0))
     o, d = jax_generate_rays(js.camera, px0 + jax.random.uniform(k1, px0.shape),
@@ -122,7 +122,7 @@ def jax_stream():
 @pytest.mark.parametrize("name", REPO_SCENES)
 def test_routing_agrees_with_jax_on_repo_scenes(name):
     js = jax_compile(jax_load(f"scenes/{name}.urn", ["/res", "8x8"]))
-    ts = compile_scene(load_scene_file(f"scenes/{name}.urn", ["/res", "8x8"]))
+    ts = compile_scene(load_scene_file(f"scenes/{name}.urn", ["/res", "8x8"]), device="cpu")
     for kw in ({}, {"stream_wavefront": True}):
         opts = DEFAULT_OPTIONS.replace(**kw)
         assert megakernel_eligible(ts, opts) == jik.megakernel_eligible(js, JAX_OPTIONS.replace(**kw))
@@ -183,7 +183,7 @@ def test_mesh0_golden_structural():
     """The repair: the port's plain CPU render of mesh0 against its golden
     (p99 0.067 there, over test_golden.py's 0.05) holds structurally:
     measured 1.60% of pixels over 0.05 and mean 0.0042."""
-    s = compile_scene(load_scene_file("scenes/mesh0.urn", ["/res", "64x48"]))
+    s = compile_scene(load_scene_file("scenes/mesh0.urn", ["/res", "64x48"]), device="cpu")
     img = render(s, 64, 48, 2, rng.PRNGKey(42)).numpy()
     golden = np.load("tests/goldens/repo-mesh0.npz")["linear"].astype(np.float32)
     structural_close(img, golden, "mesh0")
@@ -191,7 +191,7 @@ def test_mesh0_golden_structural():
 
 @pytest.mark.parametrize("sort", SORTS)
 def test_wavefront_bit_equal_to_ray_color(sort):
-    s = compile_scene(load_scene_file("scenes/mesh0.urn", ["/res", "16x16"]))
+    s = compile_scene(load_scene_file("scenes/mesh0.urn", ["/res", "16x16"]), device="cpu")
     g = torch.Generator().manual_seed(3)
     px = pixel_centers(16, 16) + torch.rand((256, 2), generator=g)
     o, d = generate_rays(s.camera, px, torch.rand((256, 2), generator=g))
@@ -229,7 +229,7 @@ def test_wavefront_matches_jax_wavefront():
 
 
 def test_stream_launchers_reject_cpu_and_grad():
-    s = compile_scene(load_scene_file("scenes/sphere-grid.urn", ["/res", "4x4"]))
+    s = compile_scene(load_scene_file("scenes/sphere-grid.urn", ["/res", "4x4"]), device="cpu")
     o = torch.zeros((16, 3))
     d = torch.ones((16, 3))
     u = torch.rand((DEFAULT_OPTIONS.max_bounces, 16, 12))

@@ -75,7 +75,7 @@ class Probe:
 def scenes(name):
     args = ["/res", f"{W}x{H}"]
     return (jax_compile(jax_load(f"scenes/{name}.urn", args)),
-            compile_scene(load_scene_file(f"scenes/{name}.urn", args)))
+            compile_scene(load_scene_file(f"scenes/{name}.urn", args), device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -185,7 +185,7 @@ def test_adam_bit_equal_to_optax(schedule):
 
 
 def port_setup():
-    ts = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", f"{W}x{H}"]))
+    ts = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", f"{W}x{H}"]), device="cpu")
     target = render(ts, W, H, N, rng.PRNGKey(11)).reshape(-1, 3)
     params = dict(get_params(ts))
     params["mat_color"] = params["mat_color"] * 0.5
