@@ -8,9 +8,13 @@ both main paths of the port on the card:
 1-2. environment and build (every .cu source by its own nvcc, together);
      ptxas registers, stack bytes and spills of every kernel and
      instantiation (none may spill);
-3-4. K1 (closest hit) and K2 (path megakernel) against their plain
-     versions at the small-scene path's shapes (demo-box at 512x512:
-     262,144 rays a pass), K2 bit-equal on every lane;
+3-4. K1 (closest hit) bit-equal to its plain version (found, prim, t) on
+     demo-box's camera and extension rays at 512x512 (262,144 rays a
+     pass), on mesh0's table of several shared-memory ring tiles, split
+     across blocks for few rays, and on ragged batches; one launch a call; its
+     kernel-only time (torch.profiler) and its wrapper's at every shape a
+     path gives it (demo-box here, mesh1 and mesh2 in phase 7). K2 (path
+     megakernel) bit-equal to the plain ray_color on every lane;
 5.   the small-scene path: demo-box through the CLI at its own 512x512
      and 64 samples per pixel, through K1 and K2, bit-identical to the
      same render one stratum a launch;
@@ -24,15 +28,16 @@ both main paths of the port on the card:
      bit-equal on every lane: mesh1 at the main path's 4 strata of 256x256
      a launch, mesh2 at 256x256, sphere-grid at its own 640x480;
 9.   K4 (one-bounce kernel under the wavefront loop) bit-equal to K3 for
-     each reorder (none, compact, morton, morton5), and to its plain
-     version, on the mesh1 launch; K4's launches timed alone and the whole
-     loop;
+     each reorder (none, compact, morton, morton5) on the mesh1 and mesh2
+     launches, every ray written once (radiance starts NaN, and the
+     launches end B rays), no K1 launch; and to its plain version; the
+     loop split by stage and bounce, K4's launches timed alone;
 10.  the big-scene path: mesh1 and mesh2 through the CLI at their own
      256x256 and 16 samples per pixel, through K3 (4 strata a launch),
      each bit-identical to one stratum a launch; each scene's render and
      demo-box's at 512x512 and 64 samples per pixel timed batched and one
      stratum a launch, in turns; then one mesh1 render with
-     stream_wavefront, through K4;
+     stream_wavefront, through K4 alone (no K1 launch);
 11.  the sphere-grid, mesh0, mesh1, mesh2 and mesh-tex goldens through K3
      (each at its golden's size: 64x48, mesh2 24x18);
 12.  K5, the telemetry of K2 and K3: the debug launches on a demo-box
@@ -100,6 +105,8 @@ K3_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1883"
 KQ_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1451"
 K4_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1920"
 K5_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1229"
+K1_KERNELS = ("closest_hit_ring",)  # K1's launches (its two instantiations)
+RAGGED = 77  # rays short of a whole block tile in phase 3's ragged batches
 PLAIN_CHUNK = 4096  # rays per closest_hit_plain call: it builds a (B, P) matrix
 WALK_RAYS = 16384  # rays of each set whose walks phase 7 counts (plain lockstep walks)
 WORK_CHUNK = 262144  # rays per walk_closest_plain call when the bounds count walks
@@ -302,11 +309,12 @@ def ptxas_report(log: str):
     out, kernel = {}, "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = next(k for k in ("closest_hit_bvh_kernel", "closest_hit_kernel",
-                                    "megakernel_stream", "megakernel_onebounce", "megakernel")
-                        if k in line)
+            name = next((k for k in ("closest_hit_bvh_kernel", *K1_KERNELS,
+                                     "megakernel_stream", "megakernel_onebounce", "megakernel")
+                         if k in line), re.search(r"function '([^']+)'", line).group(1))
             m = re.search(name + r"ILb([01])E", line)
-            kernel = name + ("" if m is None else ("<debug>" if m.group(1) == "1" else "<plain>"))
+            tags = ("<split>", "<one>") if name in K1_KERNELS else ("<debug>", "<plain>")
+            kernel = name + ("" if m is None else tags[0] if m.group(1) == "1" else tags[1])
         if "registers" in line or "spill" in line:
             out.setdefault(kernel, []).append(line.strip())
     return out
@@ -390,25 +398,38 @@ def main() -> int:
     px = pixel_centers(W, H, dev) + rng.uniform(k_px, (B, 2), dev) * 0.999 / 8
     o, d = generate_rays(scene.camera, px, rng.uniform(k_lens, (B, 2), dev) * 0.999 / 8)
 
-    # ---- 3. K1 against its plain version: camera rays + extension rays ----
+    # ---- 3. K1 against its plain version, bit for bit ----
     phase("3 K1")
-    f0, p0, t0_ = closest_hit(scene.prims_packed, o, d)
+    rows = scene.packed_type_rows
+    f0, p0, t0_ = closest_hit(scene.prims_packed, o, d, rows)
     hit_p = o + d * torch.where(f0, t0_, 1.0)[:, None]
     ext_d = uniform_sphere_sample(rng.uniform(rng.fold_in(k_path, 99), (B, 2), dev))
+    mesh0 = compile_scene(load_scene_file(str(ROOT / "scenes" / "mesh0.urn"), ["/res", "256x256"]),
+                          device=dev)
+    m0o, m0d, _ = main_path_rays(mesh0, 256, 256, 4, rng.PRNGKey(7), 1, DEFAULT_OPTIONS)
+    m0f, _, m0t = closest_hit(mesh0.prims_packed, m0o, m0d, mesh0.packed_type_rows)
+    m0p = m0o + m0d * torch.where(m0f, m0t, 1.0)[:, None]
     k1_err = 0.0
-    for what, (ro, rd) in (("camera", (o, d)), ("extension", (hit_p, ext_d))):
-        f, p, t = closest_hit(scene.prims_packed, ro, rd)
-        pf, pp, pt = closest_hit_plain(scene.prims_packed, ro, rd)
-        torch.cuda.synchronize()
-        assert torch.equal(f, pf) and torch.equal(p, pp), f"K1 winners differ ({what})"
-        assert torch.equal(t, pt), f"K1 t not bit-equal ({what})"
-        k1_err = max(k1_err, (t - pt).abs().max().item())
-        print(f"K1 {what} rays: winners equal, t bit-equal, hit fraction "
-              f"{f.double().mean().item():.4f}")
-    k1_ms = time_ms(lambda: closest_hit(scene.prims_packed, hit_p, ext_d), reps=50)
+    cases = (("demo-box camera", scene, o, d), ("demo-box extension", scene, hit_p, ext_d),
+             (f"demo-box ragged B={B - RAGGED}", scene, o[RAGGED:], d[RAGGED:]),
+             ("mesh0 camera (a table of 11 ring tiles)", mesh0, m0o, m0d),
+             ("mesh0 extension", mesh0, m0p, ext_d[:65536]),
+             (f"mesh0 ragged B={65536 - RAGGED}", mesh0, m0p[RAGGED:], ext_d[RAGGED:65536]),
+             ("mesh0 a ray tile (the table split across blocks)", mesh0, m0p[:256],
+              ext_d[:256]))
+    for what, sc, ro, rd in cases:
+        before = closest_hit_cuda.launches
+        got = closest_hit(sc.prims_packed, ro, rd, sc.packed_type_rows)
+        assert closest_hit_cuda.launches == before + 1, what  # one launch a call
+        k1_err = max(k1_err, k1_equal_plain(sc, ro, rd, got, what))
+    k1_times(mesh0, m0o, m0d, "mesh0 camera", card)
+    del mesh0, m0o, m0d, m0p
+    k1_ms, _ = k1_times(scene, o, d, "demo-box primary", card)
+    k1_times(scene, hit_p, ext_d, "demo-box extension", card)
+    k1_times(scene, hit_p.repeat(3, 1)[:3 * 65536], ext_d.repeat(3, 1)[:3 * 65536],
+             "demo-box train query shape (3 x 65,536)", card)
     k1_plain_ms = time_ms(lambda: closest_hit_plain(scene.prims_packed, hit_p, ext_d), reps=10)
-    print(f"K1 time at B={B}, P_pad={scene.prims_packed.shape[0]}: kernel {k1_ms:.4f} ms, "
-          f"plain {k1_plain_ms:.4f} ms ({card})")
+    print(f"K1 plain at B={B}, P_pad={scene.prims_packed.shape[0]}: {k1_plain_ms:.4f} ms ({card})")
 
     # ---- 4. K2 against the plain ray_color, same uniforms ----
     phase("4 K2")
@@ -419,7 +440,7 @@ def main() -> int:
     k2_err = lanes_equal(out, ref, f"K2 vs plain ray_color, demo-box 512x512 pass")
     k2_ms = time_ms(lambda: ray_color_cuda(scene, o, d, u, DEFAULT_OPTIONS), reps=20)
     k2_plain_ms = time_ms(lambda: ray_color(scene, o, d, u, DEFAULT_OPTIONS), reps=3, warmup=1)
-    k1_primary_ms = time_ms(lambda: closest_hit(scene.prims_packed, o, d), reps=50)
+    k1_primary_ms = time_ms(lambda: closest_hit(scene.prims_packed, o, d, rows), reps=50)
     print(f"K2 time at B={B}, 8 bounces: ray_color_cuda {k2_ms:.4f} ms (of which the K1 "
           f"primary hit {k1_primary_ms:.4f} ms), plain ray_color {k2_plain_ms:.4f} ms ({card})")
 
@@ -469,19 +490,24 @@ def main() -> int:
         print(f"golden repo-{name}: p99 {p99:.3e} (bound 0.05), mean {mean:.3e} (bound 0.01)")
         assert p99 < 0.05 and mean < 0.01, name
 
-    k1_bound = work_bound(B * (24 + 8) + scene.prims_packed.numel() * 4.0, B * query_ops(scene))
+    # rays in, t, prim and found out, the table once
+    k1_bound = work_bound(B * (24 + 9) + scene.prims_packed.numel() * 4.0, B * query_ops(scene))
     print(f"bound: K1 {k1_bound[0]:.6f} ms ({k1_bound[1]}) at B={B}")
 
     big, mesh1_pass = big_scene_phases(phase, dev, card)
     # K2's bound counts the vertices the pass runs: phase 12 checks them
     k5, k2_bound = telemetry_phase(phase, card, lib, (scene, o, d, u, k2_ms), mesh1_pass)
     gradient_phase(phase, dev, card)
-    training_phase(phase, dev, card)
+    train_k1 = training_phase(phase, dev, card)
     phase()
+    print(f"K1 launches by shape: demo-box primary (the 512x512 64-spp render) {launches['K1']}, "
+          + ", ".join(f"{k} {v}" for k, v in train_k1.items())
+          + "; the mesh renders (K3) and the wavefront render (K4) 0")
     assert not spills, f"ptxas spills (stores, loads) in {spills}"
 
     kernels = [
-        entry("K1 closest_hit", K1_SOURCE, K1_REPLACES, launches["K1"], k1_err, k1_ms,
+        entry("K1 closest_hit (ms: kernel-only, demo-box primary; launches: the demo-box render)",
+              K1_SOURCE, K1_REPLACES, launches["K1"], k1_err, k1_ms,
               k1_plain_ms, k1_bound),
         entry("K2 path megakernel", K2_SOURCE, K2_REPLACES, launches["K2"], k2_err, k2_ms,
               k2_plain_ms, k2_bound),
@@ -496,6 +522,57 @@ def main() -> int:
     return 0
 
 
+def k1_equal_plain(scene, o, d, got, what):
+    """K1's answer `got` (found, prim, t) against closest_hit_plain on
+    every ray, bit for bit, in chunks of PLAIN_CHUNK rays. Returns the
+    largest difference of t (0.0)."""
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_plain
+
+    torch.cuda.synchronize()
+    for i in range(0, o.shape[0], PLAIN_CHUNK):
+        sl = slice(i, i + PLAIN_CHUNK)
+        for name, a, b in zip(("found", "prim", "t"), (x[sl] for x in got),
+                              closest_hit_plain(scene.prims_packed, o[sl], d[sl])):
+            assert torch.equal(a, b), f"K1 vs plain ({what}): {name} differs on " \
+                                      f"{(a != b).sum().item()} rays"
+    print(f"K1 {what} (B={o.shape[0]}, rows {scene.prims_packed.shape[0]}, segments "
+          f"{tuple(scene.packed_type_rows)}): found, prim and t bit-equal to plain; hit fraction "
+          f"{got[0].double().mean().item():.4f}")
+    return 0.0
+
+
+def k1_times(scene, o, d, what, card, reps=20):
+    """(kernel-only ms, wrapper ms) of K1 on rays o, d: the kernel's device
+    time a launch from torch.profiler (its launches' names hold K1_KERNELS),
+    and CUDA events around calls of the wrapper (checks, allocations, the
+    launch). If the profiler records no device time, the wrapper's time
+    stands for both, and the line says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit
+
+    rows = scene.packed_type_rows
+    call = lambda: closest_hit(scene.prims_packed, o, d, rows)
+    wrapper = time_ms(call, reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if any(k in ev.key for k in K1_KERNELS)]
+    dev_us = sum(getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+                 for ev in evs)
+    # per recorded launch: the profiler may drop some of a run's records
+    kernel = dev_us / 1e3 / sum(ev.count for ev in evs) if dev_us > 0 else wrapper
+    how = "torch.profiler" if dev_us > 0 else "the profiler recorded none: wrapper time"
+    # rays in, t, prim and found out, the table once; every row tested
+    bound = work_bound(o.shape[0] * (24 + 9) + scene.prims_packed.numel() * 4.0,
+                       o.shape[0] * query_ops(scene))
+    print(f"K1 time {what} (B={o.shape[0]}, rows {scene.prims_packed.shape[0]}): kernel-only "
+          f"{kernel:.4f} ms ({how}), wrapper {wrapper:.4f} ms a call; bound {bound[0]:.6f} ms "
+          f"({bound[1]}) ({card})")
+    return kernel, wrapper
+
+
 def bit_equal_query(scene, o, d, what):
     """The K3 query against K1 on every ray (found and prim equal, t
     bit-equal on every hit; on a miss the query reports BIG where K1 may
@@ -506,7 +583,7 @@ def bit_equal_query(scene, o, d, what):
     )
 
     q = closest_hit_bvh(scene, o, d)
-    k1 = closest_hit(scene.prims_packed, o, d)
+    k1 = closest_hit(scene.prims_packed, o, d, scene.packed_type_rows)
     torch.cuda.synchronize()
     hits = k1[0]
     for name, a, b in (("found", q[0], k1[0]), ("prim", q[1], k1[1]),
@@ -533,7 +610,7 @@ def query_times(scene, o, d, what, card):
             closest_hit_plain(scene.prims_packed, o[i:i + PLAIN_CHUNK], d[i:i + PLAIN_CHUNK])
 
     ms = time_ms(lambda: closest_hit_bvh(scene, o, d), reps=20)
-    k1_ms = time_ms(lambda: closest_hit(scene.prims_packed, o, d), reps=5)
+    k1_ms = time_ms(lambda: closest_hit(scene.prims_packed, o, d, scene.packed_type_rows), reps=5)
     plain_ms = time_ms(plain_all, reps=1, warmup=1)
     print(f"K3 query time {what}, B={o.shape[0]}, P={scene.num_prims}: kernel {ms:.4f} ms, "
           f"K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms ({plain_ms * PLAIN_CHUNK / o.shape[0]:.4f}"
@@ -594,7 +671,7 @@ def big_scene_phases(phase, dev, card):
     mb = DEFAULT_OPTIONS.max_bounces
     mesh1 = load("mesh1", 256, 256)
     o, d, u = main_path_rays(mesh1, 256, 256, 4, rng.PRNGKey(7), 1, DEFAULT_OPTIONS)
-    f0, _, t0 = closest_hit(mesh1.prims_packed, o, d)
+    f0, _, t0 = closest_hit(mesh1.prims_packed, o, d, mesh1.packed_type_rows)
     hit_p = o + d * torch.where(f0, t0, 1.0)[:, None]
     ext_d = uniform_sphere_sample(rng.uniform(rng.fold_in(rng.PRNGKey(7), 99), (o.shape[0], 2),
                                               dev))
@@ -611,9 +688,15 @@ def big_scene_phases(phase, dev, card):
     mesh2 = load("mesh2", 256, 256)
     walk_visits(mesh1, "mesh1", (o, d), (hit_p, ext_d))
     m2o, m2d, m2u = main_path_rays(mesh2, 256, 256, 4, rng.PRNGKey(7), 1, DEFAULT_OPTIONS)
-    f2, _, t2 = closest_hit(mesh2.prims_packed, m2o, m2d)
+    f2, _, t2 = closest_hit(mesh2.prims_packed, m2o, m2d, mesh2.packed_type_rows)
     walk_visits(mesh2, "mesh2", (m2o, m2d),
                 (m2o + m2d * torch.where(f2, t2, 1.0)[:, None], ext_d))
+    # K1 at the big tables' shapes (the plain path's queries on a card)
+    k1_times(mesh1, hit_p, ext_d, "mesh1 extension", card)
+    mo4, md4, _ = main_path_rays(mesh1, 256, 256, 4, rng.PRNGKey(7), 4, DEFAULT_OPTIONS)
+    k1_times(mesh1, mo4, md4, "mesh1 camera", card, reps=5)
+    k1_times(mesh2, m2o, m2d, "mesh2 camera", card, reps=5)
+    del mo4, md4
 
     # ---- 8. K3 against the plain ray_color, same uniforms ----
     phase("8 K3")
@@ -656,15 +739,31 @@ def big_scene_phases(phase, dev, card):
           f"{time_ms(lambda: ray_color(grid, go, gd, gu, DEFAULT_OPTIONS), reps=2, warmup=1):.4f}"
           f" ms ({card})")
 
-    # ---- 9. K4 bit-equal to K3 for each reorder, on the main path's launch ----
+    # ---- 9. K4 bit-equal to K3 for each reorder, on the main path's launches ----
     phase("9 K4")
     k4_err, k4_ms = 0.0, {}
+    m2bo, m2bd, m2bu = main_path_rays(mesh2, 256, 256, 4, rng.PRNGKey(7), per, DEFAULT_OPTIONS)
+    k3_m2 = ray_color_stream_cuda(mesh2, m2bo, m2bd, m2bu, DEFAULT_OPTIONS)
     for sort in SORTS:
         opts = DEFAULT_OPTIONS.replace(stream_wavefront=True, stream_sort=sort)
-        out = ray_color_wavefront(mesh1, bo, bd, bu, opts)
-        k4_err = max(k4_err, lanes_equal(out, k3_out, f"K4 {sort} vs K3, mesh1 launch"))
+        for name, scene, rays, k3 in (("mesh1", mesh1, (bo, bd, bu), k3_out),
+                                      ("mesh2", mesh2, (m2bo, m2bd, m2bu), k3_m2)):
+            # every ray written once: out starts NaN, and the launches end B rays
+            out = torch.full((B, 3), float("nan"), device=dev)
+            waves = []
+            before = (onebounce_cuda.launches, closest_hit_cuda.launches)
+            ray_color_wavefront(scene, *rays, opts, out=out, wave_out=waves)
+            assert (onebounce_cuda.launches - before[0], closest_hit_cuda.launches - before[1]) \
+                == (mb, 0)
+            ended = int(waves[0].counts[mb:].sum().item())
+            assert ended == B, f"K4 {sort} {name}: {ended} rays ended, not {B}"
+            k4_err = max(k4_err, lanes_equal(out, k3, f"K4 {sort} vs K3, {name} launch (every "
+                                                        f"ray written once)"))
         k4_ms[sort] = time_ms(lambda: ray_color_wavefront(mesh1, bo, bd, bu, opts), reps=5)
-        print(f"K4 wavefront loop ({sort}) {k4_ms[sort]:.4f} ms ({card})")
+        print(f"K4 wavefront loop ({sort}, mesh1 B={B}) {k4_ms[sort]:.4f} ms; live lanes after "
+              f"each launch {waves[0].counts[:mb].tolist()} of mesh2's ({card})")
+        wavefront_split(mesh1, bo, bd, bu, opts, card)
+    del m2bo, m2bd, m2bu, k3_m2
     opts = DEFAULT_OPTIONS.replace(stream_wavefront=True)
     lanes_equal(ray_color_wavefront(mesh1, bo, bd, bu, opts),
                 ray_color_wavefront(mesh1, bo, bd, bu, opts, step=onebounce_plain),
@@ -679,11 +778,11 @@ def big_scene_phases(phase, dev, card):
     by_bounce = [sum(k4_step[i::mb]) / (len(k4_step) // mb) for i in range(mb)]
     print(f"K4 launches alone (morton, mesh1 B={B}): {k4_launch_ms:.4f} ms per launch, "
           f"{k4_launch_ms * mb:.4f} ms per pass of {mb}, by bounce "
-          f"{[round(x, 4) for x in by_bounce]}; plain_bounce {k4_plain_ms:.4f} ms per step, "
+          f"{[round(x, 4) for x in by_bounce]}; plain step {k4_plain_ms:.4f} ms per step, "
           f"{k4_plain_ms * mb:.4f} ms per pass ({card})")
-    print(f"K4 wavefront loop (morton: K1 primary hit, {mb - 1} reorders, {mb} K4 launches) "
-          f"{k4_ms['morton']:.4f} ms, plain_bounce loop {loop_plain_ms:.4f} ms; K3 "
-          f"{k3_ms:.4f} ms for the same rays ({card})")
+    print(f"K4 wavefront loop (morton: {mb} K4 launches, launch 0 with the primary walk, "
+          f"{mb - 1} argsorts) {k4_ms['morton']:.4f} ms, plain step loop {loop_plain_ms:.4f} ms; "
+          f"K3 {k3_ms:.4f} ms for the same rays ({card})")
 
     # ---- 10. the big-scene path: mesh1 and mesh2 through the CLI, 256x256, 16 spp ----
     phase("10 big-scene path")
@@ -734,10 +833,11 @@ def big_scene_phases(phase, dev, card):
     img = render(mesh1, 256, 256, 2, rng.PRNGKey(7), wf)
     torch.cuda.synchronize()
     k4_launches, k4_k1 = onebounce_cuda.launches, closest_hit_cuda.launches
-    # the 4 strata in one wavefront loop: 8 K4 launches, 1 K1 launch
-    assert torch.isfinite(img).all() and k4_launches == mb and k4_k1 == 1, (k4_launches, k4_k1)
+    # the 4 strata in one wavefront loop: 8 K4 launches (the first finds
+    # the primary hit), no K1 launch
+    assert torch.isfinite(img).all() and k4_launches == mb and k4_k1 == 0, (k4_launches, k4_k1)
     print(f"main path: mesh1 256x256 4 spp render(..., stream_wavefront=True): K4 launches "
-          f"{k4_launches}, K1 (primary hit) launches {k4_k1}")
+          f"{k4_launches}, K1 launches {k4_k1}")
 
     # ---- 11. goldens through K3, each at its golden's size (tests/test_golden.py) ----
     phase("11 goldens K3")
@@ -772,8 +872,13 @@ def big_scene_phases(phase, dev, card):
     vert_ops = n_live * SHADE_OPS + closest_w[0] + any_w[0]
     k3_bound = work_bound(B * (24 + 12) + n_live * 12 * 4 + table_bytes(mesh1, walk=True),
                           primary[0] + vert_ops)
-    k4_bound = work_bound(B * 16 * 4 * 2 + n_live / mb * 12 * 4 + table_bytes(mesh1, walk=True),
-                          vert_ops / mb)
+    # K4 a launch, the pass's work over its mb launches: the rays in and
+    # the radiance out once; for each running vertex (under morton the
+    # launch's lanes) its carry in and out (64 + 64 bytes), uniforms 48,
+    # perm 8, its ray in and out 4 + 4, its key 4; the tables once a launch;
+    # the primary walks (launch 0) and the vertices' work
+    k4_bound = work_bound((B * (24 + 12) + n_live * (64 * 2 + 48 + 8 + 4 + 4 + 4)) / mb
+                          + table_bytes(mesh1, walk=True), (primary[0] + vert_ops) / mb)
     B1 = hit_p.shape[0]
     query_w = walk_work(mesh1, hit_p, ext_d)
     q_bound = work_bound(B1 * (24 + 8) + walk_bytes(mesh1), query_w[0])
@@ -797,6 +902,47 @@ def big_scene_phases(phase, dev, card):
         entry("K4 one-bounce kernel (ms per launch)", K4_SOURCE, K4_REPLACES, k4_launches,
               k4_err, k4_launch_ms, k4_plain_ms, k4_bound),
     ], (mesh1, bo, bd, bu, k3_ms)
+
+
+def wavefront_split(scene, o, d, u, opts, card, passes=5):
+    """render/wavefront.ray_color_wavefront's loop with CUDA events around
+    each stage (the Wave's buffers, each argsort of the keys, each K4
+    launch), mean of `passes` passes after one unrecorded; prints the split
+    by stage and by bounce."""
+    from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda
+    from plutracer_tpu_torch.ops.tables import pack_tables
+    from plutracer_tpu_torch.render.wavefront import Wave
+
+    times = {}
+
+    def stage(name, fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        r = fn()
+        b.record()
+        times.setdefault(name, []).append((a, b))
+        return r
+
+    mb = opts.max_bounces
+    for p in range(passes + 1):
+        if p == 1:
+            times.clear()
+        tables = pack_tables(scene)
+        wave = stage("buffers", lambda: Wave.start(scene, o, d, u, opts.stream_sort, mb))
+        for i in range(mb):
+            perm = None
+            if i > 0 and opts.stream_sort != "none":
+                perm = stage(f"argsort {i}", lambda: torch.argsort(wave.key, stable=True))
+            stage(f"K4 {i}", lambda: onebounce_cuda(scene, tables, wave, i, perm, opts))
+            wave.advance()
+    torch.cuda.synchronize()
+    mean = {k: sum(a.elapsed_time(b) for a, b in v) / len(v) for k, v in times.items()}
+    k4 = sum(v for k, v in mean.items() if k.startswith("K4"))
+    total = sum(mean.values())
+    print(f"wavefront split ({opts.stream_sort}, B={o.shape[0]}): stages {total:.4f} ms = K4 "
+          f"launches {k4:.4f} + host stages {total - k4:.4f}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in mean.items()) + f" ({card})")
+    return mean
 
 
 def render_turns(scene, w, h, n, what, card):
@@ -1040,7 +1186,8 @@ def gradient_phase(phase, dev, card):
 
 
 def training_phase(phase, dev, card):
-    """Phase 14: optimize_scene on demo-box 256x256, n = 2."""
+    """Phase 14: optimize_scene on demo-box 256x256, n = 2. Returns K1's
+    launches in each train run (the plain forward's queries)."""
     import dataclasses
 
     from plutracer_tpu_torch import rng
@@ -1064,7 +1211,7 @@ def training_phase(phase, dev, card):
                                   trainable=("mat_color",))
     ab_cfg = dataclasses.replace(log_cfg, loss_space="ab", learning_rate=1e-2,
                                  loss_downsample=8)
-    runs = {}
+    runs, k1_launches = {}, {}
     for what, cfg, start in (("log", log_cfg, init), ("ab", ab_cfg, None)):
         start = start if start is not None else runs["log"][0]
         stats = {}
@@ -1086,6 +1233,7 @@ def training_phase(phase, dev, card):
         assert stats["nonfinite_grad_frac_max"] == 0.0, stats
         assert closest_hit_cuda.launches > 0
         runs[what] = (params, losses, wall)
+        k1_launches[f"the {what} train run's queries (8 steps)"] = closest_hit_cuda.launches
     # a run stopped after 4 steps and resumed from its checkpoint (warm:
     # its wall against the first log run's shows that run's warm-up)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1142,6 +1290,7 @@ def training_phase(phase, dev, card):
               f"loss_and_grads without deterministic algorithms {med['nondeterministic']:.4f} "
               f"(their cost {med['loss_and_grads'] - med['nondeterministic']:.4f}); optimize_scene "
               f"{runs[what][2] * 1e3 / cfg.steps:.4f} ms a step; ranges ms: {spread} ({card})")
+    return k1_launches
 
 
 def loss_and_grads_ms(sharded, fn):

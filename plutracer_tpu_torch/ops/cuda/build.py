@@ -36,8 +36,11 @@ NVCC_FLAGS = [
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _SIGNATURES = {
-    # packed, n_rows, o, d, t_out, prim_out, B, stream
-    "plu_closest_hit": [_vp, _i, _vp, _vp, _vp, _vp, _i, _vp],
+    # n_rows, B, tiles out -> splits (negative: a cudaError_t)
+    "plu_closest_hit_plan": [_i, _i, ctypes.POINTER(_i)],
+    # packed, n_rows, sphere rows, box rows, o, d, t_out, prim_out,
+    # found_out, B, splits, part_t, part_k, arrivals, stream
+    "plu_closest_hit": [_vp, _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp, _vp, _vp],
     # prim, P, mat, M, tex, T, light, L, packed, P_pad, atlas, A, has_images,
     # o, d, prim0, t0, u, out, dbg (K5 telemetry or null), B, max_bounces,
     # swapped_mis, origin_pdf, shading_gate, stream
@@ -51,11 +54,13 @@ _SIGNATURES = {
     "plu_megakernel_stream": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,
                               _vp, _vp, _vp,
                               _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
-    # the tables and the walk as above, carry_in, carry_out, u, B, bounce,
-    # max_bounces, swapped_mis, origin_pdf, shading_gate, stream
+    # the tables and the walk as above, o, d, carry_in, carry_out, perm,
+    # orig_in, orig_out, u, out, key, counts, bounds (null where unused), B,
+    # bounce, sort, max_bounces, swapped_mis, origin_pdf, shading_gate, stream
     "plu_megakernel_onebounce": [_vp, _i, _vp, _i, _vp, _i, _vp, _i, _vp, _i, _i,
                                  _vp, _vp, _vp,
-                                 _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],
+                                 _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                                 _i, _i, _i, _i, _i, _i, _i, _vp],
 }
 
 

@@ -94,8 +94,9 @@ def ray_color_cuda(scene, o, d, u, options, debug: bool = False):
     dbg = torch.empty((mb, DBG_C, B), dtype=torch.float32, device=o.device) if debug else None
     if B == 0:
         return (out, dbg) if debug else out
-    found0, prim0, t0 = intersect.query_lite(scene, o, d)
-    t0 = torch.where(found0, t0, intersect._BIG)
+    # K2 reads t0 only through found = t0 < T_MAX, so a miss's t needs no
+    # rewriting
+    _, prim0, t0 = intersect.query_lite(scene, o, d)
     u_soa = u.permute(0, 2, 1).reshape(mb * 12, B).contiguous()
     o_c, d_c = o.contiguous(), d.contiguous()
     atlas = scene.atlas.contiguous()

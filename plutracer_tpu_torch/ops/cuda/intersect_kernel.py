@@ -3,9 +3,12 @@ K3 query: the same closest hit found by a walk of the scene's BVH.
 
 ``closest_hit`` runs the CUDA kernel (csrc/closest_hit.cu, launched by
 ``closest_hit_cuda``) on CUDA tensors and its plain PyTorch version
-``closest_hit_plain`` on CPU tensors. The kernel replaces the JAX package's Pallas closest-hit kernel
+``closest_hit_plain`` on CPU tensors. The kernel replaces the JAX
+package's Pallas closest-hit kernel
 (plutracer_tpu/ops/pallas/intersect_kernel.py:_kernel): same table, same
-accept rules, same strict-< fold in table order.
+accept rules, same strict-< fold in table order. It runs each type
+segment of the table with that type's test only;
+``closest_hit_segments_plain`` is that fold in plain PyTorch.
 
 ``closest_hit_bvh`` is the closest-hit query of the stream kernels K3 and
 K4 as a launch of its own (csrc/bvh_closest.cuh, launched by
@@ -49,34 +52,32 @@ def packed_ts(packed, o, d):
     return row_ts(packed[None], o[:, None, :], d[:, None, :])
 
 
-def row_ts(rows, o3, d3):
-    """t of rays o3, d3 (..., 3) against packed rows (..., 24), the
-    leading dimensions broadcast: K1's per-row arithmetic (csrc
-    path_common.cuh packed_row_t), _BIG on a miss."""
-    ty = rows[..., 0]
+def sphere_ts(rows, o3, d3, rinv):
+    """K1's sphere test: both roots > 0, parent-AABB line cull in cols
+    11:17; _BIG on a miss."""
     a = rows[..., 1:4]
-    b = rows[..., 4:7]
-    c = rows[..., 7:10]
-    rinv = 1.0 / torch.where(d3 == 0.0, 1e-20, d3)
-    ox, oy, oz = o3[..., 0], o3[..., 1], o3[..., 2]
-    dx, dy, dz = d3[..., 0], d3[..., 1], d3[..., 2]
-
-    # sphere: both roots > 0, parent-AABB line cull in cols 11:17
-    vx, vy, vz = ox - a[..., 0], oy - a[..., 1], oz - a[..., 2]
-    r = b[..., 0]
-    qb = -(vx * dx + vy * dy + vz * dz)
+    vx, vy, vz = o3[..., 0] - a[..., 0], o3[..., 1] - a[..., 1], o3[..., 2] - a[..., 2]
+    r = rows[..., 4]
+    qb = -(vx * d3[..., 0] + vy * d3[..., 1] + vz * d3[..., 2])
     det = qb * qb - (vx * vx + vy * vy + vz * vz) + r * r
     sq = torch.sqrt(torch.clamp(det, min=0.0))
     i1 = qb - sq
     i2 = qb + sq
     cmin, cmax = _slab(rows[..., 11:14], rows[..., 14:17], o3, rinv)
-    t_s = torch.where((det >= 0.0) & (i1 > 0.0) & (i2 > 0.0) & (cmax >= cmin), i1, _BIG)
+    return torch.where((det >= 0.0) & (i1 > 0.0) & (i2 > 0.0) & (cmax >= cmin), i1, _BIG)
 
-    # box: slab test, tmin >= 0
-    tmin, tmax = _slab(a, b, o3, rinv)
-    t_b = torch.where((tmax >= tmin) & (tmin >= 0.0), tmin, _BIG)
 
-    # triangle: Moller-Trumbore, t > 0
+def box_ts(rows, o3, d3, rinv):
+    """K1's box test: the slab, tmin >= 0; _BIG on a miss."""
+    tmin, tmax = _slab(rows[..., 1:4], rows[..., 4:7], o3, rinv)
+    return torch.where((tmax >= tmin) & (tmin >= 0.0), tmin, _BIG)
+
+
+def triangle_ts(rows, o3, d3, rinv):
+    """K1's triangle test: Moller-Trumbore, t > 0; _BIG on a miss."""
+    a, b, c = rows[..., 1:4], rows[..., 4:7], rows[..., 7:10]
+    ox, oy, oz = o3[..., 0], o3[..., 1], o3[..., 2]
+    dx, dy, dz = d3[..., 0], d3[..., 1], d3[..., 2]
     e1x, e1y, e1z = b[..., 0] - a[..., 0], b[..., 1] - a[..., 1], b[..., 2] - a[..., 2]
     e2x, e2y, e2z = c[..., 0] - a[..., 0], c[..., 1] - a[..., 1], c[..., 2] - a[..., 2]
     pvx = dy * e2z - dz * e2y
@@ -92,21 +93,52 @@ def row_ts(rows, o3, d3):
     v = (dx * qvx + dy * qvy + dz * qvz) * idet
     t_tr = (e2x * qvx + e2y * qvy + e2z * qvz) * idet
     ok_t = (det_t != 0.0) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t_tr > 0.0)
-    t_t = torch.where(ok_t, t_tr, _BIG)
+    return torch.where(ok_t, t_tr, _BIG)
 
+
+def _rinv(d3):
+    return 1.0 / torch.where(d3 == 0.0, 1e-20, d3)
+
+
+def row_ts(rows, o3, d3):
+    """t of rays o3, d3 (..., 3) against packed rows (..., 24), the
+    leading dimensions broadcast: K1's per-row arithmetic (csrc
+    path_common.cuh packed_row_t), _BIG on a miss."""
+    ty = rows[..., 0]
+    rinv = _rinv(d3)
+    t_s, t_b, t_t = (f(rows, o3, d3, rinv) for f in (sphere_ts, box_ts, triangle_ts))
     return torch.where(ty == PRIM_SPHERE, t_s, torch.where(ty == PRIM_BOX, t_b, t_t))
 
 
-def closest_hit_plain(packed, o, d):
-    """K1's plain PyTorch version: (found, prim, t), the first minimum in
-    packed-table order winning, as the kernel's strict-< fold does."""
-    tmat = packed_ts(packed, o, d)
+def _fold(packed, tmat):
+    """(found, prim, t) of the first minimum of tmat (B, P_pad) in table
+    order, as the kernel's strict-< fold finds it."""
     k = torch.argmin(tmat, dim=1)
     t = torch.gather(tmat, 1, k[:, None])[:, 0]
     hit = t < _BIG
     prim = torch.where(hit, packed[k, 10].to(torch.int32), 0)
     t = torch.where(hit, t, _BIG)
     return t < T_MAX, prim, t
+
+
+def closest_hit_plain(packed, o, d):
+    """K1's plain PyTorch version: (found, prim, t), the first minimum in
+    packed-table order winning, as the kernel's strict-< fold does."""
+    return _fold(packed, packed_ts(packed, o, d))
+
+
+def closest_hit_segments_plain(packed, o, d, type_rows):
+    """K1's fold as the kernel runs it: each type segment of the table
+    (type_rows = scene.packed_type_rows: sphere rows, box rows, the rest
+    triangles) tested with its type's body only, the segments in table
+    order; equal to closest_hit_plain on every ray."""
+    n_sph, n_box = type_rows[0], type_rows[1]
+    o3, d3 = o[:, None, :], d[:, None, :]
+    rinv = _rinv(d3)
+    parts = (packed[:n_sph], packed[n_sph:n_sph + n_box], packed[n_sph + n_box:])
+    tmat = torch.cat([f(rows[None], o3, d3, rinv)
+                      for f, rows in zip((sphere_ts, box_ts, triangle_ts), parts)], 1)
+    return _fold(packed, tmat)
 
 
 def _check(packed, o, d):
@@ -122,33 +154,72 @@ def _check(packed, o, d):
         raise ValueError(f"closest_hit: packed must be (8k, {PACK_W}), got {tuple(packed.shape)}")
 
 
-def closest_hit(packed, o, d):
+def closest_hit(packed, o, d, type_rows=None):
     """(found (B,) bool, prim (B,) int32, t (B,) f32) for rays o, d (B, 3)
-    against the packed table (scene.prims_packed). CUDA tensors: the K1
-    kernel. CPU tensors: closest_hit_plain."""
+    against the packed table (scene.prims_packed) whose type segments are
+    type_rows (scene.packed_type_rows). CUDA tensors: the K1 kernel
+    (closest_hit_cuda). CPU tensors: closest_hit_plain."""
     if o.is_cuda:
-        return closest_hit_cuda(packed, o, d)
+        return closest_hit_cuda(packed, o, d, type_rows)
     return closest_hit_plain(packed, o, d)
 
 
-def closest_hit_cuda(packed, o, d):
-    """Launch K1 on the current stream (no synchronisation). Raises on
-    anything the kernel does not take, CPU tensors included."""
+def closest_hit_cuda(packed, o, d, type_rows=None):
+    """Launch K1 on the current stream (no synchronisation): one launch,
+    which writes found, prim and t. type_rows gives the rows of the sphere
+    and box segments (the rest are triangles). The kernel's plan splits
+    the table across blocks when the rays alone cannot fill the card.
+    Raises on anything the kernel does not take, CPU tensors included."""
+    import ctypes
+
     from plutracer_tpu_torch.ops.cuda import build
 
     _check(packed, o, d)
+    n_rows = packed.shape[0]
+    if type_rows is None or len(type_rows) != 3:
+        raise ValueError("closest_hit_cuda: type_rows (sphere, box, triangle rows of the "
+                         "table: scene.packed_type_rows) is required")
+    n_sph, n_box = int(type_rows[0]), int(type_rows[1])
+    if n_sph % 8 or n_box % 8 or n_sph < 0 or n_box < 0 or n_sph + n_box > n_rows:
+        raise ValueError(f"closest_hit_cuda: type_rows {tuple(type_rows)} do not partition "
+                         f"a table of {n_rows} rows")
+    if packed.data_ptr() % 16:
+        raise ValueError("closest_hit_cuda: packed must be 16-byte aligned (float4 rows)")
     B = o.shape[0]
-    t = torch.empty(B, dtype=torch.float32, device=o.device)
-    prim = torch.empty(B, dtype=torch.int32, device=o.device)
+    dev = o.device
+    t = torch.empty(B, dtype=torch.float32, device=dev)
+    prim = torch.empty(B, dtype=torch.int32, device=dev)
+    found = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
-        return t < T_MAX, prim, t
-    rc = build.load().lib.plu_closest_hit(
-        packed.data_ptr(), packed.shape[0], o.data_ptr(), d.data_ptr(),
-        t.data_ptr(), prim.data_ptr(), B, torch.cuda.current_stream(o.device).cuda_stream,
+        return found, prim, t
+    lib = build.load().lib
+    tiles = ctypes.c_int(0)
+    splits = lib.plu_closest_hit_plan(n_rows, B, ctypes.byref(tiles))
+    build.check(-min(splits, 0), "plu_closest_hit_plan")
+    part_t = part_k = arrivals = None
+    if splits > 1:  # the splits' partial answers and each ray tile's arrivals
+        part_t = torch.empty(splits * B, dtype=torch.float32, device=dev)
+        part_k = torch.empty(splits * B, dtype=torch.int32, device=dev)
+        arrivals = _arrivals(dev, tiles.value)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    rc = lib.plu_closest_hit(
+        packed.data_ptr(), n_rows, n_sph, n_box, o.data_ptr(), d.data_ptr(), t.data_ptr(),
+        prim.data_ptr(), found.data_ptr(), B, splits, ptr(part_t), ptr(part_k), ptr(arrivals),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(rc, "plu_closest_hit")
     closest_hit_cuda.launches += 1
-    return t < T_MAX, prim, t
+    return found, prim, t
+
+
+_ARRIVALS = {}  # device -> int32 counts, all 0 between launches (the kernel resets them)
+
+
+def _arrivals(dev, n):
+    buf = _ARRIVALS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVALS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    return buf
 
 
 closest_hit_cuda.launches = 0

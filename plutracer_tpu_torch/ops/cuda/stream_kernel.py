@@ -9,11 +9,13 @@ package's _megakernel_call_stream, and its plain version is
 render/integrator.ray_color fed the same uniforms.
 
 ``onebounce_cuda`` launches K4 (csrc/megakernel_onebounce.cu): one bounce
-over the (16, B) carry of render/wavefront.py. It replaces the JAX
-package's _megakernel_call_stream_onebounce, and its plain version
-``onebounce_plain`` is integrator.plain_bounce under the same host loop;
-``onebounce`` takes the kernel on CUDA tensors and the plain version on
-CPU tensors.
+of the wavefront loop of render/wavefront.py over its Wave (the
+lane-major carry, the lanes' rays, the sort keys, the counts, the
+radiance at each ray). It replaces the JAX package's
+_megakernel_call_stream_onebounce and the host work of its loop, and its
+plain version ``onebounce_plain`` is the same contract in torch around
+integrator.plain_bounce; ``onebounce`` takes the kernel on CUDA tensors
+and the plain version on CPU tensors.
 
 ``ray_color_stream_cuda.launches`` and ``onebounce_cuda.launches`` count
 kernel launches; ``ray_color_stream_cuda.debug_launches`` counts K3's K5
@@ -106,47 +108,103 @@ ray_color_stream_cuda.launches = 0
 ray_color_stream_cuda.debug_launches = 0
 
 
-def onebounce_cuda(scene, tables, carry, u_i, i: int, options):
-    """K4 on the current stream (no synchronisation): the carry (16, B)
-    after vertex i, for the carry before it and the vertex's uniforms u_i
-    (12, B). Raises on anything the kernel does not take."""
+def onebounce_cuda(scene, tables, wave, i: int, perm, options):
+    """K4 on the current stream (no synchronisation): vertex i of the
+    wavefront's lanes (render/wavefront.py: launch 0 finds the primary
+    hit; under a sort a lane reads its state at perm[lane]), writing the
+    Wave's next carry, lane rays, keys, counts and the radiance of the
+    rays that end. Raises on anything the kernel does not take."""
     from plutracer_tpu_torch.ops.cuda import build
+    from plutracer_tpu_torch.render.wavefront import CARRY_W, SORTS
 
-    if carry.dim() != 2 or carry.shape[0] != 16 or u_i.shape != (12, carry.shape[1]):
-        raise ValueError(f"onebounce_cuda: carry must be (16, B) and u_i (12, B), got "
-                         f"{tuple(carry.shape)}, {tuple(u_i.shape)}")
-    if not 0 <= i < options.max_bounces:
-        raise ValueError(f"onebounce_cuda: bounce {i} outside [0, {options.max_bounces})")
-    carry, u_i = carry.contiguous(), u_i.contiguous()
-    _check("onebounce_cuda", scene, tables, {"carry": carry, "u_i": u_i}, options)
-    B = carry.shape[1]
-    out = torch.empty_like(carry)
+    B, mb = wave.B, options.max_bounces
+    if not 0 <= i < mb:
+        raise ValueError(f"onebounce_cuda: bounce {i} outside [0, {mb})")
+    if wave.sort not in SORTS or (perm is None) != (i == 0 or wave.sort == "none"):
+        raise ValueError(f"onebounce_cuda: launch {i} under sort {wave.sort!r} "
+                         f"{'needs' if perm is None else 'takes no'} a permutation")
+    shapes = {"o": (B, 3), "d": (B, 3), "carry": (B, CARRY_W), "carry_next": (B, CARRY_W),
+              "u": (mb, B, 12), "out": (B, 3), "bounds": (6,)}
+    floats = {k: getattr(wave, k) for k in shapes}
+    for k, want in shapes.items():
+        if tuple(floats[k].shape) != want:
+            raise ValueError(f"onebounce_cuda: {k} must be {want}, got {tuple(floats[k].shape)}")
+    _check("onebounce_cuda", scene, tables, floats, options)
+    ints = {"counts": wave.counts, "orig": wave.orig, "orig_next": wave.orig_next,
+            "key": wave.key}
+    dev = wave.o.device
+    for k, x in ints.items():
+        if x is not None and (x.device != dev or x.dtype != torch.int32 or not x.is_contiguous()):
+            raise ValueError(f"onebounce_cuda: {k} must be contiguous int32 on {dev}")
+    if perm is not None and (perm.device != dev or perm.dtype != torch.int64
+                             or perm.shape != (B,)):
+        raise ValueError("onebounce_cuda: perm must be (B,) int64 on the carry's device")
+    if any(x.data_ptr() % 16 for x in (wave.carry, wave.carry_next, wave.u)):
+        raise ValueError("onebounce_cuda: carry and u must be 16-byte aligned (float4 reads)")
     if B == 0:
-        return out
+        return
+    sorting = wave.sort != "none" and i < mb - 1
+    ptr = lambda x: None if x is None else x.data_ptr()
     rc = build.load().lib.plu_megakernel_onebounce(
         *_table_args(scene, tables),
-        carry.data_ptr(), out.data_ptr(), u_i.data_ptr(), B, i,
-        *_flag_args(options), torch.cuda.current_stream(carry.device).cuda_stream,
+        wave.o.data_ptr(), wave.d.data_ptr(), wave.carry.data_ptr(), wave.carry_next.data_ptr(),
+        ptr(perm), ptr(wave.orig if i > 0 else None), ptr(wave.orig_next if sorting else None),
+        wave.u.data_ptr(), wave.out.data_ptr(), ptr(wave.key if sorting else None),
+        wave.counts.data_ptr(), wave.bounds.data_ptr(), B, i, SORTS.index(wave.sort),
+        *_flag_args(options), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(rc, "plu_megakernel_onebounce")
     onebounce_cuda.launches += 1
-    return out
 
 
 onebounce_cuda.launches = 0
 
 
-def onebounce_plain(scene, tables, carry, u_i, i: int, options):
-    """K4's plain version: integrator.plain_bounce on the carry."""
-    from plutracer_tpu_torch.render.integrator import plain_bounce
-    from plutracer_tpu_torch.render.wavefront import carry_of, state_of
+def onebounce_plain(scene, tables, wave, i: int, perm, options):
+    """K4's plain version: the same contract in torch around
+    integrator.plain_bounce (which runs on every lane; only the lanes K4
+    runs are written). Its primary hit is intersect.query_lite's."""
+    from plutracer_tpu_torch.ops import intersect
+    from plutracer_tpu_torch.render.integrator import PathState, plain_bounce
+    from plutracer_tpu_torch.render.wavefront import (
+        carry_of, live_lanes, sort_keys, state_of,
+    )
 
-    return carry_of(plain_bounce(scene, tables, state_of(carry), u_i.T, i, options))
+    B, mb, dev = wave.B, options.max_bounces, wave.o.device
+    last = i == mb - 1
+    lane = torch.arange(B, device=dev)
+    if i == 0:
+        o, d = wave.o, wave.d
+        found, prim, t = intersect.query_lite(scene, o, d)
+        carry = carry_of(PathState(
+            o=o, d=d, T=torch.ones_like(o), L=torch.zeros_like(o),
+            prev_spec=torch.zeros(B, dtype=torch.bool, device=dev),
+            alive=torch.ones(B, dtype=torch.bool, device=dev), prim=prim, t=t))
+        ray, take = lane, torch.ones(B, dtype=torch.bool, device=dev)
+    else:
+        src = lane if perm is None else perm
+        carry = wave.carry[src]
+        take = live_lanes(carry) if perm is None else lane < wave.counts[i - 1]
+        # a lane past the live prefix holds no ray (K4 reads nothing there)
+        ray = lane if wave.orig is None else torch.where(take, wave.orig[src].long(), lane)
+    nxt = carry_of(plain_bounce(scene, tables, state_of(carry), wave.u[i][ray], i, options))
+    live_after = take & live_lanes(nxt)
+    ended = take & (~live_after | last)
+    wave.out[ray[ended]] = nxt[ended, 9:12]
+    if not last:
+        write = take if wave.sort == "none" else live_after
+        wave.carry_next[write] = nxt[write]
+        if wave.sort != "none":
+            wave.orig_next[take] = ray[take].to(torch.int32)
+            lo, hi = wave.bounds[:3], wave.bounds[3:]
+            wave.key.copy_(sort_keys(nxt, wave.sort, lo, hi, live=live_after))
+    wave.counts[i] += live_after.sum().to(torch.int32)
+    wave.counts[mb + i] += ended.sum().to(torch.int32)
 
 
-def onebounce(scene, tables, carry, u_i, i: int, options):
-    """One bounce of the wavefront carry: K4 on CUDA tensors, the plain
+def onebounce(scene, tables, wave, i: int, perm, options):
+    """One bounce of the wavefront loop: K4 on CUDA tensors, the plain
     version on CPU tensors."""
-    if carry.is_cuda:
-        return onebounce_cuda(scene, tables, carry, u_i, i, options)
-    return onebounce_plain(scene, tables, carry, u_i, i, options)
+    if wave.o.is_cuda:
+        return onebounce_cuda(scene, tables, wave, i, perm, options)
+    return onebounce_plain(scene, tables, wave, i, perm, options)

@@ -166,7 +166,7 @@ def query_lite(scene, o, d):
     if o.is_cuda:
         from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit
 
-        return closest_hit(scene.prims_packed, o, d)
+        return closest_hit(scene.prims_packed, o, d, scene.packed_type_rows)
     return intersect_lite(scene, o, d)
 
 

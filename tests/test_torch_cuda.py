@@ -57,6 +57,7 @@ from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
 from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda, ray_color_stream_cuda
 from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color
 from plutracer_tpu_torch.render.renderer import _finalize, pixel_centers, render, render_passes
+from plutracer_tpu_torch.render.wavefront import ray_color_wavefront
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.scene.types import PRIM_SPHERE, PrimDesc
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, TEXTBOOK_OPTIONS
@@ -84,8 +85,9 @@ def scene_and_rays(name, res, dev):
 
 @pytest.mark.parametrize("name", ["demo-box", "dof", "sphere-grid", "mesh0"])
 def test_k1_bit_equal_to_plain(dev, name):
-    """Camera rays and random rays from inside the scene; mesh0's table
-    (1296 rows) spans several shared-memory tiles."""
+    """Camera rays and random rays from inside the scene (mesh0's 1296
+    rows span 11 ring tiles, the table split across blocks: 4096 rays
+    cannot fill the card); one launch a call."""
     s, o, d = scene_and_rays(name, 64, dev)
     g = torch.Generator(device="cpu").manual_seed(1)
     lo, hi = s.prim_a.min(0).values - 1.0, s.prim_b.max(0).values + 1.0
@@ -93,11 +95,30 @@ def test_k1_bit_equal_to_plain(dev, name):
     d2 = torch.nn.functional.normalize(torch.randn((4096, 3), generator=g).to(dev), dim=-1)
     for ro, rd in ((o, d), (o2, d2)):
         before = closest_hit_cuda.launches
-        f, p, t = closest_hit(s.prims_packed, ro, rd)
+        f, p, t = closest_hit(s.prims_packed, ro, rd, s.packed_type_rows)
         assert closest_hit_cuda.launches == before + 1
         pf, pp, pt = closest_hit_plain(s.prims_packed, ro, rd)
         assert f.float().mean() > 0.1
         assert torch.equal(f, pf) and torch.equal(p, pp) and torch.equal(t, pt)
+
+
+@pytest.mark.parametrize("name,B", [("mesh0", 1), ("mesh0", 255), ("mesh0", 257),
+                                    ("mesh0", 4096 - 77), ("mesh1", 4096 - 77)])
+def test_k1_ring_ragged_batch(dev, name, B):
+    """Batches that are no multiple of a block's rays (few rays: the table
+    split across blocks): bit-equal to plain."""
+    s, o, d = scene_and_rays(name, 64, dev)
+    got = closest_hit(s.prims_packed, o[:B], d[:B], s.packed_type_rows)
+    want = closest_hit_plain(s.prims_packed, o[:B], d[:B])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_k1_needs_the_segments(dev):
+    s, o, d = scene_and_rays("demo-box", 8, dev)
+    with pytest.raises(ValueError, match="type_rows"):
+        closest_hit(s.prims_packed, o, d)
+    with pytest.raises(ValueError, match="partition"):
+        closest_hit(s.prims_packed, o, d, (8, 16, 0))
 
 
 def interior_rays(s, n, dev):
@@ -143,13 +164,13 @@ def test_k3_query_bit_equal_to_k1(dev, name):
     """Camera rays, and extension rays from their hit points (the rays
     that start on a surface, where the self-hit knife edge lives)."""
     s, o, d = scene_and_rays(name, 128, dev)
-    f0, _, t0 = closest_hit(s.prims_packed, o, d)
+    f0, _, t0 = closest_hit(s.prims_packed, o, d, s.packed_type_rows)
     p = o + d * torch.where(f0, t0, 1.0)[:, None]
     for ro, rd in ((o, d), (p, interior_rays(s, o.shape[0], dev)[1]), interior_rays(s, 4096, dev)):
         before = closest_hit_bvh_cuda.launches
         got = closest_hit_bvh(s, ro, rd)
         assert closest_hit_bvh_cuda.launches == before + 1
-        want = closest_hit(s.prims_packed, ro, rd)
+        want = closest_hit(s.prims_packed, ro, rd, s.packed_type_rows)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert torch.equal(got[2][want[0]], want[2][want[0]])  # t on hits
 
@@ -166,13 +187,35 @@ def test_k3_matches_plain(dev, name):
 
 @pytest.mark.parametrize("sort", ["none", "compact", "morton", "morton5"])
 def test_k4_matches_k3(dev, sort):
+    """K4's loop bit-equal to K3, every ray written once, no K1 launch
+    (launch 0 walks the primary hit)."""
     s, o, d = scene_and_rays("mesh0", 96, dev)
     u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
     opts = DEFAULT_OPTIONS.replace(stream_wavefront=True, stream_sort=sort)
-    before = onebounce_cuda.launches
-    out = ray_color_kernel(s, o, d, u, opts)
-    assert onebounce_cuda.launches == before + opts.max_bounces
-    knife_edge_close(out, ray_color_stream_cuda(s, o, d, u, DEFAULT_OPTIONS), 0.005, 0.01)
+    before = onebounce_cuda.launches, closest_hit_cuda.launches
+    out = torch.full_like(o, float("nan"))
+    waves = []
+    ray_color_wavefront(s, o, d, u, opts, out=out, wave_out=waves)
+    assert (onebounce_cuda.launches, closest_hit_cuda.launches) == (
+        before[0] + opts.max_bounces, before[1])
+    assert int(waves[0].counts[opts.max_bounces:].sum()) == o.shape[0]
+    assert torch.equal(out, ray_color_stream_cuda(s, o, d, u, DEFAULT_OPTIONS))
+
+
+@pytest.mark.parametrize("sort", ["none", "morton"])
+def test_k4_every_lane_dead_after_bounce_0(dev, sort):
+    """Rays far outside the scene pointing away: every lane is dead after
+    launch 0, which writes every ray once; bit-equal to K3."""
+    s, o, d = scene_and_rays("mesh0", 32, dev)
+    o, d = o - 1.0e6 * d, -d
+    u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
+    opts = DEFAULT_OPTIONS.replace(stream_wavefront=True, stream_sort=sort)
+    out = torch.full_like(o, float("nan"))
+    waves = []
+    ray_color_wavefront(s, o, d, u, opts, out=out, wave_out=waves)
+    counts = waves[0].counts
+    assert int(counts[0]) == 0 and int(counts[opts.max_bounces]) == o.shape[0]
+    assert torch.equal(out, ray_color_stream_cuda(s, o, d, u, DEFAULT_OPTIONS))
 
 
 def test_uniforms_on_card_equal_cpu(dev):
@@ -367,10 +410,12 @@ def test_batched_render_equals_stratum_by_stratum(dev, name, wavefront):
     opts = DEFAULT_OPTIONS.replace(stream_wavefront=wavefront)
     counter = (onebounce_cuda if wavefront else
                ray_color_stream_cuda if s.num_prims > 64 else ray_color_cuda)
-    before = counter.launches
+    before, k1 = counter.launches, closest_hit_cuda.launches
     img = render(s, 64, 48, 3, rng.PRNGKey(9), opts)
     per_pass = opts.max_bounces if wavefront else 1
     assert counter.launches == before + per_pass
+    if wavefront:
+        assert closest_hit_cuda.launches == k1  # the wavefront launches no K1
     acc = None
     for st in range(9):
         acc = render_passes(s, rng.PRNGKey(9), st, 64, 48, 3, 1, opts, acc)

@@ -26,6 +26,7 @@ from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
     closest_hit,
     closest_hit_cuda,
     closest_hit_plain,
+    closest_hit_segments_plain,
 )
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
@@ -79,6 +80,49 @@ def test_plain_tie_goes_to_first_packed_row():
     assert f.tolist() == [True, False]
     assert p.tolist() == [5, 0]
     assert t.tolist() == [4.0, float(np.float32(3.0e37))]
+
+
+@pytest.mark.parametrize("name,res", [("demo-box", 16), ("dof", 16), ("sphere-grid", 12),
+                                      ("mesh0", 12)])
+def test_segment_fold_equals_plain(name, res):
+    """K1's fold as the kernel runs it (each type segment with its type's
+    test only, the segments in table order) equals closest_hit_plain on
+    every ray, bit for bit."""
+    s = compile_scene(load_scene_file(f"scenes/{name}.urn", ["/res", f"{res}x{res}"]), device="cpu")
+    js = jax_compile(jax_load(f"scenes/{name}.urn", ["/res", f"{res}x{res}"]))
+    o, d = (torch.from_numpy(x) for x in rays(js, res, seed=3))
+    got = closest_hit_segments_plain(s.prims_packed, o, d, s.packed_type_rows)
+    want = closest_hit_plain(s.prims_packed, o, d)
+    assert want[0].float().mean() > 0.2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_segment_fold_tie_goes_to_first_row():
+    """Equal t across and within segments: a sphere row and two boxes
+    whose hits all lie at t = 4; the first row in table order wins."""
+    packed = torch.zeros((24, 24))
+    packed[:8, 0], packed[8:16, 0], packed[16:, 0] = 0.0, 1.0, 2.0
+    packed[:8, 1] = 1.0e30  # never-hit padding of each type
+    packed[8:16, 1:4], packed[8:16, 4:7] = 1.0e30, 2.0e30
+    packed[:8, 11:14], packed[:8, 14:17] = -3.0e38, 3.0e38
+    packed[0, 1:5] = torch.tensor([0.0, 0.0, 5.0, 1.0])  # sphere: near root at t = 4
+    packed[0, 10] = 7.0
+    for row, scene_row in ((8, 5.0), (9, 2.0)):  # boxes: entry at t = 4
+        packed[row, 1:4] = torch.tensor([-1.0, -1.0, 4.0])
+        packed[row, 4:7] = torch.tensor([1.0, 1.0, 6.0])
+        packed[row, 10] = scene_row
+    o = torch.zeros((3, 3))
+    d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    for rows, first in (((8, 8, 8), 7), ((0, 8, 16), 5)):
+        if rows[0] == 0:  # no sphere segment: the boxes tie, the first box wins
+            table = packed[8:].clone()
+        else:
+            table = packed
+        f, p, t = closest_hit_segments_plain(table, o, d, rows)
+        assert (f.tolist(), p.tolist()) == ([True, False, False], [first, 0, 0])
+        assert t[0].item() == 4.0
+        assert all(torch.equal(a, b) for a, b in zip((f, p, t), closest_hit_plain(table, o, d)))
 
 
 def test_cuda_launcher_rejects_cpu_tensors():

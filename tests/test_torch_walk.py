@@ -315,12 +315,12 @@ def test_dead_lanes_leave_prim_and_t_stale():
     u = draw_uniforms(rng.PRNGKey(4), o.shape[0], DEFAULT_OPTIONS.max_bounces, "cpu")
     g = torch.Generator().manual_seed(0)
 
-    def poisoned(scene, tables, carry, u_i, i, options):
-        out = onebounce_plain(scene, tables, carry, u_i, i, options).clone()
-        dead = out[13] == 0.0
-        out[14, dead] = torch.randint(0, scene.num_prims, (int(dead.sum()),), generator=g).float()
-        out[15, dead] = torch.rand(int(dead.sum()), generator=g) * 10.0
-        return out
+    def poisoned(scene, tables, wave, i, perm, options):
+        onebounce_plain(scene, tables, wave, i, perm, options)
+        out = wave.carry_next  # the carry the next step reads
+        dead = out[:, 13] == 0.0
+        out[dead, 14] = torch.randint(0, scene.num_prims, (int(dead.sum()),), generator=g).float()
+        out[dead, 15] = torch.rand(int(dead.sum()), generator=g) * 10.0
 
     for sort in ("none", "morton"):
         opts = DEFAULT_OPTIONS.replace(stream_wavefront=True, stream_sort=sort)
