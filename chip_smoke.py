@@ -53,7 +53,22 @@ both main paths of the port on the card:
      straight 8, steps/s and samples/s, and one step of each loss split
      into the real make_train_step's halves (loss_and_grads, its forward
      traces, apply), the cost of deterministic algorithms, and what
-     optimize_scene adds.
+     optimize_scene adds;
+15.  the flagship recipe (plutracer_tpu_torch/tools/inverse_flagship.py
+     through its main(argv)) on demo-box at the tool's full 256x256: a
+     256-spp target (K1 + K2), 20 phase-1 log steps and 10 phase-2 pooled
+     ab steps (n = 4, 8x8 pooling, firefly clamp), every query of a train
+     step through K1; a run interrupted in phase 2 after a phase-2
+     checkpoint and rerun with the same flags, its parameters and loss
+     history bit-equal to the straight run's; target seconds, steps/s a
+     phase, albedo and emission errors, non-finite gradient fraction (0);
+16.  recovery: supervise_render of demo-box 512x512, n = 8 (K1 + K2 in the
+     worker) crashed after pass 20 with checkpoints every 16 passes, and of
+     mesh1 256x256, n = 4 (K3) crashed after pass 6 with checkpoints every
+     4, each image bit-equal to the in-process render at the same seed; a
+     CLI /checkpoint render interrupted after its first checkpoint and
+     resumed, bit-equal in linear radiance; supervised wall time against
+     in-process.
 
 Every phase asserts and prints its seconds; any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
@@ -138,6 +153,13 @@ K5_OPS = 12
 GRAD_CASES = (("demo-box", 256), ("mesh1", 128))
 TRAIN_RES = 256
 SPLIT_ROUNDS = 5  # rounds of the train-step split (phase 14)
+# phase 15: the flagship's flags (the tool's width, its default phase-2
+# grid and pooling, depth cut to 20 + 10 steps) and where phase 2 is cut
+FLAGSHIP_ARGS = ("--res", "256", "--target-n", "16", "--steps", "20", "--phase2-steps", "10",
+                 "--phase2-n", "4", "--phase2-downsample", "8", "--phase2-clamp", "10")
+# phase 16: (scene, resolution, n, fault, checkpoint_every) of the supervised renders
+SUPERVISED = (("demo-box", 512, 8, "crash:20", 16), ("mesh1", 256, 4, "crash:6", 4))
+CLI_RES = 256  # phase 16's CLI /checkpoint render (demo-box, 16 spp)
 
 
 def work_bound(nbytes: float, ops: float):
@@ -499,6 +521,8 @@ def main() -> int:
     k5, k2_bound = telemetry_phase(phase, card, lib, (scene, o, d, u, k2_ms), mesh1_pass)
     gradient_phase(phase, dev, card)
     train_k1 = training_phase(phase, dev, card)
+    flagship_phase(phase, dev, card)
+    recovery_phase(phase, dev, card)
     phase()
     print(f"K1 launches by shape: demo-box primary (the 512x512 64-spp render) {launches['K1']}, "
           + ", ".join(f"{k} {v}" for k, v in train_k1.items())
@@ -1291,6 +1315,132 @@ def training_phase(phase, dev, card):
               f"(their cost {med['loss_and_grads'] - med['nondeterministic']:.4f}); optimize_scene "
               f"{runs[what][2] * 1e3 / cfg.steps:.4f} ms a step; ranges ms: {spread} ({card})")
     return k1_launches
+
+
+def flagship_phase(phase, dev, card):
+    """Phase 15: the flagship tool through main(argv), straight and
+    interrupted in phase 2 then rerun."""
+    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_cuda
+    from plutracer_tpu_torch.tools import inverse_flagship as flagship
+
+    phase("15 flagship")
+    scene = ["--scene", str(ROOT / "scenes" / "demo-box.urn"), "--device", dev.type]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        closest_hit_cuda.launches = ray_color_cuda.launches = 0
+        ref = flagship.main([*scene, *FLAGSHIP_ARGS, "--out", str(tmp / "straight.json"),
+                             "--checkpoint", str(tmp / "straight")])
+        launches = {"K1": closest_hit_cuda.launches, "K2": ray_color_cuda.launches}
+        real = flagship.optimize_scene
+
+        def interrupting(scene, target, cfg, init_params=None, callback=None, stats_out=None):
+            # stop phase 2 at its second chunk's callback: its first
+            # checkpoint is written, the chunk's own is not (the crash to test)
+            def cb(i, loss, params):
+                callback(i, loss, params)
+                if cfg.seed == 1 and i > 0:
+                    raise KeyboardInterrupt
+
+            return real(scene, target, cfg, init_params=init_params, callback=cb,
+                        stats_out=stats_out)
+
+        args = [*scene, *FLAGSHIP_ARGS, "--out", str(tmp / "rerun.json"), "--checkpoint",
+                str(tmp / "rerun")]
+        flagship.optimize_scene = interrupting
+        try:
+            flagship.main(args)
+            raise AssertionError("the phase-2 interruption did not fire")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            flagship.optimize_scene = real
+        cut = int(np.load(tmp / "rerun" / "phase2.ckpt.npz")["next_i"])
+        t0 = time.perf_counter()
+        got = flagship.main(args)
+        rerun_s = time.perf_counter() - t0
+    same = got["losses"] == ref["losses"] and all(
+        torch.equal(got["params"][k], v) for k, v in ref["params"].items())
+    stats = ref["grad_sanitize_stats"]
+    nf_max = max(stats["nonfinite_grad_frac_max"], stats["phase2"]["nonfinite_grad_frac_max"])
+    t = ref["timings"]
+    steps = ref["config"]["steps"], ref["config"]["phase2"]["steps"]
+    print(f"flagship demo-box {ref['config']['res']}: target {t['target_render_s']:.4f} s "
+          f"({ref['config']['target_spp']} spp, K1 + K2); phase 1 {steps[0] / t['phase1_s']:.4f} "
+          f"steps/s (log, n = 2), phase 2 {steps[1] / t['phase2_s']:.4f} steps/s (pooled ab, "
+          f"n = 4, clamp 10); albedo_mae "
+          f"{ref['init']['albedo_mae']:.6f} -> {ref['final']['albedo_mae']:.6f}, emission_rel_err "
+          f"{ref['init']['emission_rel_err']:.6f} -> {ref['final']['emission_rel_err']:.6f}; "
+          f"nonfinite_grad_frac_max {nf_max}; launches {launches} ({card})")
+    print(f"flagship resume: interrupted in phase 2 after its checkpoint at step {cut}, rerun "
+          f"({rerun_s:.4f} s, phase 1 replayed) bit-equal to the straight run (parameters and "
+          f"{len(ref['losses'])} losses): {same}")
+    assert same and len(ref["losses"]) == sum(steps) and cut == 1
+    assert all(np.isfinite(ref["losses"])) and nf_max == 0.0
+    assert dev.type != "cuda" or (launches["K1"] > 0 and launches["K2"] > 0), launches
+
+
+def recovery_phase(phase, dev, card):
+    """Phase 16: supervised renders crashed and restarted, and a CLI
+    /checkpoint render interrupted and resumed, against in-process
+    renders."""
+    from plutracer_tpu_torch import cli, rng
+    from plutracer_tpu_torch.render import progressive
+    from plutracer_tpu_torch.render.renderer import render
+    from plutracer_tpu_torch.render.supervisor import supervise_render
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+
+    phase("16 recovery")
+    for name, res, n, fault, every in SUPERVISED:
+        path = str(ROOT / "scenes" / f"{name}.urn")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            r = supervise_render(path, res, res, n, 7, tmp, checkpoint_every=every,
+                                 inject_fault=fault, poll=0.1, device=dev.type)
+            sup_s = time.perf_counter() - t0
+        scene = compile_scene(load_scene_file(path, ["/res", f"{res}x{res}"]), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(scene, res, res, n, rng.PRNGKey(7))
+        torch.cuda.synchronize()
+        in_s = time.perf_counter() - t0
+        same = np.array_equal(r.image, img.cpu().numpy())
+        print(f"supervised {name} {res}x{res} n = {n}, {fault}, checkpoint every {every}: "
+              f"restarts {r.restarts}, events {r.events}; bit-equal to the in-process render: "
+              f"{same}; wall {sup_s:.4f} s supervised (two worker launches) against "
+              f"{in_s:.4f} s in-process ({card})")
+        assert same and r.restarts == 1
+        assert any("exit code 13" in d for e, d in r.events if e == "failure"), r.events
+    # the CLI: /checkpoint interrupted after its first checkpoint, then rerun
+    path = str(ROOT / "scenes" / "demo-box.urn")
+    real = progressive.render_passes
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(pathlib.Path(tmp) / "cli.ckpt.npz")
+        args = [path, "/res", f"{CLI_RES}x{CLI_RES}", "/smp", "4", "/seed", "7", "/checkpoint",
+                ck, "/o", str(pathlib.Path(tmp) / "cli.bmp"), "/device", dev.type]
+        calls = []
+
+        def interrupting(*a, **kw):
+            calls.append(a[2])
+            if len(calls) == 2:
+                raise KeyboardInterrupt
+            return real(*a, **kw)
+
+        progressive.render_passes = interrupting
+        try:
+            cli.run(args)
+            raise AssertionError("the CLI interruption did not fire")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            progressive.render_passes = real
+        cut = progressive.load_state(ck)[1]
+        res = cli.run(args)
+    scene = compile_scene(load_scene_file(path, ["/res", f"{CLI_RES}x{CLI_RES}"]), device=dev)
+    same = torch.equal(res.linear, render(scene, CLI_RES, CLI_RES, 4, rng.PRNGKey(7)))
+    print(f"CLI /checkpoint demo-box {CLI_RES}x{CLI_RES} 16 spp: interrupted after pass {cut}, resumed "
+          f"bit-equal to the in-process render (linear radiance): {same}")
+    assert same and cut == 8
 
 
 def loss_and_grads_ms(sharded, fn):

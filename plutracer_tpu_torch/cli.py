@@ -1,7 +1,8 @@
 """Command-line driver (reference: src/main.cpp:115-215).
 
     python -m plutracer_tpu_torch [/i] <scene.urn> [/res WxH] [/smp N]
-        [/o out.bmp] [/seed N] [/device cuda|cpu]
+        [/o out.bmp] [/seed N] [/device cuda|cpu] [/checkpoint PATH]
+        [/supervise] [/profile DIR]
 
 - ``/i`` opens the urn REPL first (``:!q`` continues, ``:!x`` exits 42);
 - ``/res WxH`` and ``/smp N`` override scene resolution / AA samples
@@ -11,25 +12,32 @@
   for a drop shadow;
 - ``/seed N`` RNG seed (renders are deterministic per seed);
 - ``/device`` where to render; default ``cuda``. Asking for CUDA on a
-  machine without a GPU is an error, never a silent CPU render.
+  machine without a GPU is an error, never a silent CPU render;
+- ``/checkpoint PATH`` save and resume the progressive accumulation state
+  (render/progressive.py): a rerun with the same flags resumes from the
+  last chunk written;
+- ``/supervise`` render under the failure-detecting supervisor
+  (render/supervisor.py): the render runs in a worker subprocess with a
+  heartbeat and checkpoints, and a crash or hang is restarted from the
+  last checkpoint. With ``/supervise``, ``/checkpoint`` names the
+  supervisor's work DIRECTORY (heartbeat, checkpoint and result live
+  there); without it, a per-(scene, resolution, seed) directory is made in
+  the working directory;
+- ``/profile DIR`` write a torch.profiler trace of the render phase to
+  DIR (a Chrome trace, ``render.trace.json``); ignored under /supervise,
+  where the render runs in another process.
 """
 
 from __future__ import annotations
 
+import os
+import pathlib
 import sys
 import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
-
-# flags of the JAX package's CLI that the port does not have yet, with the
-# ROADMAP item (queue 1) that brings each
-_NOT_YET = {
-    "/checkpoint": "ROADMAP queue 1 item 12 (recovery: progressive checkpoints)",
-    "/supervise": "ROADMAP queue 1 item 12 (recovery: the supervisor)",
-    "/profile": "ROADMAP queue 1 item 13 (tools: /profile via torch.profiler)",
-}
 
 
 def _pop_flag(args: List[str], flag: str) -> Optional[str]:
@@ -41,6 +49,13 @@ def _pop_flag(args: List[str], flag: str) -> Optional[str]:
         del args[i : i + 2]
         return v
     return None
+
+
+def _pop_switch(args: List[str], flag: str) -> bool:
+    if flag in args:
+        args.remove(flag)
+        return True
+    return False
 
 
 def resolve_device(name: str) -> torch.device:
@@ -56,9 +71,9 @@ def resolve_device(name: str) -> torch.device:
 
 
 class RenderResult(NamedTuple):
-    linear: torch.Tensor  # (H, W, 3) linear radiance on the render device
+    linear: torch.Tensor  # (H, W, 3) linear radiance on the render device (CPU if supervised)
     out_path: str
-    integrator: str  # "kernel" or "plain"
+    integrator: str  # "kernel", "plain", or "supervised" (the worker's choice)
     render_seconds: float
     tier: Optional[str] = None  # the kernel path's integrator.kernel_tier: k2, k3 or k4
 
@@ -77,7 +92,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not args:
         print(
             "usage: plutracer_tpu_torch [/i] <scene.urn> [/res WxH] [/smp N] "
-            "[/o out.bmp] [/seed N] [/device cuda|cpu]"
+            "[/o out.bmp] [/seed N] [/device cuda|cpu] [/checkpoint PATH] "
+            "[/supervise] [/profile DIR]"
         )
         return 2
     run(args)
@@ -88,42 +104,67 @@ def run(args: List[str]) -> RenderResult:
     """Render the scene named in the CLI arguments (everything after the
     optional /i), write the BMP, and return what was rendered."""
     args = list(args)
-    for flag, item in _NOT_YET.items():
-        if flag in args:
-            raise SystemExit(
-                f"{flag} is not supported by plutracer_tpu_torch yet; it comes "
-                f"with {item}. The JAX package (python -m plutracer_tpu) has it."
-            )
-
     out_path = _pop_flag(args, "/o")
     seed = int(_pop_flag(args, "/seed") or 0)
     device = resolve_device(_pop_flag(args, "/device") or "cuda")
+    profile_dir = _pop_flag(args, "/profile")
+    checkpoint = _pop_flag(args, "/checkpoint")
+    supervise = _pop_switch(args, "/supervise")
 
     scn_path = args.pop(0)
     print(f"loading scene {scn_path}")
 
     from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
-    from plutracer_tpu_torch import rng
     from plutracer_tpu_torch.render.integrator import kernel_tier, resolve_integrator_backend
-    from plutracer_tpu_torch.render.renderer import render
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
-    # --- init phase: parse + compile scene ---
+    # --- init phase: parse (+ compile, unless supervised) scene ---
     init_start = time.perf_counter()
     desc = load_scene_file(scn_path, args)
     width, height = desc.resolution
-    scene = compile_scene(desc, device=device)
+    if not supervise:
+        scene = compile_scene(desc, device=device)
     init_end = time.perf_counter()
 
-    backend = resolve_integrator_backend(scene, DEFAULT_OPTIONS, device)
-    tier = kernel_tier(scene, DEFAULT_OPTIONS) if backend == "kernel" else None
-    print(f"rendering on {device} with the {backend} integrator"
-          f"{f' ({tier})' if tier else ''}... ")
-    render_start = time.perf_counter()
-    linear = render(scene, width, height, desc.samples, rng.PRNGKey(seed))
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    render_end = time.perf_counter()
+    if supervise:
+        # the device work happens in the worker subprocess only: this process
+        # watches the heartbeat and restarts from the checkpoint
+        from plutracer_tpu_torch.render.supervisor import supervise_render
+
+        if profile_dir:
+            print("(/profile is ignored under /supervise: the render runs in a worker process)")
+        workdir = checkpoint or f".supervise_{pathlib.Path(scn_path).stem}_{width}x{height}_s{seed}"
+        if os.path.exists(workdir) and not os.path.isdir(workdir):
+            raise SystemExit(f"/checkpoint {workdir} is a file; under /supervise it names the "
+                             "supervisor's work directory")
+        backend, tier = "supervised", None
+        print(f"rendering on {device} in a supervised worker (work directory {workdir})... ")
+        render_start = time.perf_counter()
+        result = supervise_render(scn_path, width, height, desc.samples, seed, workdir,
+                                  device=device.type)
+        if result.restarts:
+            print(f"(recovered from {result.restarts} worker failure(s))")
+        linear = torch.from_numpy(result.image)
+        render_end = time.perf_counter()
+    else:
+        from plutracer_tpu_torch.render.progressive import render_with_checkpoint
+
+        backend = resolve_integrator_backend(scene, DEFAULT_OPTIONS, device)
+        tier = kernel_tier(scene, DEFAULT_OPTIONS) if backend == "kernel" else None
+        print(f"rendering on {device} with the {backend} integrator"
+              f"{f' ({tier})' if tier else ''}... ")
+        profiler = _start_profile(profile_dir, device) if profile_dir else None
+        render_start = time.perf_counter()
+        linear = render_with_checkpoint(scene, width, height, desc.samples, seed=seed,
+                                        checkpoint_path=checkpoint)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        render_end = time.perf_counter()
+        if profiler is not None:
+            profiler.stop()
+            trace = os.path.join(profile_dir, "render.trace.json")
+            profiler.export_chrome_trace(trace)
+            print(f"profile: {trace}")
 
     print("postprocessing... ")
     from plutracer_tpu_torch.ops.tonemap import postprocess_image
@@ -155,6 +196,19 @@ def run(args: List[str]) -> RenderResult:
     write_bmp(out_path, img)
     print(f"wrote {out_path}")
     return RenderResult(linear, out_path, backend, render_end - render_start, tier)
+
+
+def _start_profile(profile_dir: str, device: torch.device):
+    """A started torch.profiler over the host and, on a card, CUDA."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
 
 
 if __name__ == "__main__":

@@ -4,6 +4,16 @@ The port of plutracer_tpu/diff/optimize.py on one device: optimise
 material albedo, light emission and texture colours so a render matches a
 target, through parallel/sharded.make_train_step. Gradients flow through
 the whole path-tracing estimator; per-pass noise acts as minibatch noise.
+
+Checkpoints hold the parameters, the progress and the optimiser state
+flattened as the JAX package flattens it (``opt_{i}``, the leaves of the
+optax state in jax.tree_util order: diff/optim's ``state_leaves``), and
+the state is rebuilt on load from the leaves and ``step.init``'s template.
+So a checkpoint written by the JAX package's optimize_scene resumes here
+with the port's counterpart of its optimiser (Adam for optax.adam,
+MultiTransform of Adams for optax.multi_transform), and the single-Adam
+checkpoints of the port's first layout (``mu_*``, ``nu_*``, ``count``)
+still load.
 """
 
 from __future__ import annotations
@@ -36,8 +46,9 @@ class InverseRenderConfig:
     # project parameters to be nonnegative after each update (albedo,
     # emission, and texture colors are physically >= 0)
     project_nonnegative: bool = True
-    # optional optimiser with Adam's interface (init, update) in place of
-    # the default Adam(learning_rate)
+    # optional optimiser with Adam's interface (init, update, and for
+    # checkpoints state_leaves / state_from_leaves) in place of the default
+    # Adam(learning_rate), e.g. MultiTransform for per-field learning rates
     optimizer: Optional[object] = None
     # optional per-entry 0/1 gradient mask (see make_train_step)
     grad_mask: Optional[Dict] = None
@@ -54,31 +65,49 @@ class InverseRenderConfig:
     checkpoint_path: Optional[str] = None
 
 
-def _save_train_ckpt(path, params, opt_state: AdamState, next_i, seed, losses, nf_fracs):
-    """Atomic checkpoint (npz): parameters, Adam's mu/nu/count, progress."""
+def state_from_leaves(optimizer, template, leaves: List[torch.Tensor]):
+    """The optimiser state rebuilt from the leaves of its optax
+    counterpart's state; every leaf must be used."""
+    state, rest = optimizer.state_from_leaves(template, leaves)
+    if rest:
+        raise ValueError(f"{len(rest)} checkpoint leaves left over: another optimiser's state")
+    return state
+
+
+def _save_train_ckpt(path, params, optimizer, opt_state, next_i, seed, losses, nf_fracs):
+    """Atomic checkpoint (npz), the JAX package's layout: parameters, the
+    optimiser state's leaves, progress."""
+    leaves = optimizer.state_leaves(opt_state)
     arrays = {f"param_{k}": v.detach().cpu().numpy() for k, v in params.items()}
-    arrays.update({f"mu_{k}": v.cpu().numpy() for k, v in opt_state.mu.items()})
-    arrays.update({f"nu_{k}": v.cpu().numpy() for k, v in opt_state.nu.items()})
+    arrays.update({f"opt_{i}": x.detach().cpu().numpy() for i, x in enumerate(leaves)})
     tmp = path + ".tmp"
     np.savez(
-        tmp, next_i=next_i, seed=seed, count=int(opt_state.count),
+        tmp, next_i=next_i, seed=seed,
         losses=np.asarray(losses, np.float64), nf_fracs=np.asarray(nf_fracs, np.float64),
-        param_keys=np.asarray(sorted(params)), **arrays,
+        param_keys=np.asarray(sorted(params)), n_opt_leaves=len(leaves), **arrays,
     )
     os.replace(tmp + ".npz", path)
 
 
-def _load_train_ckpt(path, seed, device):
+def load_train_checkpoint(path, optimizer, template, seed, device):
+    """(params, optimiser state, next step, losses, non-finite fractions)
+    from a checkpoint of optimize_scene, the port's or the JAX package's.
+    template: optimizer's init state, which the leaves are rebuilt into; a
+    checkpoint of another seed is refused."""
     z = np.load(path, allow_pickle=False)
     if int(z["seed"]) != seed:
         raise ValueError(f"checkpoint seed {int(z['seed'])} != config {seed}")
-    t = lambda name: torch.from_numpy(z[name]).to(device)
+    t = lambda name: torch.from_numpy(np.asarray(z[name])).to(device)
     keys = [str(k) for k in z["param_keys"]]
     params = {k: t(f"param_{k}") for k in keys}
-    opt_state = AdamState(
-        count=torch.tensor(int(z["count"]), dtype=torch.int32, device=device),
-        mu={k: t(f"mu_{k}") for k in keys}, nu={k: t(f"nu_{k}") for k in keys},
-    )
+    if "n_opt_leaves" in z:
+        leaves = [t(f"opt_{i}") for i in range(int(z["n_opt_leaves"]))]
+        opt_state = state_from_leaves(optimizer, template, leaves)
+    else:  # the port's first layout: one Adam's count, mu_*, nu_*
+        opt_state = AdamState(
+            count=torch.tensor(int(z["count"]), dtype=torch.int32, device=device),
+            mu={k: t(f"mu_{k}") for k in keys}, nu={k: t(f"nu_{k}") for k in keys},
+        )
     return params, opt_state, int(z["next_i"]), z["losses"].tolist(), z["nf_fracs"].tolist()
 
 
@@ -119,7 +148,8 @@ def optimize_scene(
     i = 0
     ckpt = config.checkpoint_path
     if ckpt and os.path.exists(ckpt):
-        params, opt_state, i, losses, nf_fracs = _load_train_ckpt(ckpt, config.seed, dev)
+        params, opt_state, i, losses, nf_fracs = load_train_checkpoint(ckpt, opt, opt_state,
+                                                                       config.seed, dev)
     while i < config.steps:
         # the first chunk is a single step, so the callback fires at steps
         # 0, log_every, 2 * log_every, ..., and the last
@@ -133,7 +163,7 @@ def optimize_scene(
         if ckpt:
             # checkpoints land on chunk boundaries, so a resumed run
             # issues the same chunks (bit-exact)
-            _save_train_ckpt(ckpt, params, opt_state, i, config.seed, losses, nf_fracs)
+            _save_train_ckpt(ckpt, params, opt, opt_state, i, config.seed, losses, nf_fracs)
     if stats_out is not None:
         stats_out["nonfinite_grad_frac_mean"] = float(np.mean(nf_fracs)) if nf_fracs else 0.0
         stats_out["nonfinite_grad_frac_max"] = float(np.max(nf_fracs)) if nf_fracs else 0.0

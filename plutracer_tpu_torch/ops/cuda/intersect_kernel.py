@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from plutracer_tpu_torch.ops.intersect import T_MAX, _BIG
+from plutracer_tpu_torch.ops.safemath import sqrt
 from plutracer_tpu_torch.scene.types import PRIM_BOX, PRIM_SPHERE
 
 PACK_W = 24
@@ -60,7 +61,7 @@ def sphere_ts(rows, o3, d3, rinv):
     r = rows[..., 4]
     qb = -(vx * d3[..., 0] + vy * d3[..., 1] + vz * d3[..., 2])
     det = qb * qb - (vx * vx + vy * vy + vz * vz) + r * r
-    sq = torch.sqrt(torch.clamp(det, min=0.0))
+    sq = sqrt(torch.clamp(det, min=0.0))
     i1 = qb - sq
     i2 = qb + sq
     cmin, cmax = _slab(rows[..., 11:14], rows[..., 14:17], o3, rinv)

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from plutracer_tpu_torch.ops import intersect
-from plutracer_tpu_torch.ops.safemath import dot, normalize, safe_div
+from plutracer_tpu_torch.ops.safemath import dot, normalize, safe_div, sqrt
 from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
 from plutracer_tpu_torch.ops.tables import LightRows, PrimRows
 from plutracer_tpu_torch.scene.types import (
@@ -100,7 +100,7 @@ def sample_light_rows(
     # point light (inc/light.h:20-27); squared distance clamped at 1e-20
     l2p = lrows.pos - p
     len2 = torch.clamp(dot(l2p, l2p), min=1e-20)
-    wi_p = l2p / torch.sqrt(len2)[..., None]
+    wi_p = l2p / sqrt(len2)[..., None]
     li_p = safe_div(lrows.intensity, len2[..., None])
 
     # diffuse area light (inc/lights/area_light.h:25-31)

@@ -8,6 +8,14 @@ already zero computes ``0 * x / 0 = NaN``, and one NaN lane poisons the
 whole summed parameter gradient. ``rsqrt(u + 1e-30)`` is worse: its
 derivative factor ``u**-1.5 = 1e45`` overflows float32 outright.
 
+``sqrt`` is the square root rounded to nearest on every device: torch's
+CUDA sqrt is IEEE (the kernels match it bit for bit), but its vectorised
+CPU sqrt is off by one unit in the last place on some inputs (about 0.6%
+of uniform float32 values in [0, 100), at every position of a tensor),
+where XLA's, which the JAX package runs, rounds to nearest. On a CPU
+tensor the root is taken in float64 and rounded (``_sqrt_rn``); its
+derivative is JAX's, ``g * (0.5 / sqrt(x))``.
+
 ``safe_div``, ``safe_recip`` and ``safe_rsqrt`` keep their primals
 BIT-IDENTICAL to the plain ops (the CUDA kernels are pinned against them
 bit for bit) and clamp only inside the derivative, as the JAX package's
@@ -57,6 +65,27 @@ def _mag_clamp(y: torch.Tensor, eps: float) -> torch.Tensor:
 def _reduce(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A broadcast operand's gradient summed back to its shape."""
     return g if g.shape == like.shape else g.sum_to_size(like.shape)
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 sqrt rounded to nearest, as IEEE (and XLA) round it: the
+    root taken in float64 and rounded to float32. The root of a float32 is
+    never near enough to a float32 midpoint for the float64 step's rounding
+    to move it (53 >= 2 * 24 + 2 bits), so the double rounding is exact."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+class _SqrtRn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        out = _sqrt_rn(x)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return g * (0.5 / out)
 
 
 class _SafeDiv(torch.autograd.Function):
@@ -120,11 +149,19 @@ def safe_rsqrt(u: torch.Tensor) -> torch.Tensor:
     return _SafeRsqrt.apply(u) if _wants_grad(u) else torch.rsqrt(u)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The square root rounded to nearest: torch.sqrt on CUDA, _sqrt_rn on
+    the CPU."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    return _SqrtRn.apply(x) if _wants_grad(x) else _sqrt_rn(x)
+
+
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     """sqrt that is exactly 0 for x <= 0 (the JAX package's masked form:
     its gradient is 0, not inf, at x <= 0)."""
     pos = x > 0.0
-    return torch.sqrt(torch.where(pos, x, 1.0)) * pos.to(x.dtype)
+    return sqrt(torch.where(pos, x, 1.0)) * pos.to(x.dtype)
 
 
 def normalize(v: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:

@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from plutracer_tpu_torch.ops.safemath import sqrt
+
 
 def concentric_disk_sample(u: torch.Tensor) -> torch.Tensor:
     """Concentric square->disk map (inc/cmmn.h:252-270). u: (...,2) in [0,1)."""
@@ -36,7 +38,7 @@ def concentric_disk_sample(u: torch.Tensor) -> torch.Tensor:
 
 def uniform_sphere_sample(u: torch.Tensor) -> torch.Tensor:
     z = 1.0 - 2.0 * u[..., 0]
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = sqrt(torch.clamp(1.0 - z * z, min=0.0))
     phi = 2.0 * math.pi * u[..., 1]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
 
@@ -44,5 +46,5 @@ def uniform_sphere_sample(u: torch.Tensor) -> torch.Tensor:
 def cosine_hemisphere_sample(u: torch.Tensor) -> torch.Tensor:
     d = concentric_disk_sample(u)
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
-    z = torch.sqrt(torch.clamp(1.0 - d2, min=0.0))
+    z = sqrt(torch.clamp(1.0 - d2, min=0.0))
     return torch.cat([d, z[..., None]], -1)

@@ -21,7 +21,7 @@ import torch
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.diff.optim import Adam, apply_updates
 from plutracer_tpu_torch.render.integrator import DIFF_LEAVES
-from plutracer_tpu_torch.render.renderer import _trace_stratum, pixel_centers
+from plutracer_tpu_torch.render.renderer import _trace_stratum, over, pixel_centers
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
 
 DIFFERENTIABLE_FIELDS = DIFF_LEAVES  # ("mat_color", "light_intensity", "tex_c0", "tex_c1")
@@ -115,6 +115,7 @@ def make_train_step(
     target_flat, key0, start, k) -> (params, opt_state, losses (k,),
     nonfinite fractions (k,)): steps start..start+k-1, step i keyed
     fold_in(key0, i) at stratum i % (n * n), bit-equal to k calls of step.
+    step.ab_loss(xa, xb, target_flat) is the ab loss of two passes.
     step.loss_and_grads(params, target_flat, key, stratum) -> (loss, grads,
     nonfinite fraction) and step.apply(params, opt_state, grads, nf_frac)
     -> (params, opt_state) are the step's two halves.
@@ -131,10 +132,22 @@ def make_train_step(
     n_entries = sum(getattr(scene, f).numel() for f in fields)
 
     def pool(x):
-        return x.reshape(height // kk, kk, width // kk, kk, 3).mean(dim=(1, 3)).reshape(-1, 3)
+        # the block mean as a sum divided by the count (JAX's mean): torch's
+        # CUDA mean multiplies by the count's reciprocal
+        return over(x.reshape(height // kk, kk, width // kk, kk, 3).sum(dim=(1, 3)),
+                    kk * kk).reshape(-1, 3)
 
     def clampf(x):
         return torch.clamp(x, max=loss_clamp) if loss_clamp > 0 else x
+
+    def ab_loss(xa, xb, target):
+        """The dual-buffer loss of two (H*W, 3) passes: clamp, pool, then
+        the mean of (xa - t)(xb - t) over the pooled entries."""
+        xa, xb, tl = clampf(xa), clampf(xb), clampf(target)
+        if kk > 1:
+            xa, xb, tl = pool(xa), pool(xb), pool(tl)
+        da, db = xa - tl, xb - tl
+        return over(torch.sum(da * db), da.shape[0] * 3)
 
     def loss_and_grads(params, target, key, stratum):
         k = rng.fold_in(rng.fold_in(key, 0), 0)  # tile 0, spp 0 of a 1x1 mesh
@@ -143,19 +156,14 @@ def make_train_step(
         with torch.enable_grad(), _deterministic():
             if loss_space == "ab":
                 ka, kb = rng.split(k)
-                xa = clampf(_trace_stratum(sc, px0, ka, stratum, n, options))
-                xb = clampf(_trace_stratum(sc, px0, kb, stratum, n, options))
-                tl = clampf(target)
-                if kk > 1:
-                    xa, xb, tl = pool(xa), pool(xb), pool(tl)
-                da, db = xa - tl, xb - tl
-                loss = torch.sum(da * db) / (da.shape[0] * 3)
+                loss = ab_loss(_trace_stratum(sc, px0, ka, stratum, n, options),
+                               _trace_stratum(sc, px0, kb, stratum, n, options), target)
             else:
                 c, tl = clampf(_trace_stratum(sc, px0, k, stratum, n, options)), clampf(target)
                 if loss_space == "log":
                     c, tl = torch.log1p(torch.clamp(c, min=0.0)), torch.log1p(torch.clamp(tl, min=0.0))
                 dc = c - tl
-                loss = torch.sum(dc * dc) / (px0.shape[0] * 3)
+                loss = over(torch.sum(dc * dc), px0.shape[0] * 3)
             wrt = [leaves[f] for f in fields if f in trainable]
             got = iter(torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
                        if wrt else ())
@@ -165,7 +173,7 @@ def make_train_step(
                      for f, g in grads.items()}
         nf_count = sum((~torch.isfinite(g)).sum().to(torch.float32) for g in grads.values())
         grads = {f: torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0) for f, g in grads.items()}
-        return loss.detach(), grads, nf_count / n_entries
+        return loss.detach(), grads, over(nf_count, n_entries)
 
     def apply(params, opt_state, grads, nf_frac):
         updates, new_state = optimizer.update(grads, opt_state)
@@ -197,6 +205,7 @@ def make_train_step(
 
     step.init = optimizer.init
     step.many = many
+    step.ab_loss = ab_loss
     # the two halves of a step, for timing them apart
     step.loss_and_grads = loss_and_grads
     step.apply = apply

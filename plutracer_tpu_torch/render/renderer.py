@@ -15,8 +15,15 @@ what keeps the card's warps busy while a few long paths finish. Each
 stratum's rays and uniforms are drawn exactly as they are alone, the
 kernels compute every ray independently of its place in the batch, and
 the strata are accumulated in order, so the image is bit-identical to one
-stratum a launch. The plain path keeps one stratum a call: torch's
-vectorised CPU kernels round some lanes differently by position.
+stratum a launch. The plain path keeps one stratum a call.
+
+``render`` runs the strata in chunks of PASS_CHUNK (each through
+render_passes), and takes ``accum``/``start_pass`` to resume a partial
+render: render/progressive.py checkpoints between chunks. Every division
+by a count divides by a float32 tensor on the dividend's device: on CUDA
+torch computes a tensor divided by a Python number (a CPU scalar) as a
+product with its reciprocal, which can round differently from the JAX
+package's division.
 """
 
 from __future__ import annotations
@@ -36,6 +43,14 @@ from plutracer_tpu_torch.render.integrator import (
 # it takes
 LAUNCH_RAYS = 262144
 MAX_STRATA = 16
+# strata a chunk of render: the JAX package's dispatch (and checkpoint) unit
+PASS_CHUNK = 16
+
+
+def over(x: torch.Tensor, count) -> torch.Tensor:
+    """x divided by the number `count`, as IEEE division on every device
+    (the divisor is filled on the device: no host-to-device copy)."""
+    return x / x.new_full((), float(count))
 
 
 def pixel_centers(width: int, height: int, device="cpu") -> torch.Tensor:
@@ -46,20 +61,24 @@ def pixel_centers(width: int, height: int, device="cpu") -> torch.Tensor:
     return torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)
 
 
-def _stratum_rays(scene, px0, key, stratum: int, n: int, options: RenderOptions):
-    """The primary rays o, d and the path uniforms u of one stratified
-    sample per pixel from the given stratum cell."""
-    B = px0.shape[0]
-    dev = px0.device
-    k_px, k_lens, k_path = rng.split(key, 3)
-    # jittered stratified offsets: (cell + u*0.999)/n  (inc/sampler.h:44-50)
+def _sample_positions(px0, k_px, k_lens, stratum: int, n: int):
+    """(px, lens): the jittered pixel and lens positions of one stratified
+    sample per pixel from the given stratum cell, (cell + u*0.999)/n
+    (inc/sampler.h:44-50)."""
+    B, dev = px0.shape[0], px0.device
     cell = torch.tensor([stratum % n, stratum // n], dtype=torch.float32, device=dev)
     jit_px = rng.uniform(k_px, (B, 2), dev) * 0.999
     jit_lens = rng.uniform(k_lens, (B, 2), dev) * 0.999
-    px = px0 + (cell + jit_px) / n
-    lens = (cell + jit_lens) / n
+    return px0 + over(cell + jit_px, n), over(cell + jit_lens, n)
+
+
+def _stratum_rays(scene, px0, key, stratum: int, n: int, options: RenderOptions):
+    """The primary rays o, d and the path uniforms u of one stratified
+    sample per pixel from the given stratum cell."""
+    k_px, k_lens, k_path = rng.split(key, 3)
+    px, lens = _sample_positions(px0, k_px, k_lens, stratum, n)
     o, d = generate_rays(scene.camera, px, lens)
-    return o, d, draw_uniforms(k_path, B, options.max_bounces, dev)
+    return o, d, draw_uniforms(k_path, px0.shape[0], options.max_bounces, px0.device)
 
 
 def _trace_stratum(scene, px0, key, stratum: int, n: int, options: RenderOptions):
@@ -87,6 +106,27 @@ def strata_per_launch(scene, options: RenderOptions, rays: int) -> int:
     return max(1, min(MAX_STRATA, -(-LAUNCH_RAYS // rays)))
 
 
+def stratum_launches(scene, key, strata, width: int, height: int, n: int,
+                     options: RenderOptions = DEFAULT_OPTIONS):
+    """Each stratum's (H*W, 3) radiance, in order, keyed by fold_in(key, s):
+    strata_per_launch strata a launch, yielded launch by launch as lists."""
+    px0 = pixel_centers(width, height, scene.device)
+    B = px0.shape[0]
+    strata = list(strata)
+    per = strata_per_launch(scene, options, B)
+    for i in range(0, len(strata), per):
+        group = strata[i:i + per]
+        o, d, u = zip(*(_stratum_rays(scene, px0, rng.fold_in(key, s), s, n, options)
+                        for s in group))
+        L = radiance_of_uniforms(scene, torch.cat(o), torch.cat(d), torch.cat(u, 1), options)
+        yield [L[j * B:(j + 1) * B] for j in range(len(group))]
+
+
+def zeros_accum(width: int, height: int, device="cpu") -> torch.Tensor:
+    """A (H*W, 3) zero accumulator on `device`."""
+    return torch.zeros((height * width, 3), device=device)
+
+
 def render_passes(
     scene, key, start: int, width: int, height: int, n: int, k_passes: int,
     options: RenderOptions = DEFAULT_OPTIONS, accum=None,
@@ -94,32 +134,33 @@ def render_passes(
     """Strata start..start+k_passes accumulated in order into `accum`
     ((H*W, 3), a fresh zero sum when None), each pass keyed by
     fold_in(key, s); strata_per_launch strata a launch."""
-    px0 = pixel_centers(width, height, scene.device)
-    B = px0.shape[0]
-    acc = torch.zeros((height * width, 3), device=scene.device) if accum is None else accum
-    per = strata_per_launch(scene, options, B)
-    end = start + k_passes
-    for s0 in range(start, end, per):
-        strata = range(s0, min(s0 + per, end))
-        o, d, u = zip(*(_stratum_rays(scene, px0, rng.fold_in(key, s), s, n, options)
-                        for s in strata))
-        L = radiance_of_uniforms(scene, torch.cat(o), torch.cat(d), torch.cat(u, 1), options)
-        for j in range(len(strata)):
-            acc = acc + L[j * B:(j + 1) * B]
+    acc = zeros_accum(width, height, scene.device) if accum is None else accum
+    for launch in stratum_launches(scene, key, range(start, start + k_passes), width, height, n,
+                                   options):
+        for L in launch:
+            acc = acc + L
     return acc
 
 
 def _finalize(accum, spp: int, width: int, height: int):
     # divide (not multiply-by-reciprocal), as the JAX package does
-    return (accum / float(spp)).reshape(height, width, 3)
+    return over(accum, spp).reshape(height, width, 3)
 
 
 def render(
     scene, width: int, height: int, n: int, key,
-    options: RenderOptions = DEFAULT_OPTIONS,
+    options: RenderOptions = DEFAULT_OPTIONS, accum=None, start_pass: int = 0,
 ):
     """Full render: N^2 stratified passes accumulated, averaged by 1/spp.
-    Returns the linear-radiance image (H, W, 3) on the scene's device."""
+    Returns the linear-radiance image (H, W, 3) on the scene's device.
+    `accum` ((H*W, 3), the sum of passes 0..start_pass-1) and `start_pass`
+    resume a partial render; the strata run in chunks of PASS_CHUNK."""
     spp = n * n
-    accum = render_passes(scene, key, 0, width, height, n, spp, options)
+    if accum is None:
+        accum = zeros_accum(width, height, scene.device)
+    s = start_pass
+    while s < spp:
+        k = min(PASS_CHUNK, spp - s)
+        accum = render_passes(scene, key, s, width, height, n, k, options, accum=accum)
+        s += k
     return _finalize(accum, spp, width, height)

@@ -421,3 +421,63 @@ def test_batched_render_equals_stratum_by_stratum(dev, name, wavefront):
         acc = render_passes(s, rng.PRNGKey(9), st, 64, 48, 3, 1, opts, acc)
     assert counter.launches == before + 10 * per_pass
     assert torch.equal(img, _finalize(acc, 9, 64, 48))
+
+
+def test_divisions_are_ieee_on_card(dev):
+    """At n = 3 (a count whose reciprocal is inexact) the jittered pixel and
+    lens positions, the finalised image and a pooled ab loss equal the same
+    operations on CPU tensors of the same values: torch divides by a
+    tensor on the card, where a Python number would become a product with
+    its reciprocal."""
+    from plutracer_tpu_torch.render.renderer import _sample_positions, over
+
+    k_px, k_lens = rng.split(rng.PRNGKey(5), 2)
+    for stratum in range(9):
+        got = _sample_positions(pixel_centers(64, 48, dev), k_px, k_lens, stratum, 3)
+        want = _sample_positions(pixel_centers(64, 48), k_px, k_lens, stratum, 3)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), stratum
+    g = torch.Generator().manual_seed(0)
+    acc = torch.rand((48 * 64, 3), generator=g) * 100.0
+    assert torch.equal(_finalize(acc.to(dev), 9, 64, 48).cpu(), _finalize(acc, 9, 64, 48))
+    assert not torch.equal((acc.to(dev) / 9).cpu(), over(acc, 9))  # the flaw repaired
+    from plutracer_tpu_torch.parallel.sharded import make_train_step
+
+    # the pooled ab loss on whole numbers: every product and sum is exact
+    # in any order, so only the divisions (by 64 in the pool, by 36 in the
+    # mean over 4 x 3 pooled pixels x 3) can round, and on the card the
+    # two sums reduce in another order than on the CPU
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / "dof.urn"), ["/res", "32x24"]),
+                      device="cpu")
+    xa, xb, tg = (torch.randint(0, 8, (32 * 24, 3), generator=g).float() for _ in range(3))
+    losses = []
+    for sc, d in ((s.to(dev), dev), (s, torch.device("cpu"))):
+        step = make_train_step(sc, 32, 24, 1, loss_downsample=8)
+        losses.append(step.ab_loss(xa.to(d), xb.to(d), tg.to(d)).cpu())
+    assert torch.equal(*losses)
+
+
+def test_render_resumes_on_card(dev):
+    """render(accum, start_pass) from a partial sum of the first 5 strata:
+    the image of one straight render, bit for bit (K2 and K3)."""
+    for name in ("demo-box", "mesh0"):
+        s = compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"), ["/res", "64x48"]),
+                          device=dev)
+        key = rng.PRNGKey(9)
+        partial = render_passes(s, key, 0, 64, 48, 4, 5)
+        assert torch.equal(render(s, 64, 48, 4, key, accum=partial, start_pass=5),
+                           render(s, 64, 48, 4, key)), name
+
+
+def test_supervised_crash_on_card(dev, tmp_path):
+    """A supervised render on the card that crashes after pass 4 (passes 4
+    to 7 lost) restarts and returns the in-process render's image, bit for
+    bit."""
+    from plutracer_tpu_torch.render.supervisor import supervise_render
+
+    scene = str(REPO / "scenes" / "demo-box.urn")
+    r = supervise_render(scene, 64, 48, 3, 7, str(tmp_path), checkpoint_every=4,
+                         inject_fault="crash:4", heartbeat_timeout=300.0, poll=0.2)
+    assert r.restarts == 1 and any("exit code 13" in d for e, d in r.events if e == "failure")
+    s = compile_scene(load_scene_file(scene, ["/res", "64x48"]), device=dev)
+    assert np.array_equal(r.image, render(s, 64, 48, 3, rng.PRNGKey(7)).cpu().numpy())

@@ -2,11 +2,15 @@
 
 The plain version closest_hit_plain is held against the JAX Pallas kernel
 in interpret mode (intersect_lite_pallas, interpret=True) and against the
-JAX brute force intersect_lite. Tolerance: winners (found, prim) exact;
-t within 1e-5 relative. XLA contracts the float32 math into FMAs on the
-CPU, which moves the sphere discriminant by an ulp, and the near root
-qb - sqrt(det) amplifies that on grazing rays where det is small: up to
-5e-6 relative measured on these rays. The CUDA kernel itself is held to
+JAX brute force intersect_lite. Tolerance: winners (found, prim) exact.
+t against intersect_lite: bit for bit on the sphere and box scenes now
+that the port's CPU sqrt is rounded to nearest as XLA's is (torch's own
+missed by an ulp on one lane each of dof and textured0); within 1e-6
+relative on mesh0, whose triangle test XLA contracts into FMAs (measured
+2.7e-7 on 6 of 181 hits). t against the Pallas kernel within 1e-5
+relative: the kernel's own float32 arithmetic, contracted, moves the
+sphere discriminant by an ulp, and the near root qb - sqrt(det) amplifies
+that on grazing rays where det is small (measured up to 4.7e-6). The CUDA kernel itself is held to
 its plain version bit for bit on a card, in tests/test_torch_cuda.py (the
 machine with the card has no jax).
 """
@@ -46,21 +50,21 @@ def rays(js, res, seed):
             np.concatenate([np.asarray(d), d2]).astype(np.float32))
 
 
-@pytest.mark.parametrize("name,res", [("demo-box", 24), ("dof", 24), ("textured0", 24),
-                                      ("mesh0", 16)])
-def test_plain_matches_jax(name, res):
+@pytest.mark.parametrize("name,res,rtol", [("demo-box", 24, 0.0), ("dof", 24, 0.0),
+                                           ("textured0", 24, 0.0), ("mesh0", 16, 1e-6)])
+def test_plain_matches_jax(name, res, rtol):
     js = jax_compile(jax_load(f"scenes/{name}.urn", ["/res", f"{res}x{res}"]))
     o, d = rays(js, res, seed=len(name))
     packed = torch.from_numpy(np.asarray(js.prims_packed))
     f, p, t = (x.numpy() for x in closest_hit(packed, torch.from_numpy(o), torch.from_numpy(d)))
     assert f.mean() > 0.2  # the comparison is not vacuous
-    for ref in (intersect_lite_pallas(js, jnp.asarray(o), jnp.asarray(d), js.prims_packed,
-                                      interpret=True),
-                jax_intersect_lite(js, jnp.asarray(o), jnp.asarray(d))):
+    for ref, t_rtol in ((intersect_lite_pallas(js, jnp.asarray(o), jnp.asarray(d),
+                                               js.prims_packed, interpret=True), 1e-5),
+                        (jax_intersect_lite(js, jnp.asarray(o), jnp.asarray(d)), rtol)):
         jf, jp, jt = (np.asarray(x) for x in ref)
         np.testing.assert_array_equal(f, jf)
         np.testing.assert_array_equal(p[jf], jp[jf])
-        np.testing.assert_allclose(t[jf], jt[jf], rtol=1e-5, atol=0)
+        np.testing.assert_allclose(t[jf], jt[jf], rtol=t_rtol, atol=0)
 
 
 def test_plain_tie_goes_to_first_packed_row():

@@ -9,6 +9,7 @@ chains (arccos at the sphere poles) get the looser uv bounds of
 test_kernel_crosspin.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +26,8 @@ from plutracer_tpu.ops import tonemap as jtonemap
 from plutracer_tpu.scene import compile_scene as jax_compile
 from plutracer_tpu.scene import load_scene_file as jax_load
 from plutracer_tpu.semantics import DEFAULT_OPTIONS as JAX_OPTIONS
-from plutracer_tpu_torch.ops import bsdf, camera, intersect, lights, sampling, tables, texture, tonemap
+from plutracer_tpu_torch.ops import (bsdf, camera, intersect, lights, safemath, sampling, tables,
+                                    texture, tonemap)
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
 
@@ -99,21 +101,23 @@ def test_pack_tables_exact(name):
 @pytest.mark.parametrize("name", SCENES)
 def test_prim_t(name):
     """sphere_t / box_t / triangle_t through prim_t_rows, and the scene-level
-    brute force intersect_lite (winners exact)."""
+    brute force intersect_lite (winners exact). t bit for bit, the sqrt
+    being rounded to nearest on both sides, except intersect_lite's on
+    mesh0, whose triangle hits XLA contracts into FMAs (5 of 345 hits
+    differ, within 1e-6 relative)."""
     js, ts = both(name)
     st = rand_state(ts, 2)
     rows_t = tables.gather_prim(tables.pack_tables(ts), t(st["pi"]))
     rows_j = jtables.gather_prim(jtables.pack_tables(js), j(st["pi"]))
     got = intersect.prim_t_rows(t(st["o"]), t(st["d"]), rows_t)
     want = jint.prim_t_rows(j(st["o"]), j(st["d"]), rows_j)
-    np.testing.assert_array_equal(got.numpy() < intersect.T_MAX, np.asarray(want) < jint.T_MAX)
-    close(got, want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     f, p, tt = intersect.intersect_lite(ts, t(st["o"]), t(st["d"]))
     jf, jp, jt = jint.intersect_lite(js, j(st["o"]), j(st["d"]))
     np.testing.assert_array_equal(f.numpy(), np.asarray(jf))
     m = np.asarray(jf)
     np.testing.assert_array_equal(p.numpy()[m], np.asarray(jp)[m])
-    close(tt.numpy()[m], np.asarray(jt)[m], rtol=1e-6, atol=0)
+    close(tt.numpy()[m], np.asarray(jt)[m], rtol=1e-6 if name == "mesh0" else 0.0, atol=0)
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -216,3 +220,20 @@ def test_tonemap():
     c = np.random.RandomState(8).exponential(2.0, (64, 48, 3)).astype(np.float32)
     c[0, 0] = 0.0  # black maps to black
     close(tonemap.postprocess_image(t(c)), jtonemap.postprocess_image(j(c)), rtol=1e-5, atol=1e-6)
+
+
+def test_sqrt_rounded_to_nearest():
+    """safemath.sqrt and safe_sqrt on CPU tensors: bit-equal to XLA's sqrt
+    and to the float64 root rounded to float32 on 1,000,000 values (torch's
+    own CPU sqrt misses by an ulp on about 0.6% of them), with JAX's
+    derivative g * (0.5 / sqrt(x))."""
+    x = np.random.default_rng(0).uniform(0.0, 100.0, 1_000_000).astype(np.float32)
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(np.asarray(jnp.sqrt(j(x))), want)
+    for fn in (safemath.sqrt, safemath.safe_sqrt):
+        np.testing.assert_array_equal(fn(t(x)).numpy(), want)
+    assert (torch.sqrt(t(x)).numpy() != want).any()  # what the rounding repairs
+    xs = t(x[:64]).requires_grad_(True)
+    (g,) = torch.autograd.grad(safemath.safe_sqrt(xs).sum(), xs)
+    jg = jax.grad(lambda v: jnp.sum(jnp.sqrt(v)))(j(x[:64]))
+    np.testing.assert_array_equal(g.numpy(), np.asarray(jg))

@@ -68,15 +68,39 @@ def test_cli_cuda_without_gpu_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["/checkpoint", "/supervise", "/profile"])
 def test_cli_rejects_unported_flags(flag, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        cli.main([str(REPO / "scenes" / "dof.urn"), flag, str(tmp_path / "x"),
-                  "/device", "cpu"])
+    """Every flag of the JAX package's CLI is ported: none is refused.
+    /checkpoint writes its state file and /profile its trace; /supervise
+    with /checkpoint naming a file is refused for that file (before any
+    worker starts), not for the flag."""
+    args = [str(REPO / "scenes" / "dof.urn"), "/res", "8x6", "/smp", "1", "/device", "cpu",
+            "/o", str(tmp_path / "x.bmp")]
+    target = tmp_path / "x"
+    if flag == "/supervise":
+        target.write_text("")
+        with pytest.raises(SystemExit, match="is a file"):
+            cli.main(args + [flag, "/checkpoint", str(target)])
+        return
+    assert cli.main(args + [flag, str(target)]) == 0
+    assert (tmp_path / "x.bmp").exists()
+    made = target / "render.trace.json" if flag == "/profile" else target
+    assert made.exists() and made.stat().st_size > 0
+
+
+NO_JAX = (
+    "import sys\n"
+    "bad = sorted(m for m in sys.modules if m.startswith(('jax', 'optax'))\n"
+    "             or m == 'plutracer_tpu' or m.startswith('plutracer_tpu.'))\n"
+    "assert not bad, bad\n"
+    "print('NO_JAX')\n"
+)
 
 
 def test_package_never_imports_jax(tmp_path):
     """A fresh interpreter: import the port, render a tiny image through the
-    CLI and take one train step on the CPU, and find no jax module and no
-    module of the JAX package (plutracer_tpu, plutracer_tpu.*) loaded."""
+    CLI, take one train step and run the flagship tool on the CPU, and find
+    no jax or optax module and no module of the JAX package
+    (plutracer_tpu, plutracer_tpu.*) loaded; then the same in a supervisor
+    worker subprocess run as the supervisor runs it."""
     code = (
         "import sys\n"
         "import plutracer_tpu_torch.cli as cli\n"
@@ -91,13 +115,34 @@ def test_package_never_imports_jax(tmp_path):
         "p, losses = optimize_scene(s, s.atlas.new_zeros((6, 8, 3)), InverseRenderConfig(\n"
         "    width=8, height=6, n=1, steps=1, trainable=('mat_color',)))\n"
         "assert len(losses) == 1\n"
-        "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
-        "             or m == 'plutracer_tpu' or m.startswith('plutracer_tpu.'))\n"
-        "assert not bad, bad\n"
-        "print('NO_JAX')\n"
-    )
+        "from plutracer_tpu_torch.tools import inverse_flagship\n"
+        "r = inverse_flagship.main(['--res', '8', '--steps', '1', '--phase2-steps', '1',"
+        " '--target-n', '1', '--n', '1', '--phase2-n', '1', '--phase2-downsample', '2',"
+        f" '--device', 'cpu', '--save-images', '--out', {str(tmp_path / 'inv.json')!r}])\n"
+        "assert len(r['losses']) == 2\n"
+    ) + NO_JAX
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(REPO), timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "NO_JAX" in proc.stdout
-    assert (tmp_path / "x.bmp").exists()
+    assert (tmp_path / "x.bmp").exists() and (tmp_path / "inv.json").exists()
+    assert (tmp_path / "inverse_target.bmp").exists() and (tmp_path / "inverse_recovered.bmp").exists()
+    # a supervisor worker, run as the supervisor launches it (python -m)
+    worker = [
+        "--worker", "--scene", str(REPO / "scenes" / "demo-box.urn"), "--res", "8x6", "--n", "1",
+        "--ckpt", str(tmp_path / "w.ckpt.npz"), "--heartbeat", str(tmp_path / "hb"),
+        "--out", str(tmp_path / "w.npz"), "--device", "cpu",
+    ]
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['supervisor', *{worker!r}]\n"
+        "try:\n"
+        "    runpy.run_module('plutracer_tpu_torch.render.supervisor', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+    ) + NO_JAX
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(REPO), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "NO_JAX" in proc.stdout
+    assert (tmp_path / "w.npz").exists()
