@@ -68,7 +68,23 @@ both main paths of the port on the card:
      4, each image bit-equal to the in-process render at the same seed; a
      CLI /checkpoint render interrupted after its first checkpoint and
      resumed, bit-equal in linear radiance; supervised wall time against
-     in-process.
+     in-process;
+17.  multi-device (parallel/): (a) render_sharded of demo-box 512x512, 64
+     samples per pixel, on a 1x1 mesh in an NCCL world of 1 (K1 + K2, the
+     launches counted), bit-equal to the same mesh with no process group;
+     its wall time and samples/s beside render's; (b) the same render on a
+     (2, 2) mesh of cuda:0 positions, in this process and in two gloo
+     processes sharing the card (a tiles row each), bit-equal; (c) the
+     (2, 2) mesh at 128x128, n = 2, through the kernels against the plain
+     backend, bit-equal; (d) mesh1 256x256, 16 samples per pixel, on a
+     (1, 2) mesh (K3), one process against two, bit-equal; (e) one train
+     step each of the log and ab losses on demo-box 256x256, n = 2, on the
+     (2, 2) mesh: parameters, Adam's state and loss bit-equal between one
+     process and two; (f) dryrun_multichip(4) on four cuda:0 positions
+     (its own process, beside (c)-(e) and the two-process jobs);
+18.  tools: term_dump on demo-box 64x64, n = 2, on the card (its terms
+     summed against its radiance, its linear image against render's at
+     the same key), render_image against postprocess_image(render).
 
 Every phase asserts and prints its seconds; any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
@@ -160,6 +176,14 @@ FLAGSHIP_ARGS = ("--res", "256", "--target-n", "16", "--steps", "20", "--phase2-
 # phase 16: (scene, resolution, n, fault, checkpoint_every) of the supervised renders
 SUPERVISED = (("demo-box", 512, 8, "crash:20", 16), ("mesh1", 256, 4, "crash:6", 4))
 CLI_RES = 256  # phase 16's CLI /checkpoint render (demo-box, 16 spp)
+# phase 17: the sharded renders' (resolution, n) and the train steps' size
+MESH_RENDER = (512, 8)  # demo-box, (a) and (b)
+MESH_CHECK = (128, 2)  # (c), kernel path against plain
+MESH_K3 = (256, 4)  # mesh1 on (1, 2), (d)
+MESH_TRAIN = (256, 2)  # demo-box, (e)
+TERMS_RES = 64  # phase 18: term_dump and render_image, demo-box, n = 2
+# (f): dryrun_multichip(4) in its own process, on the card's positions
+DRYRUN = [sys.executable, "-m", "plutracer_tpu_torch.parallel.dryrun", "4"]
 
 
 def work_bound(nbytes: float, ops: float):
@@ -224,9 +248,9 @@ def issued_queries(scene, o, d, u, options):
     plain_bounce, nee = integrator.plain_bounce, integrator._nee_contributions
     nonzero = lambda v: (v * v).sum(-1) > 0.0
 
-    def bounce(scene, tables, state, ui, i, options, debug=False):
+    def bounce(scene, tables, state, ui, i, options, debug=False, terms=False):
         alive["in"] = state.alive
-        nxt = plain_bounce(scene, tables, state, ui, i, options, debug)
+        nxt = plain_bounce(scene, tables, state, ui, i, options, debug, terms)
         closest.append((nxt.o[nxt.alive], nxt.d[nxt.alive]))  # the extension rays
         return nxt
 
@@ -523,6 +547,8 @@ def main() -> int:
     train_k1 = training_phase(phase, dev, card)
     flagship_phase(phase, dev, card)
     recovery_phase(phase, dev, card)
+    multi_device_phase(phase, dev, card)
+    tools_phase(phase, dev, card)
     phase()
     print(f"K1 launches by shape: demo-box primary (the 512x512 64-spp render) {launches['K1']}, "
           + ", ".join(f"{k} {v}" for k, v in train_k1.items())
@@ -1441,6 +1467,158 @@ def recovery_phase(phase, dev, card):
     print(f"CLI /checkpoint demo-box {CLI_RES}x{CLI_RES} 16 spp: interrupted after pass {cut}, resumed "
           f"bit-equal to the in-process render (linear radiance): {same}")
     assert same and cut == 8
+
+
+def timed_render(fn):
+    """(image, wall seconds) of fn(), ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = fn()
+    torch.cuda.synchronize()
+    return img, time.perf_counter() - t0
+
+
+def multi_device_phase(phase, dev, card):
+    """Phase 17: render_sharded and the mesh train step on cuda:0
+    positions, in one process and split over two gloo processes, and
+    dryrun_multichip(4). The timed renders run alone; then the
+    two-process jobs and the dry run (each its own processes) run beside
+    this process's half of the comparisons."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
+
+    from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_cuda
+    from plutracer_tpu_torch.parallel import make_mesh, render_sharded
+    from plutracer_tpu_torch.parallel.dryrun import mesh_jobs, run_processes
+    from plutracer_tpu_torch.parallel.mesh import initialize_distributed
+    from plutracer_tpu_torch.render.renderer import render
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+    from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+
+    phase("17 multi-device")
+    demo = str(ROOT / "scenes" / "demo-box.urn")
+    res, n = MESH_RENDER
+    samples = res * res * n * n
+    scene = compile_scene(load_scene_file(demo, ["/res", f"{res}x{res}"]), device=dev)
+    key = rng.PRNGKey(7)
+    # (a) a 1x1 mesh in an NCCL world of 1: the path's K1 + K2 launches; the
+    # first render also creates the NCCL communicator, the second is warm
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/rendezvous", 1, 0, "nccl", timeout=300.0)
+        try:
+            mesh = make_mesh((1, 1), [dev])
+            assert mesh.distributed
+            closest_hit_cuda.launches = ray_color_cuda.launches = 0
+            img_a, cold_a = timed_render(lambda: render_sharded(scene, res, res, n, key, mesh))
+            launches = {"K1": closest_hit_cuda.launches, "K2": ray_color_cuda.launches}
+            _, wall_a = timed_render(lambda: render_sharded(scene, res, res, n, key, mesh))
+        finally:
+            dist.destroy_process_group()
+    img_1, wall_1 = timed_render(
+        lambda: render_sharded(scene, res, res, n, key, make_mesh((1, 1), [dev])))
+    _, wall_r = timed_render(lambda: render(scene, res, res, n, key))
+    same_a = torch.equal(img_a, img_1)
+    print(f"multi-device (a) demo-box {res}x{res} {n * n} spp on a 1x1 mesh in an NCCL world "
+          f"of 1: launches {launches}; bit-equal to the mesh with no process group: {same_a}; "
+          f"wall {wall_a:.4f} s ({samples / wall_a:.1f} samples/s; the first call, with the "
+          f"communicator's set-up, {cold_a:.4f} s), no process group {wall_1:.4f} s "
+          f"({samples / wall_1:.1f}), render {wall_r:.4f} s ({samples / wall_r:.1f}) ({card})")
+    assert same_a and bool(torch.isfinite(img_a).all())
+    assert launches["K1"] == n * n and launches["K2"] == n * n, launches
+    # (b) the (2, 2) mesh of cuda:0 positions in this process
+    mesh4 = make_mesh((2, 2), [dev] * 4)
+    ray_color_cuda.launches = 0
+    img_b, wall_b = timed_render(lambda: render_sharded(scene, res, res, n, key, mesh4))
+    k2_b = ray_color_cuda.launches
+    print(f"multi-device (b) the same render on a (2, 2) mesh of cuda:0 positions in one "
+          f"process: {k2_b} K2 launches (two half-size strata a launch), wall {wall_b:.4f} s "
+          f"({samples / wall_b:.1f} samples/s, {wall_b / wall_1:.3f}x the 1x1 mesh's) ({card})")
+    # 4 positions, each n^2 / 2 strata of half the rows, two a launch
+    assert k2_b == 4 * (n * n // 2) // 2, k2_b
+    # (b), (d), (e) in two gloo processes sharing the card, and the dry run
+    kres, kn = MESH_K3
+    tres, tn = MESH_TRAIN
+    job = dict(scene=demo, seed=7)
+    rows = [dict(job, kind="render", res=[res, res], n=n, shape=[2, 2])]
+    rows += [dict(job, kind="train", res=[tres, tres], n=tn, shape=[2, 2], loss_space=ls)
+             for ls in ("log", "ab")]
+    spp_job = [dict(job, kind="render", scene=str(ROOT / "scenes" / "mesh1.urn"),
+                    res=[kres, kres], n=kn, shape=[1, 2])]
+    card0 = f"cuda:{dev.index or 0}"
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        two = pool.submit(run_processes, rows, [[card0] * 2] * 2, timeout=600)
+        two_k3 = pool.submit(run_processes, spp_job, [[card0]] * 2, timeout=600)
+        # (f) the dry run on four cuda:0 positions (the card in turn)
+        dry = pool.submit(subprocess.run, DRYRUN, cwd=str(ROOT), capture_output=True,
+                          text=True, timeout=600)
+        # (c) the (2, 2) mesh through the kernels against the plain backend
+        cres, cn = MESH_CHECK
+        small = compile_scene(load_scene_file(demo, ["/res", f"{cres}x{cres}"]), device=dev)
+        kern = render_sharded(small, cres, cres, cn, key, mesh4)
+        plain = render_sharded(small, cres, cres, cn, key, mesh4,
+                               DEFAULT_OPTIONS.replace(integrator_backend="plain"))
+        same_c = torch.equal(kern, plain)
+        print(f"multi-device (c) demo-box {cres}x{cres} n = {cn} on the (2, 2) mesh, kernel path "
+              f"bit-equal to the plain backend: {same_c}")
+        single = mesh_jobs(rows[1:], [dev] * 4)
+        single_k3 = mesh_jobs(spp_job, [dev] * 2)
+        ranks, ranks_k3, dry = two.result(), two_k3.result(), dry.result()
+    both_s = time.perf_counter() - t0
+    same_b = all(np.array_equal(r["j0_image"], img_b.cpu().numpy()) for r in ranks)
+    same_d = all(np.array_equal(r["j0_image"], single_k3["j0_image"]) for r in ranks_k3)
+
+    def ranks_key(name):  # one process's job i is the two processes' job i + 1
+        i, rest = name[1:].split("_", 1)
+        return f"j{int(i) + 1}_{rest}"
+
+    same_e = all(np.array_equal(r[ranks_key(k)], v) for r in ranks for k, v in single.items())
+    print(f"multi-device (b) two gloo processes, a tiles row each: image bit-equal to one "
+          f"process's: {same_b}")
+    print(f"multi-device (d) mesh1 {kres}x{kres} {kn * kn} spp on a (1, 2) mesh (K3), one "
+          f"process and two bit-equal: {same_d}")
+    print(f"multi-device (e) demo-box {tres}x{tres} n = {tn}, one train step each of log and ab "
+          f"on the (2, 2) mesh: parameters, Adam's state and loss bit-equal between one process "
+          f"and two: {same_e}; losses {float(single['j0_loss'])}, {float(single['j1_loss'])}")
+    for line in dry.stdout.strip().splitlines():
+        print(f"multi-device (f) {line}")
+    print(f"multi-device: the two-process jobs (processes' start-up included), the dry run "
+          f"and (c)-(e) in this process, side by side: {both_s:.4f} s ({card})")
+    assert same_c and same_b and same_d and same_e
+    assert np.isfinite(single["j0_loss"]) and np.isfinite(single["j1_loss"])
+    assert dry.returncode == 0 and "phase-2 ok" in dry.stdout, dry.stdout[-2000:] + dry.stderr[-3000:]
+
+
+def tools_phase(phase, dev, card):
+    """Phase 18: term_dump on the card, render_image."""
+    from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.ops.tonemap import postprocess_image
+    from plutracer_tpu_torch.render.renderer import render, render_image
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+    from plutracer_tpu_torch.tools import term_dump
+
+    phase("18 tools")
+    demo = str(ROOT / "scenes" / "demo-box.urn")
+    res = TERMS_RES
+    with tempfile.TemporaryDirectory() as tmp:
+        out = term_dump.main([demo, str(pathlib.Path(tmp) / "demo"), "--res", str(res),
+                              "--smp", "2", "--device", dev.type])
+    scene = compile_scene(load_scene_file(demo, ["/res", f"{res}x{res}", "/smp", "2"]), device=dev)
+    ref = render(scene, res, res, 2, rng.PRNGKey(0)).cpu().numpy()
+    top = float(np.abs(ref).max())
+    lin_err = float(np.abs(out["linear"] - ref).max())
+    print(f"tools: term_dump demo-box {res}x{res} n = 2 on {dev}: max |sum(terms) - L| "
+          f"{out['self_check']:.3e} (bound 1e-5 x {top:.4f}); the linear image (float64 sum of "
+          f"the plain passes) against render's (float32 sum, K1 + K2) max diff {lin_err:.3e} "
+          f"(bound 1e-6 x {top:.4f})")
+    assert out["self_check"] <= 1e-5 * top and lin_err <= 1e-6 * top
+    img = render_image(scene, res, res, 2, seed=0)
+    same = torch.equal(img, postprocess_image(render(scene, res, res, 2, rng.PRNGKey(0))))
+    print(f"tools: render_image bit-equal to postprocess_image(render): {same}")
+    assert same
 
 
 def loss_and_grads_ms(sharded, fn):

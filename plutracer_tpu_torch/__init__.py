@@ -8,7 +8,10 @@ every step on any device; on a CUDA device the closest-hit queries and
 the whole bounce loop go through hand-written kernels (``ops/cuda``,
 sources in ``csrc/``). Gradients of pixel losses with respect to the
 scene's colours and emission flow through every path (``render``,
-``parallel``, ``diff``). This package imports neither jax nor anything
+``parallel``, ``diff``); ``parallel`` also splits renders and training
+over a (tiles, spp) mesh of devices and torch.distributed processes, and
+``utils`` and ``tools`` hold the diagnostics (RenderStats, the per-term
+radiance split). This package imports neither jax nor anything
 of the JAX package: it keeps its own copies of the front end (``urn``,
 ``io``, ``native``, ``semantics``).
 """

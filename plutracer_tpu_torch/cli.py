@@ -30,6 +30,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pathlib
 import sys
@@ -153,17 +154,17 @@ def run(args: List[str]) -> RenderResult:
         tier = kernel_tier(scene, DEFAULT_OPTIONS) if backend == "kernel" else None
         print(f"rendering on {device} with the {backend} integrator"
               f"{f' ({tier})' if tier else ''}... ")
-        profiler = _start_profile(profile_dir, device) if profile_dir else None
-        render_start = time.perf_counter()
-        linear = render_with_checkpoint(scene, width, height, desc.samples, seed=seed,
-                                        checkpoint_path=checkpoint)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        render_end = time.perf_counter()
-        if profiler is not None:
-            profiler.stop()
-            trace = os.path.join(profile_dir, "render.trace.json")
-            profiler.export_chrome_trace(trace)
+        from plutracer_tpu_torch.utils.profiling import profile_trace
+
+        trace = os.path.join(profile_dir, "render.trace.json") if profile_dir else None
+        with profile_trace(trace, device) if trace else contextlib.nullcontext():
+            render_start = time.perf_counter()
+            linear = render_with_checkpoint(scene, width, height, desc.samples, seed=seed,
+                                            checkpoint_path=checkpoint)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            render_end = time.perf_counter()
+        if trace:
             print(f"profile: {trace}")
 
     print("postprocessing... ")
@@ -196,19 +197,6 @@ def run(args: List[str]) -> RenderResult:
     write_bmp(out_path, img)
     print(f"wrote {out_path}")
     return RenderResult(linear, out_path, backend, render_end - render_start, tier)
-
-
-def _start_profile(profile_dir: str, device: torch.device):
-    """A started torch.profiler over the host and, on a card, CUDA."""
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(profile_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    prof.start()
-    return prof
 
 
 if __name__ == "__main__":

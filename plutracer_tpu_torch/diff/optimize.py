@@ -1,9 +1,10 @@
 """Inverse rendering: fit scene parameters to a target image.
 
-The port of plutracer_tpu/diff/optimize.py on one device: optimise
-material albedo, light emission and texture colours so a render matches a
-target, through parallel/sharded.make_train_step. Gradients flow through
-the whole path-tracing estimator; per-pass noise acts as minibatch noise.
+The port of plutracer_tpu/diff/optimize.py: optimise material albedo,
+light emission and texture colours so a render matches a target, through
+parallel/sharded.make_train_step over a (tiles, spp) mesh. Gradients flow
+through the whole path-tracing estimator; per-pass noise acts as minibatch
+noise.
 
 Checkpoints hold the parameters, the progress and the optimiser state
 flattened as the JAX package flattens it (``opt_{i}``, the leaves of the
@@ -24,9 +25,11 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.diff.optim import Adam, AdamState
+from plutracer_tpu_torch.parallel.mesh import make_mesh, visible_devices
 from plutracer_tpu_torch.parallel.sharded import get_params, make_train_step
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
 
@@ -39,6 +42,7 @@ class InverseRenderConfig:
     steps: int = 200
     learning_rate: float = 5e-3
     seed: int = 0
+    mesh_shape: Optional[tuple] = None  # default: all devices on `tiles`
     log_every: int = 20
     options: RenderOptions = DEFAULT_OPTIONS
     loss_space: str = "ab"
@@ -111,6 +115,19 @@ def load_train_checkpoint(path, optimizer, template, seed, device):
     return params, opt_state, int(z["next_i"]), z["losses"].tolist(), z["nf_fracs"].tolist()
 
 
+def mesh_devices(scene, shape: Optional[tuple]) -> Optional[list]:
+    """The devices of optimize_scene's mesh. A scene on the CPU: as many
+    CPU positions as the shape has (one by default). A scene on a card in
+    a job of one process: every visible card, the scene's first, so a
+    (1, 1) mesh stays on the scene's card. Under torch.distributed: None,
+    make_mesh's default of each rank's own card."""
+    if scene.device.type != "cuda":
+        return [scene.device] * (shape[0] * shape[1] if shape else 1)
+    if dist.is_available() and dist.is_initialized():
+        return None
+    return [scene.device] + [c for c in visible_devices("optimize_scene") if c != scene.device]
+
+
 def optimize_scene(
     scene,
     target_linear,
@@ -119,7 +136,9 @@ def optimize_scene(
     callback: Optional[Callable[[int, float, Dict], None]] = None,
     stats_out: Optional[Dict] = None,
 ):
-    """Run the inverse-rendering loop on the scene's device.
+    """Run the inverse-rendering loop over a mesh of config.mesh_shape
+    (default all positions on `tiles`) on mesh_devices(scene, shape). The
+    parameters and the optimiser live on the scene's device.
 
     target_linear: (H, W, 3) linear-radiance target (tensor or array).
     Returns (params, losses). The first chunk is one step, then chunks of
@@ -130,8 +149,9 @@ def optimize_scene(
     NaN/Inf; such steps are rejected, see make_train_step).
     """
     opt = config.optimizer or Adam(config.learning_rate)
+    mesh = make_mesh(config.mesh_shape, mesh_devices(scene, config.mesh_shape))
     step = make_train_step(
-        scene, config.width, config.height, config.n, optimizer=opt,
+        scene, config.width, config.height, config.n, mesh, optimizer=opt,
         options=config.options, loss_space=config.loss_space,
         trainable=config.trainable, grad_mask=config.grad_mask,
         project_nonnegative=config.project_nonnegative,

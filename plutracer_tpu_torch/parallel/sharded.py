@@ -1,18 +1,30 @@
-"""Inverse rendering on one device: the differentiable scene parameters and
-the training step.
+"""Sharded rendering and inverse rendering over a (tiles, spp) mesh.
 
-The port of the training half of plutracer_tpu/parallel/sharded.py
-(DIFFERENTIABLE_FIELDS, get_params, apply_params, make_train_step) on one
-device. Keys are derived as the JAX step derives them on a 1x1 mesh
-(fold_in(fold_in(key, tile 0), spp 0)), so the two steps draw the same
-random numbers. Multi-device rendering and training (render_sharded, the
-mesh) are not here.
+The port of plutracer_tpu/parallel/sharded.py over parallel/mesh.Mesh in
+place of shard_map. Position (ti, si) of the mesh owns tile ti's
+contiguous rows of the (zero-padded) pixel list and, in a render, spp
+block si's contiguous strata; its key is fold_in(fold_in(key, ti), si),
+so the port draws the random numbers the JAX package draws at every
+position. Forward: each position sums its strata; the spp partials are
+summed in si order. Backward: each position differentiates its local
+loss; losses and gradients are summed over tiles in ti order, then
+averaged over spp. Every process computes its own positions, all-gathers
+every position's partial (parallel/mesh.gather) and reduces them in mesh
+order, so a result does not depend on how the positions are split over
+processes; the optimiser then runs identically on every process.
+
+One difference from the JAX package: render_sharded traces exactly the
+n^2 strata. The JAX code pads the strata to a multiple of the spp axis
+with stratum 0 and, though its comment says padding contributes nothing,
+adds those samples in (its valid mask is stratum < spp, which a padding
+0 passes).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -20,11 +32,73 @@ import torch
 
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.diff.optim import Adam, apply_updates
+from plutracer_tpu_torch.parallel.mesh import Mesh, gather, make_mesh, scene_replicas, single
 from plutracer_tpu_torch.render.integrator import DIFF_LEAVES
-from plutracer_tpu_torch.render.renderer import _trace_stratum, over, pixel_centers
+from plutracer_tpu_torch.render.renderer import (
+    _trace_stratum,
+    over,
+    pixel_centers,
+    stratum_launches,
+)
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
 
 DIFFERENTIABLE_FIELDS = DIFF_LEAVES  # ("mat_color", "light_intensity", "tex_c0", "tex_c1")
+
+
+def _pad_rows(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """x with zero rows appended to a multiple of `mult` rows."""
+    pad = (-x.shape[0]) % mult
+    return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]) if pad else x
+
+
+def _sum(xs):
+    """The sum of a list of tensors, added in list order."""
+    return functools.reduce(torch.add, xs)
+
+
+def _layout(scene, mesh: Mesh, width: int, height: int):
+    """(rows, scenes, px_pad) of this process's positions: the rows of a
+    tile, the scene on each of their devices, and each device's pixel
+    centres padded with zeros to a multiple of the tiles axis."""
+    d_tiles = mesh.shape["tiles"]
+    devs = list(dict.fromkeys(dev for _, _, dev in mesh.local()))
+    scenes = dict(zip(devs, scene_replicas(scene, devs)))
+    px_pad = {d: _pad_rows(pixel_centers(width, height, d), d_tiles) for d in devs}
+    return -(-width * height // d_tiles), scenes, px_pad
+
+
+def render_sharded(scene, width: int, height: int, n: int, key, mesh: Optional[Mesh] = None,
+                   options: RenderOptions = DEFAULT_OPTIONS) -> torch.Tensor:
+    """The linear (H, W, 3) image of n^2 strata, split over `mesh`
+    (default make_mesh(): every visible card on `tiles`), on the scene's
+    device.
+
+    The pixels are padded with zeros to a multiple of the tiles axis;
+    position (ti, si) traces tile ti's rows for spp block si's strata
+    (ceil(n^2 / spp) strata a block, the last one short: no padding
+    stratum is traced), its j-th stratum keyed fold_in(shard key, j), on
+    the kernel path strata_per_launch strata a launch. Each position sums
+    its strata in order; the partials are summed over spp in si order, the
+    tiles joined, the padding dropped and the sum divided by n^2. No
+    position waits for another before the gather."""
+    mesh = make_mesh() if mesh is None else mesh
+    d_tiles, d_spp = mesh.shape["tiles"], mesh.shape["spp"]
+    spp = n * n
+    block = -(-spp // d_spp)
+    rows, scenes, px_pad = _layout(scene, mesh, width, height)
+    partials = {}
+    for ti, si, dev in mesh.local():
+        shard_key = rng.fold_in(rng.fold_in(key, ti), si)
+        strata = range(si * block, min((si + 1) * block, spp))
+        acc = torch.zeros((rows, 3), device=dev)
+        for launch in stratum_launches(scenes[dev], shard_key, list(enumerate(strata)),
+                                       px_pad[dev][ti * rows:(ti + 1) * rows], n, options):
+            for L in launch:
+                acc = acc + L
+        partials[(ti, si)] = acc
+    parts = gather(mesh, partials, (rows, 3), scene.device)
+    tiles = [_sum(parts[ti * d_spp:(ti + 1) * d_spp]) for ti in range(d_tiles)]
+    return over(torch.cat(tiles)[:width * height], spp).reshape(height, width, 3)
 
 
 def get_params(scene) -> Dict[str, torch.Tensor]:
@@ -78,6 +152,7 @@ def make_train_step(
     width: int,
     height: int,
     n: int,
+    mesh: Optional[Mesh] = None,
     optimizer=None,
     options: RenderOptions = DEFAULT_OPTIONS,
     loss_space: str = "ab",
@@ -87,25 +162,32 @@ def make_train_step(
     loss_downsample: int = 1,
     loss_clamp: float = 0.0,
 ):
-    """An inverse-rendering step on the scene's device.
+    """An inverse-rendering step over `mesh` (default: the 1x1 mesh of the
+    scene's device).
 
     step(params, opt_state, target_flat, key, stratum) -> (params,
-    opt_state, loss): render one stratified pass (two independent ones for
-    "ab") with `params`, compare with the (H*W, 3) linear target,
-    differentiate, and apply the optimiser (default Adam(1e-2)).
+    opt_state, loss): every position renders one stratified pass (two
+    independent ones for "ab") of its tile's rows with `params`, compares
+    it with those rows of the (H*W, 3) linear target (zero-padded like the
+    pixels), differentiates, and the reduced gradients go to the optimiser
+    (default Adam(1e-2)), once, on the scene's device of every process.
 
     loss_space: "ab", the dual-buffer product loss (X_a - t).(X_b - t),
     whose expectation is (E[X] - t)^2 per pixel; "linear", the MSE of one
-    pass; "log", the MSE of log1p radiances. loss_downsample = k > 1
-    average-pools rendered and target images over k x k blocks first;
-    loss_clamp > 0 clamps both at that radiance (firefly clamp). trainable:
-    fields that are updated (the others get zero gradients); grad_mask:
-    per-entry masks applied with where(mask > 0, g, 0), so a masked entry
-    is 0 even where its gradient is not finite. The fraction of gradient
-    entries that are not finite after the filter and the mask is counted,
-    they are zeroed, and a step with any is rejected whole: parameters and
-    optimiser state (Adam's count included) stay as they were.
-    project_nonnegative clamps updated parameters at 0.
+    pass; "log", the MSE of log1p radiances. A position's ab loss is
+    normalised by its (pooled) rows * 3 * tiles, the others by the padded
+    rows * 3, so the sum over tiles is the image's mean; the sums are then
+    averaged over spp. loss_downsample = k > 1 average-pools rendered and
+    target images over k x k blocks first (a 1-tile mesh only);
+    loss_clamp > 0 clamps both at that radiance (firefly clamp).
+    trainable: fields that are updated (the others get zero gradients);
+    grad_mask: per-entry masks applied with where(mask > 0, g, 0), so a
+    masked entry is 0 even where its gradient is not finite. The fraction
+    of gradient entries that are not finite after the filter and the mask
+    (over all positions) is counted, they are zeroed, and a step with any
+    is rejected whole: parameters and optimiser state (Adam's count
+    included) stay as they were. project_nonnegative clamps updated
+    parameters at 0.
 
     The integrator is pinned to the plain path (on a CUDA device every
     closest-hit query still runs K1): the kernel path's backward re-runs
@@ -115,21 +197,29 @@ def make_train_step(
     target_flat, key0, start, k) -> (params, opt_state, losses (k,),
     nonfinite fractions (k,)): steps start..start+k-1, step i keyed
     fold_in(key0, i) at stratum i % (n * n), bit-equal to k calls of step.
-    step.ab_loss(xa, xb, target_flat) is the ab loss of two passes.
+    step.ab_loss(xa, xb, target_rows) is a position's ab loss of two passes.
     step.loss_and_grads(params, target_flat, key, stratum) -> (loss, grads,
     nonfinite fraction) and step.apply(params, opt_state, grads, nf_frac)
     -> (params, opt_state) are the step's two halves.
     """
     optimizer = optimizer if optimizer is not None else Adam(1e-2)
     options = options.replace(integrator_backend="plain")
+    mesh = single(scene.device) if mesh is None else mesh
+    d_tiles, d_spp = mesh.shape["tiles"], mesh.shape["spp"]
     kk = loss_downsample
+    if kk > 1 and d_tiles > 1:
+        raise ValueError(f"loss_downsample {kk} pools the whole image and needs a 1-tile mesh, "
+                         f"not {d_tiles} tiles")
     if kk > 1 and (height % kk or width % kk):
         raise ValueError(f"loss_downsample {kk} must divide the image ({width}x{height})")
     if loss_space not in ("ab", "linear", "log"):
         raise ValueError(f"loss_space must be 'ab', 'linear' or 'log', got {loss_space!r}")
-    px0 = pixel_centers(width, height, scene.device)
+    home = scene.device
     fields = tuple(DIFFERENTIABLE_FIELDS)
-    n_entries = sum(getattr(scene, f).numel() for f in fields)
+    sizes = [getattr(scene, f).numel() for f in fields]
+    n_entries = sum(sizes)
+    rows, scenes, px_pad = _layout(scene, mesh, width, height)
+    masks = {d: {f: m.to(d) for f, m in (grad_mask or {}).items()} for d in scenes}
 
     def pool(x):
         # the block mean as a sum divided by the count (JAX's mean): torch's
@@ -141,39 +231,63 @@ def make_train_step(
         return torch.clamp(x, max=loss_clamp) if loss_clamp > 0 else x
 
     def ab_loss(xa, xb, target):
-        """The dual-buffer loss of two (H*W, 3) passes: clamp, pool, then
-        the mean of (xa - t)(xb - t) over the pooled entries."""
+        """The dual-buffer loss of a position's two passes: clamp, pool,
+        then the sum of (xa - t)(xb - t) over (pooled) rows * 3 * tiles."""
         xa, xb, tl = clampf(xa), clampf(xb), clampf(target)
         if kk > 1:
             xa, xb, tl = pool(xa), pool(xb), pool(tl)
         da, db = xa - tl, xb - tl
-        return over(torch.sum(da * db), da.shape[0] * 3)
+        return over(torch.sum(da * db), da.shape[0] * 3 * d_tiles)
 
-    def loss_and_grads(params, target, key, stratum):
-        k = rng.fold_in(rng.fold_in(key, 0), 0)  # tile 0, spp 0 of a 1x1 mesh
-        leaves = {f: params[f].detach().requires_grad_(f in trainable) for f in fields}
-        sc = apply_params(scene, leaves)
+    def position_loss(sc, px, tl, k, stratum):
+        if loss_space == "ab":
+            ka, kb = rng.split(k)
+            return ab_loss(_trace_stratum(sc, px, ka, stratum, n, options),
+                           _trace_stratum(sc, px, kb, stratum, n, options), tl)
+        c, tl = clampf(_trace_stratum(sc, px, k, stratum, n, options)), clampf(tl)
+        if loss_space == "log":
+            c, tl = torch.log1p(torch.clamp(c, min=0.0)), torch.log1p(torch.clamp(tl, min=0.0))
+        dc = c - tl
+        return over(torch.sum(dc * dc), rows * d_tiles * 3)
+
+    def position_grads(params, target_pad, key, stratum, ti, si, dev):
+        """A position's loss, its filtered, masked and sanitised gradients,
+        and their non-finite count."""
+        k = rng.fold_in(rng.fold_in(key, ti), si)
+        leaves = {f: params[f].detach().to(dev).requires_grad_(f in trainable) for f in fields}
+        sc = apply_params(scenes[dev], leaves)
+        tile = slice(ti * rows, (ti + 1) * rows)
         with torch.enable_grad(), _deterministic():
-            if loss_space == "ab":
-                ka, kb = rng.split(k)
-                loss = ab_loss(_trace_stratum(sc, px0, ka, stratum, n, options),
-                               _trace_stratum(sc, px0, kb, stratum, n, options), target)
-            else:
-                c, tl = clampf(_trace_stratum(sc, px0, k, stratum, n, options)), clampf(target)
-                if loss_space == "log":
-                    c, tl = torch.log1p(torch.clamp(c, min=0.0)), torch.log1p(torch.clamp(tl, min=0.0))
-                dc = c - tl
-                loss = over(torch.sum(dc * dc), px0.shape[0] * 3)
+            loss = position_loss(sc, px_pad[dev][tile], target_pad[tile].to(dev), k, stratum)
             wrt = [leaves[f] for f in fields if f in trainable]
             got = iter(torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
                        if wrt else ())
         grads = {f: next(got) if f in trainable else torch.zeros_like(leaves[f]) for f in fields}
-        if grad_mask is not None:
-            grads = {f: torch.where(grad_mask[f] > 0, g, 0.0) if f in grad_mask else g
-                     for f, g in grads.items()}
+        grads = {f: torch.where(masks[dev][f] > 0, g, 0.0) if f in masks[dev] else g
+                 for f, g in grads.items()}
         nf_count = sum((~torch.isfinite(g)).sum().to(torch.float32) for g in grads.values())
         grads = {f: torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0) for f, g in grads.items()}
-        return loss.detach(), grads, over(nf_count, n_entries)
+        return loss.detach(), grads, nf_count
+
+    def loss_and_grads(params, target, key, stratum):
+        target_pad = _pad_rows(target, d_tiles)
+        partials = {(ti, si): position_grads(params, target_pad, key, stratum, ti, si, dev)
+                    for ti, si, dev in mesh.local()}
+        # one float32 vector a position: loss, non-finite count, gradients
+        flat = {p: torch.cat([loss.reshape(1), nf.reshape(1), *(g[f].reshape(-1) for f in fields)])
+                for p, (loss, g, nf) in partials.items()}
+        parts = gather(mesh, flat, (2 + n_entries,), home)
+
+        def reduce(xs):
+            # summed over tiles in ti order, then averaged over spp
+            return over(_sum([_sum(xs[si::d_spp]) for si in range(d_spp)]), d_spp)
+
+        cols = torch.stack(parts).split([1, 1, *sizes], dim=1)
+        loss = reduce(list(cols[0][:, 0]))
+        grads = {f: reduce(list(c)).reshape(getattr(scene, f).shape)
+                 for f, c in zip(fields, cols[2:])}
+        nf_count = _sum(list(cols[1][:, 0]))
+        return loss, grads, over(nf_count, n_entries * d_tiles * d_spp)
 
     def apply(params, opt_state, grads, nf_frac):
         updates, new_state = optimizer.update(grads, opt_state)

@@ -27,37 +27,14 @@ import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from plutracer_tpu_torch import rng
+from plutracer_tpu_torch.parallel.mesh import scene_replicas, visible_devices
 from plutracer_tpu_torch.render.progressive import load_state, save_state
-from plutracer_tpu_torch.render.renderer import stratum_launches
+from plutracer_tpu_torch.render.renderer import pixel_centers, stratum_launches
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
 
 __all__ = ["render_elastic", "pass_stack"]
-
-
-def _visible_devices() -> List[torch.device]:
-    """Every visible CUDA device; raises without one (the CPU is used only
-    when the caller lists it)."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("render_elastic: no CUDA device is available; pass "
-                           "devices=[torch.device('cpu')] to render on the CPU")
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-
-
-def _replicas(scene, devices: Sequence) -> list:
-    """The scene on each listed device, one copy a distinct device (the
-    scene itself where it already lives there)."""
-    copies, out = {}, []
-    for d in devices:
-        d = torch.device(d)
-        if d.type == "cuda" and d.index is None:
-            d = torch.device("cuda", torch.cuda.current_device())
-        if d not in copies:
-            copies[d] = scene if scene.device == d else scene.to(d)
-        out.append(copies[d])
-    return out
 
 
 def pass_stack(
@@ -71,14 +48,16 @@ def pass_stack(
     on_pass: Optional[Callable[[int], None]] = None,
 ) -> np.ndarray:
     """The given strata rendered as a stacked (len(strata), H*W, 3) float32
-    array. ``scenes`` holds the scene once a device (``_replicas``); the
-    strata go to them in contiguous blocks. The devices launch in turns, so
-    their work overlaps; each pass's radiance is copied back as its launch
-    ends, and ``on_pass(stratum)`` fires for it."""
+    array. ``scenes`` holds the scene once a device
+    (``parallel.mesh.scene_replicas``); the strata go to them in contiguous
+    blocks. The devices launch in turns, so their work overlaps; each
+    pass's radiance is copied back as its launch ends, and
+    ``on_pass(stratum)`` fires for it."""
     strata = [int(s) for s in strata]
     size = -(-len(strata) // len(scenes))
     blocks = [strata[i * size:(i + 1) * size] for i in range(len(scenes))]
-    work = [(stratum_launches(sc, key, blk, width, height, n, options), blk)
+    work = [(stratum_launches(sc, key, [(s, s) for s in blk],
+                              pixel_centers(width, height, sc.device), n, options), blk)
             for sc, blk in zip(scenes, blocks) if blk]
     out: List[List[np.ndarray]] = [[] for _ in work]
     live = list(range(len(work)))
@@ -138,8 +117,8 @@ def render_elastic(
 
     Returns the linear (H, W, 3) image as a numpy array.
     """
-    devs = _visible_devices() if devices is None else [torch.device(d) for d in devices]
-    scenes = _replicas(scene, devs)
+    devs = visible_devices("render_elastic") if devices is None else devices
+    scenes = scene_replicas(scene, devs)
     spp = n * n
     checkpoint_every = max(1, checkpoint_every)
     key = rng.PRNGKey(seed)

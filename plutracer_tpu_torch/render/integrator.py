@@ -31,6 +31,11 @@ megakernel's per-bounce debug output (integrator_kernel.py:1229-1240):
 (max_bounces, DBG_C, B) float32, channels in the order of
 ops/cuda.DBG_CHANNELS (part of the kernels' C ABI); K2 and K3
 write the same channels (K5, ``ray_color_kernel(..., debug=True)``).
+``ray_color(..., terms=True)`` (the plain path only; the kernel path
+refuses it) also returns the radiance split by bounce and contribution
+site, (max_bounces, 3, B, 3): emitted at the vertex, the NEE light
+strategy, the NEE BSDF strategy (the JAX integrator's terms=True,
+integrator.py:246-258; tools/term_dump.py).
 """
 
 from __future__ import annotations
@@ -214,27 +219,32 @@ def draw_uniforms(key, B: int, max_bounces: int, device) -> torch.Tensor:
     )
 
 
-def radiance(scene, o, d, key, options: RenderOptions = DEFAULT_OPTIONS):
+def radiance(scene, o, d, key, options: RenderOptions = DEFAULT_OPTIONS, terms: bool = False):
     """Radiance for a batch of primary rays o, d (B,3) with the per-bounce
     uniforms drawn from `key`: radiance_of_uniforms."""
     u = draw_uniforms(key, o.shape[0], options.max_bounces, o.device)
-    return radiance_of_uniforms(scene, o, d, u, options)
+    return radiance_of_uniforms(scene, o, d, u, options, terms)
 
 
-def radiance_of_uniforms(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS):
+def radiance_of_uniforms(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS,
+                         terms: bool = False):
     """Radiance for primary rays o, d (B,3) and their uniforms u
     (max_bounces, B, 12). Dispatches to the kernels or the plain
     integrator (resolve_integrator_backend); on the kernel path with
     gradients wanted (grad enabled and o, d or a DIFF_LEAVES field
-    requiring grad), through KernelRadiance."""
+    requiring grad), through KernelRadiance. terms=True (the plain path
+    only) also returns ray_color's per-bounce split."""
     if resolve_integrator_backend(scene, options, o.device) == "kernel":
+        if terms:
+            raise ValueError("the terms split is the plain path's only; pass "
+                             "integrator_backend='plain'")
         leaves = [getattr(scene, f) for f in DIFF_LEAVES]
         if torch.is_grad_enabled() and any(x.requires_grad for x in (o, d, *leaves)):
             return KernelRadiance.apply(scene, options, o, d, u, *leaves)
         from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_kernel
 
         return ray_color_kernel(scene, o, d, u, options)
-    return ray_color(scene, o, d, u, options)
+    return ray_color(scene, o, d, u, options, terms=terms)
 
 
 class KernelRadiance(torch.autograd.Function):
@@ -271,10 +281,14 @@ class KernelRadiance(torch.autograd.Function):
         return (None, None, grads[0], grads[1], None, *grads[2:])
 
 
-def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS, debug: bool = False):
+def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS, debug: bool = False,
+              terms: bool = False):
     """Plain integrator. o, d: (B,3); u: (max_bounces, B, 12) uniforms.
-    Returns (B,3) radiance, and with debug=True also the per-bounce
-    telemetry (max_bounces, DBG_C, B). Every closest-hit query goes
+    Returns (B,3) radiance, then with debug=True the per-bounce telemetry
+    (max_bounces, DBG_C, B), then with terms=True the per-bounce split
+    (max_bounces, 3, B, 3) by contribution site: emitted at the vertex,
+    NEE light strategy, NEE BSDF strategy (their sum is the radiance up to
+    the order of the float32 additions). Every closest-hit query goes
     through intersect.query_lite (K1 on a CUDA device). Under
     options.remat_bounces each bounce is rematerialised in the backward
     (torch.utils.checkpoint)."""
@@ -291,20 +305,20 @@ def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS, debug: b
         prim=prim, t=t,
     )
     remat = getattr(options, "remat_bounces", False) and torch.is_grad_enabled()
-    dbg = []
+    extras = []
     for i in range(options.max_bounces):
         if remat:
-            out = checkpoint(plain_bounce, scene, tables, state, u[i], i, options, debug,
+            out = checkpoint(plain_bounce, scene, tables, state, u[i], i, options, debug, terms,
                              use_reentrant=False)
         else:
-            out = plain_bounce(scene, tables, state, u[i], i, options, debug)
-        if debug:
-            state, ch = out
-            dbg.append(ch)
+            out = plain_bounce(scene, tables, state, u[i], i, options, debug, terms)
+        if debug or terms:
+            state, *more = out
+            extras.append(more)
         else:
             state = out
-    if debug:
-        return state.L, torch.stack(dbg)
+    if debug or terms:
+        return (state.L, *(torch.stack(x) for x in zip(*extras)))
     return state.L
 
 
@@ -317,11 +331,12 @@ def _recompute_t(tables, o, d, found, prim, t):
 
 
 def plain_bounce(scene, tables, state: PathState, ui, i: int,
-                 options: RenderOptions = DEFAULT_OPTIONS, debug: bool = False):
+                 options: RenderOptions = DEFAULT_OPTIONS, debug: bool = False,
+                 terms: bool = False):
     """One shading vertex of every ray (the plain twin of the one-bounce
     kernel K4): state at vertex i and its uniforms ui (B, 12) in, the
     state at vertex i + 1 out; with debug=True also the vertex's
-    telemetry (DBG_C, B)."""
+    telemetry (DBG_C, B), with terms=True its radiance by site (3, B, 3)."""
     o, d, T, L, prev_spec, alive, prim, t = state
     B = o.shape[0]
     num_lights = scene.light_type.shape[0]
@@ -342,7 +357,8 @@ def plain_bounce(scene, tables, state: PathState, ui, i: int,
     emit_gate = prev_spec if i > 0 else torch.ones_like(prev_spec)
     own_light = gather_light(tables, torch.clamp(rows.light, min=0))
     Le = lights.emitted_rows(rows, own_light, hit.norm, wwo)
-    L = L + torch.where((cur & emit_gate)[..., None], T * Le, 0.0)
+    t_emit = torch.where((cur & emit_gate)[..., None], T * Le, 0.0)
+    L = L + t_emit
 
     # next-event estimation: pick one light uniformly
     li = torch.clamp(
@@ -383,8 +399,10 @@ def plain_bounce(scene, tables, state: PathState, ui, i: int,
         hit, frame, mtype, albedo, wwo, options, ls, bs_nee, lrows, carrier,
         sf, s_hits, nf, n_hits, nee_norm,
     )
-    L = L + torch.where(cur[..., None], T * cl * num_lights, 0.0)
-    L = L + torch.where(cur[..., None], T * cb * num_lights, 0.0)
+    t_nee_l = torch.where(cur[..., None], T * cl * num_lights, 0.0)
+    t_nee_b = torch.where(cur[..., None], T * cb * num_lights, 0.0)
+    L = L + t_nee_l
+    L = L + t_nee_b
 
     # throughput update + path termination; the per-bounce weight and
     # the running product are clamped (1e12 / 1e16) so degenerate
@@ -409,4 +427,7 @@ def plain_bounce(scene, tables, state: PathState, ui, i: int,
     if o.is_cuda:
         xt = _recompute_t(tables, hit.p, bs.wwi, xf, xp, xt)
     nxt = PathState(hit.p, bs.wwi, T, L, bs.is_specular, alive_next, xp, xt)
-    return (nxt, ch.detach()) if debug else nxt
+    if not (debug or terms):
+        return nxt
+    return (nxt, *([ch.detach()] if debug else []),
+            *([torch.stack([t_emit, t_nee_l, t_nee_b])] if terms else []))

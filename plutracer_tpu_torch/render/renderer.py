@@ -106,18 +106,18 @@ def strata_per_launch(scene, options: RenderOptions, rays: int) -> int:
     return max(1, min(MAX_STRATA, -(-LAUNCH_RAYS // rays)))
 
 
-def stratum_launches(scene, key, strata, width: int, height: int, n: int,
-                     options: RenderOptions = DEFAULT_OPTIONS):
-    """Each stratum's (H*W, 3) radiance, in order, keyed by fold_in(key, s):
+def stratum_launches(scene, key, pairs, px0, n: int, options: RenderOptions = DEFAULT_OPTIONS):
+    """The (rows of px0, 3) radiance of each (key index, stratum) pair, in
+    order: pair (j, s) is one sample per pixel of px0 from stratum cell s,
+    keyed fold_in(key, j) (a render's pass s is the pair (s, s));
     strata_per_launch strata a launch, yielded launch by launch as lists."""
-    px0 = pixel_centers(width, height, scene.device)
     B = px0.shape[0]
-    strata = list(strata)
+    pairs = list(pairs)
     per = strata_per_launch(scene, options, B)
-    for i in range(0, len(strata), per):
-        group = strata[i:i + per]
-        o, d, u = zip(*(_stratum_rays(scene, px0, rng.fold_in(key, s), s, n, options)
-                        for s in group))
+    for i in range(0, len(pairs), per):
+        group = pairs[i:i + per]
+        o, d, u = zip(*(_stratum_rays(scene, px0, rng.fold_in(key, j), s, n, options)
+                        for j, s in group))
         L = radiance_of_uniforms(scene, torch.cat(o), torch.cat(d), torch.cat(u, 1), options)
         yield [L[j * B:(j + 1) * B] for j in range(len(group))]
 
@@ -135,8 +135,9 @@ def render_passes(
     ((H*W, 3), a fresh zero sum when None), each pass keyed by
     fold_in(key, s); strata_per_launch strata a launch."""
     acc = zeros_accum(width, height, scene.device) if accum is None else accum
-    for launch in stratum_launches(scene, key, range(start, start + k_passes), width, height, n,
-                                   options):
+    strata = range(start, start + k_passes)
+    for launch in stratum_launches(scene, key, [(s, s) for s in strata],
+                                   pixel_centers(width, height, scene.device), n, options):
         for L in launch:
             acc = acc + L
     return acc
@@ -164,3 +165,12 @@ def render(
         accum = render_passes(scene, key, s, width, height, n, k, options, accum=accum)
         s += k
     return _finalize(accum, spp, width, height)
+
+
+def render_image(scene, width: int, height: int, n: int, seed: int = 0,
+                 options: RenderOptions = DEFAULT_OPTIONS) -> torch.Tensor:
+    """Render + tonemap: a displayable (H, W, 3) image in [0, 1] on the
+    scene's device."""
+    from plutracer_tpu_torch.ops.tonemap import postprocess_image
+
+    return postprocess_image(render(scene, width, height, n, rng.PRNGKey(seed), options))

@@ -45,7 +45,9 @@ from plutracer_tpu_torch.cli import resolve_device
 from plutracer_tpu_torch.diff.optim import Adam, MultiTransform, exponential_decay
 from plutracer_tpu_torch.diff.optimize import InverseRenderConfig, optimize_scene
 from plutracer_tpu_torch.parallel.sharded import apply_params, get_params, params_from_numpy
-from plutracer_tpu_torch.render.renderer import _finalize, render, stratum_launches, zeros_accum
+from plutracer_tpu_torch.render.renderer import (
+    _finalize, pixel_centers, render, stratum_launches, zeros_accum,
+)
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.scene.types import MAT_DIFFUSE
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
@@ -84,7 +86,8 @@ def clamped_target(scene, width, height, n, clamp, key):
     sees, so the pooled ab optimum stays at the true parameters; clamping
     a high-spp render instead moves it."""
     acc = zeros_accum(width, height, scene.device)
-    for launch in stratum_launches(scene, key, range(n * n), width, height, n):
+    for launch in stratum_launches(scene, key, [(s, s) for s in range(n * n)],
+                                   pixel_centers(width, height, scene.device), n):
         for L in launch:
             acc = acc + torch.clamp(L, max=clamp)
     return _finalize(acc, n * n, width, height)
@@ -232,6 +235,8 @@ def main(argv=None):
             grad_mask=mask, loss_space=args.phase2_loss,
             loss_downsample=args.phase2_downsample if args.phase2_loss == "ab" else 1,
             loss_clamp=args.phase2_clamp, options=ropts, checkpoint_path=ck2,
+            # pooling needs the whole image on one tile
+            mesh_shape=(1, 1),
         )
         stats2 = {}
         t0 = time.perf_counter()

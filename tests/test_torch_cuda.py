@@ -34,6 +34,12 @@ through the kernel path's autograd Function against plain autograd: rtol
 1e-5 (the forward radiance, which the loss's cotangent reads, is the
 kernel's); the train step: finite, and step.many bit-equal to single
 steps.
+
+The multi-device path: a (2, 2) mesh of cuda:0 positions renders
+bit-equal through the kernels and the plain backend, and a mesh train
+step is bit-equal whether one process holds the mesh or two gloo
+processes share it. The terms=True split of the plain path sums to the
+radiance within 1e-6 of its largest entry.
 """
 
 import pathlib
@@ -481,3 +487,49 @@ def test_supervised_crash_on_card(dev, tmp_path):
     assert r.restarts == 1 and any("exit code 13" in d for e, d in r.events if e == "failure")
     s = compile_scene(load_scene_file(scene, ["/res", "64x48"]), device=dev)
     assert np.array_equal(r.image, render(s, 64, 48, 3, rng.PRNGKey(7)).cpu().numpy())
+
+
+def test_mesh_render_kernel_equals_plain_on_card(dev):
+    """A (2, 2) mesh of cuda:0 positions: the kernel path (K1 + K2, two
+    strata a launch) bit-equal to the plain backend."""
+    from plutracer_tpu_torch.parallel import make_mesh, render_sharded
+
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x48"]),
+                      device=dev)
+    mesh = make_mesh((2, 2), [dev] * 4)
+    before = ray_color_cuda.launches
+    img = render_sharded(s, 64, 48, 2, rng.PRNGKey(3), mesh)
+    assert ray_color_cuda.launches > before
+    plain = render_sharded(s, 64, 48, 2, rng.PRNGKey(3), mesh,
+                           DEFAULT_OPTIONS.replace(integrator_backend="plain"))
+    assert torch.isfinite(img).all() and torch.equal(img, plain)
+
+
+def test_mesh_train_step_one_process_equals_two_on_card(dev):
+    """One (2, 2) mesh train step on the card, the mesh held by this process
+    and split over two gloo processes sharing the card: loss, parameters
+    and Adam's state bit-equal."""
+    from plutracer_tpu_torch.parallel.dryrun import mesh_jobs, run_processes
+
+    spec = dict(kind="train", scene=str(REPO / "scenes" / "demo-box.urn"), res=[32, 24], n=2,
+                seed=5, shape=[2, 2], loss_space="log")
+    ranks = run_processes([spec], [["cuda:0", "cuda:0"]] * 2, timeout=600)
+    single = mesh_jobs([spec], [torch.device("cuda", 0)] * 4)
+    for name, want in single.items():
+        for r, got in enumerate(ranks):
+            assert np.array_equal(got[name], want), (r, name)
+    assert np.isfinite(single["j0_loss"])
+
+
+def test_terms_on_card(dev):
+    """ray_color(terms=True) on a card scene's plain path: the radiance
+    bit-equal to terms=False (and to K2), the terms summing to it within
+    1e-6 of its largest entry."""
+    s, o, d = scene_and_rays("demo-box", 64, dev)
+    u = draw_uniforms(rng.PRNGKey(4), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
+    L, ys = ray_color(s, o, d, u, DEFAULT_OPTIONS, terms=True)
+    assert torch.equal(L, ray_color(s, o, d, u, DEFAULT_OPTIONS))
+    assert torch.equal(L, ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS))
+    assert ys.shape == (DEFAULT_OPTIONS.max_bounces, 3, o.shape[0], 3)
+    err = (ys.double().sum((0, 1)) - L.double()).abs().max()
+    assert err <= 1e-6 * L.double().abs().max()

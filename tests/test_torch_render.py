@@ -97,7 +97,8 @@ NO_JAX = (
 
 def test_package_never_imports_jax(tmp_path):
     """A fresh interpreter: import the port, render a tiny image through the
-    CLI, take one train step and run the flagship tool on the CPU, and find
+    CLI, take one train step, run the flagship tool, a sharded render and
+    a (2, 2) mesh train step and term_dump on the CPU, and find
     no jax or optax module and no module of the JAX package
     (plutracer_tpu, plutracer_tpu.*) loaded; then the same in a supervisor
     worker subprocess run as the supervisor runs it."""
@@ -120,12 +121,25 @@ def test_package_never_imports_jax(tmp_path):
         " '--target-n', '1', '--n', '1', '--phase2-n', '1', '--phase2-downsample', '2',"
         f" '--device', 'cpu', '--save-images', '--out', {str(tmp_path / 'inv.json')!r}])\n"
         "assert len(r['losses']) == 2\n"
+        "import torch\n"
+        "from plutracer_tpu_torch.parallel import make_mesh, make_train_step, render_sharded\n"
+        "from plutracer_tpu_torch.parallel import dryrun, sharded\n"
+        "from plutracer_tpu_torch.utils import profiling\n"
+        "mesh = make_mesh((2, 2), [torch.device('cpu')] * 4)\n"
+        "img = render_sharded(s, 8, 6, 1, rng.PRNGKey(0), mesh)\n"
+        "st = make_train_step(s, 8, 6, 1, mesh, loss_space='linear')\n"
+        "params = sharded.get_params(s)\n"
+        "st(params, st.init(params), img.reshape(-1, 3), rng.PRNGKey(1), 0)\n"
+        "from plutracer_tpu_torch.tools import term_diff, term_dump\n"
+        f"term_dump.main([{str(REPO / 'scenes' / 'demo-box.urn')!r}, {str(tmp_path / 'td')!r},"
+        " '--res', '8', '--smp', '1', '--device', 'cpu'])\n"
     ) + NO_JAX
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(REPO), timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "NO_JAX" in proc.stdout
     assert (tmp_path / "x.bmp").exists() and (tmp_path / "inv.json").exists()
+    assert (tmp_path / "td.terms.f32").exists()
     assert (tmp_path / "inverse_target.bmp").exists() and (tmp_path / "inverse_recovered.bmp").exists()
     # a supervisor worker, run as the supervisor launches it (python -m)
     worker = [
