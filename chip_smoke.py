@@ -19,8 +19,9 @@ both main paths of the port on the card:
      and 64 samples per pixel, through K1 and K2, bit-identical to the
      same render one stratum a launch;
 6.   the demo-box, dof and textured0 goldens on the card;
-7.   the K3 query (BVH closest hit) against K1 and K1 against its plain
-     version: mesh1 camera and extension rays at 256x256, and a cloud of
+7.   the K3 query (BVH closest hit) and K1 each against K1's plain
+     version, and the query against K1: mesh1 camera and extension rays
+     at 256x256, and a cloud of
      4,096 random spheres with 262,144 random rays; the mean node records
      and leaves a walk of the walk layout visits (its plain version) on
      mesh1 and mesh2;
@@ -84,7 +85,23 @@ both main paths of the port on the card:
      (its own process, beside (c)-(e) and the two-process jobs);
 18.  tools: term_dump on demo-box 64x64, n = 2, on the card (its terms
      summed against its radiance, its linear image against render's at
-     the same key), render_image against postprocess_image(render).
+     the same key), render_image against postprocess_image(render);
+19.  routing: (a) the plain ray_color under intersect_backend "pallas"
+     (K1), "bvh" (the K3 query) and "xla" (intersect_lite in ray chunks)
+     on a mesh1 256x256 and a demo-box 512x512 stratum with the same
+     uniforms: every query's winners equal, radiance bit-equal, each query
+     site and the whole timed; (b) a mesh1 128x128 train step (log loss,
+     n = 2) under "pallas" and "bvh": loss, gradients, parameters and
+     Adam's leaves bit-equal, forward / backward / step ms, K1 and K3-query
+     launches; (c) the scenes past the JAX package's TPU caps: textured256
+     (a 65,536-texel atlas) and tables (20 materials, 10 textures, 12
+     lights) through the CLI at their own settings (the kernel it routes
+     to, samples/s), each kernel bit-equal to the plain ray_color on a
+     stratum beside the plain stratum's time, K5 on textured256; demo-box
+     with its tables filled to K2's 227 KB of shared memory (K2, opted in
+     past 48 KB) and one material past it (K3); a cloud of 1,100,000
+     spheres with an area light: compile seconds and one K3 launch
+     bit-equal to plain.
 
 Every phase asserts and prints its seconds; any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
@@ -184,6 +201,16 @@ MESH_TRAIN = (256, 2)  # demo-box, (e)
 TERMS_RES = 64  # phase 18: term_dump and render_image, demo-box, n = 2
 # (f): dryrun_multichip(4) in its own process, on the card's positions
 DRYRUN = [sys.executable, "-m", "plutracer_tpu_torch.parallel.dryrun", "4"]
+# phase 19: (a) one stratum of each scene at its resolution through the
+# plain ray_color under each intersect_backend; (b) the mesh1 train step's
+# size (log loss, n = 2); (c) the scenes past the JAX package's TPU caps
+# (CLI renders at their own settings) and the sphere cloud past 2^20
+ROUTE_QUERY = (("mesh1", 256), ("demo-box", 512))
+INTERSECT_BACKENDS = ("pallas", "bvh", "xla")
+ROUTE_TRAIN = 128
+BEYOND_CAPS = ("textured256", "tables")
+FILLED_RES = 256  # demo-box with its tables filled to and past K2's shared memory
+CLOUD_P, CLOUD_RES = 1_100_000, 64
 
 
 def work_bound(nbytes: float, ops: float):
@@ -549,6 +576,7 @@ def main() -> int:
     recovery_phase(phase, dev, card)
     multi_device_phase(phase, dev, card)
     tools_phase(phase, dev, card)
+    routing_phase(phase, dev, card)
     phase()
     print(f"K1 launches by shape: demo-box primary (the 512x512 64-spp render) {launches['K1']}, "
           + ", ".join(f"{k} {v}" for k, v in train_k1.items())
@@ -624,10 +652,13 @@ def k1_times(scene, o, d, what, card, reps=20):
 
 
 def bit_equal_query(scene, o, d, what):
-    """The K3 query against K1 on every ray (found and prim equal, t
-    bit-equal on every hit; on a miss the query reports BIG where K1 may
-    report a padding row about 1e30 away), and K1 against
-    closest_hit_plain in chunks of PLAIN_CHUNK rays."""
+    """The K3 query and K1 each against K1's plain version
+    (closest_hit_plain, in chunks of PLAIN_CHUNK rays), the oracle of both
+    (they serve the same queries as alternatives: intersect_backend "bvh"
+    and "pallas"): found and prim equal on every ray, t bit-equal on
+    every hit for the query (on a miss it reports BIG where K1 and its
+    plain version may report a padding row about 1e30 away) and on every
+    ray for K1; and the query against K1 the same way."""
     from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
         closest_hit, closest_hit_bvh, closest_hit_plain,
     )
@@ -635,18 +666,24 @@ def bit_equal_query(scene, o, d, what):
     q = closest_hit_bvh(scene, o, d)
     k1 = closest_hit(scene.prims_packed, o, d, scene.packed_type_rows)
     torch.cuda.synchronize()
-    hits = k1[0]
-    for name, a, b in (("found", q[0], k1[0]), ("prim", q[1], k1[1]),
-                       ("t on hits", q[2][hits], k1[2][hits])):
-        assert torch.equal(a, b), f"K3 query vs K1 ({what}): {name} differs on " \
-                                  f"{(a != b).sum().item()} rays"
+
+    def winners_equal(got, want, who, sl=slice(None)):
+        hits = want[0]
+        for name, a, b in (("found", got[0], hits), ("prim", got[1], want[1]),
+                           ("t on hits", got[2][hits], want[2][hits])):
+            assert torch.equal(a, b), f"{who} ({what}, rays {sl}): {name} differs on " \
+                                      f"{(a != b).sum().item()} rays"
+
     for i in range(0, o.shape[0], PLAIN_CHUNK):
         sl = slice(i, i + PLAIN_CHUNK)
-        for name, a, b in zip(("found", "prim", "t"), (x[sl] for x in k1),
-                              closest_hit_plain(scene.prims_packed, o[sl], d[sl])):
+        plain = closest_hit_plain(scene.prims_packed, o[sl], d[sl])
+        winners_equal([x[sl] for x in q], plain, "K3 query vs K1 plain", sl)
+        for name, a, b in zip(("found", "prim", "t"), (x[sl] for x in k1), plain):
             assert torch.equal(a, b), f"K1 vs plain ({what}): {name} differs"
-    print(f"K3 query {what}: winners equal to K1, t bit-equal on hits, K1 equal to plain; "
-          f"hit fraction {hits.double().mean().item():.4f}")
+    winners_equal(q, k1, "K3 query vs K1")
+    hits = k1[0]
+    print(f"K3 query {what}: winners equal to K1's plain version and to K1, t bit-equal on "
+          f"hits; K1 equal to plain; hit fraction {hits.double().mean().item():.4f}")
     return (q[2][hits] - k1[2][hits]).abs().max().item() if hits.any() else 0.0
 
 
@@ -1619,6 +1656,256 @@ def tools_phase(phase, dev, card):
     same = torch.equal(img, postprocess_image(render(scene, res, res, 2, rng.PRNGKey(0))))
     print(f"tools: render_image bit-equal to postprocess_image(render): {same}")
     assert same
+
+
+def traced_ray_color(scene, o, d, u, options):
+    """The plain ray_color with CUDA events around every closest-hit query
+    (intersect.query_lite: the primary hit, then one batched query a
+    bounce) and around the whole. Returns (radiance, [(found, prim, t)] by
+    query, [ms] by query, whole ms)."""
+    from plutracer_tpu_torch.ops import intersect
+    from plutracer_tpu_torch.render.integrator import ray_color
+
+    calls, query = [], intersect.query_lite
+    event = lambda: torch.cuda.Event(enable_timing=True)
+
+    def timed(*args):
+        a, b = event(), event()
+        a.record()
+        out = query(*args)
+        b.record()
+        calls.append((out, a, b))
+        return out
+
+    start, end = event(), event()
+    intersect.query_lite = timed
+    try:
+        start.record()
+        L = ray_color(scene, o, d, u, options)
+        end.record()
+    finally:
+        intersect.query_lite = query
+    torch.cuda.synchronize()
+    return (L, [out for out, _, _ in calls], [a.elapsed_time(b) for _, a, b in calls],
+            start.elapsed_time(end))
+
+
+def cloud_with_area_light(n):
+    """sphere_cloud(n) (its point light) with one area light added: an
+    emitting sphere of radius 2 above the cloud."""
+    from plutracer_tpu_torch.scene.loader import sphere_cloud
+    from plutracer_tpu_torch.scene.types import (
+        LIGHT_AREA, MAT_EMISSION, PRIM_SPHERE, LightDesc, MaterialDesc, PrimDesc,
+    )
+
+    desc = sphere_cloud(n, seed=0)
+    f32 = lambda *v: np.array(v, np.float32)
+    pid = desc.add_prim(PrimDesc(PRIM_SPHERE, a=f32(0.0, 15.0, 0.0), b=f32(2.0, 0.0, 0.0),
+                                 material=desc.add_material(MaterialDesc(MAT_EMISSION))))
+    desc.prims[pid].light = desc.add_light(LightDesc(LIGHT_AREA, intensity=np.full(3, 50.0, np.float32),
+                                                     prim=pid))
+    return desc
+
+
+def filled_demo_box(dev, res, extra):
+    """demo-box with unused materials appended until K2's shared-memory
+    copy of its tables holds K2_SMEM_MAX bytes (extra = 0: K2, the launch
+    opting in past 48 KB) or one material row more (extra = 1: K3)."""
+    import dataclasses
+
+    from plutracer_tpu_torch.render.integrator import K2_SMEM_MAX, k2_smem_bytes
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+
+    s = compile_scene(load_scene_file(str(ROOT / "scenes" / "demo-box.urn"), ["/res", f"{res}x{res}"]),
+                      device=dev)
+    n = (K2_SMEM_MAX - k2_smem_bytes(s)) // 48 + extra  # a material row is 48 bytes
+    grow = lambda x: torch.cat([x, x[:1].expand(n, *x.shape[1:])])
+    return dataclasses.replace(s, **{f: grow(getattr(s, f)) for f in
+                                     ("mat_type", "mat_color", "mat_tex", "mat_eta", "mat_k")})
+
+
+def tree_leaves(x):
+    """The tensors of a nest of dicts, lists, tuples and NamedTuples, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in tree_leaves(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in tree_leaves(v)]
+    return []
+
+
+def routing_phase(phase, dev, card):
+    """Phase 19: the routing layer. (a) the plain ray_color under each
+    intersect_backend on a mesh1 and a demo-box stratum: every query's
+    winners equal across the backends, radiance bit-equal, each query site
+    and the whole timed; (b) a mesh1 128x128 train step (log loss, n = 2)
+    under "pallas" and "bvh": loss, gradients, parameters and Adam's leaves
+    bit-equal, times and launches; (c) the scenes past the JAX package's
+    TPU caps: the CLI's route and samples/s, the kernel bit-equal to the
+    plain ray_color on a stratum and the plain stratum's time, K5 on the
+    atlas scene; K2 past 48 KB of shared memory (the opt-in) and a scene
+    past K2's budget (K3); the sphere cloud past 2^20 primitives: compile
+    seconds and one K3 launch bit-equal to plain."""
+    from plutracer_tpu_torch import cli, rng
+    from plutracer_tpu_torch.diff.optim import Adam
+    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_bvh_cuda, closest_hit_cuda
+    from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
+    from plutracer_tpu_torch.parallel import sharded
+    from plutracer_tpu_torch.render.integrator import (
+        k2_smem_bytes, kernel_tier, ray_color, resolve_integrator_backend,
+    )
+    from plutracer_tpu_torch.render.renderer import render
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+    from plutracer_tpu_torch.scene.compile import compile_numpy, scene_from_numpy
+    from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS as OPTS
+
+    phase("19 routing")
+    by = lambda b: OPTS.replace(intersect_backend=b)
+    load = lambda name, w, h=None: compile_scene(load_scene_file(
+        str(ROOT / "scenes" / f"{name}.urn"), ["/res", f"{w}x{h or w}"]), device=dev)
+
+    # (a) the plain path's queries under each backend, one stratum
+    for name, res in ROUTE_QUERY:
+        scene = load(name, res)
+        o, d, u = main_path_rays(scene, res, res, 2, rng.PRNGKey(7), 1, OPTS)
+        runs = {}
+        for b in INTERSECT_BACKENDS:
+            if b != "xla":  # warm: the kernels are built; "xla" runs once (seconds)
+                ray_color(scene, o, d, u, by(b))
+            runs[b] = traced_ray_color(scene, o, d, u, by(b))
+        L0, q0, _, _ = runs["pallas"]
+        for b, (L, q, ms, whole) in runs.items():
+            assert len(q) == len(q0) == OPTS.max_bounces + 1, (b, len(q))
+            for i, (x, y) in enumerate(zip(q, q0)):
+                for what, a, c in (("found", x[0], y[0]), ("prim", x[1], y[1]),
+                                   ("t on hits", x[2][y[0]], y[2][y[0]])):
+                    assert torch.equal(a, c), f"{name} {b} query {i}: {what} differs on " \
+                                              f"{(a != c).sum().item()} rays"
+            same = torch.equal(L, L0)
+            print(f"routing (a) {name} {res}x{res} stratum (B={o.shape[0]}, P={scene.num_prims}) "
+                  f"intersect_backend={b}: every query's winners (found, prim) and t on hits "
+                  f"equal to pallas's; radiance bit-equal {same} (largest difference "
+                  f"{(L - L0).abs().max().item():.3e}); ray_color {whole:.4f} ms, queries "
+                  f"{sum(ms):.4f} ms: primary {ms[0]:.4f}, by bounce (3 x B rays) "
+                  f"{[round(x, 4) for x in ms[1:]]} ({card})")
+            assert same, f"{name} {b}: radiance differs"
+        del runs
+
+    # (b) a mesh1 train step under "pallas" and "bvh"
+    W = ROUTE_TRAIN
+    mesh1 = load("mesh1", W)
+    target = render(mesh1, W, W, 2, rng.PRNGKey(11))  # K3
+    tflat = target.reshape(-1, 3)
+    true = sharded.get_params(mesh1)
+    init = dict(true)
+    init["mat_color"] = true["mat_color"] * 0.5
+    key = rng.fold_in(rng.PRNGKey(0), 0)
+    got, steps = {}, {}
+    for b in ("pallas", "bvh"):
+        step = steps[b] = sharded.make_train_step(mesh1, W, W, 2, optimizer=Adam(3e-2),
+                                                  options=by(b), loss_space="log")
+        state = step.init(init)
+        closest_hit_cuda.launches = closest_hit_bvh_cuda.launches = 0
+        loss, grads, nf = step.loss_and_grads(init, tflat, key, 0)
+        params, new_state = step.apply(init, state, grads, nf)
+        torch.cuda.synchronize()
+        launches = {"K1": closest_hit_cuda.launches, "K3 query": closest_hit_bvh_cuda.launches}
+        print(f"routing (b) mesh1 {W}x{W} log train step, n = 2, intersect_backend={b}: loss "
+              f"{float(loss):.9g}, non-finite {float(nf)}; launches in one loss_and_grads "
+              f"{launches}")
+        assert launches["K1" if b == "pallas" else "K3 query"] > 0
+        assert launches["K3 query" if b == "pallas" else "K1"] == 0, launches
+        got[b] = (loss, grads, params, new_state)
+    # the two steps timed in turns (pallas, bvh, bvh, pallas), CUDA events
+    parts = {b: {"step": [], "loss_and_grads": [], "forward": []} for b in steps}
+    state = steps["pallas"].init(init)
+    for _ in range(2):
+        for b in ("pallas", "bvh", "bvh", "pallas"):
+            step = steps[b]
+            parts[b]["step"].append(time_ms(lambda: step(init, state, tflat, key, 0), 1, 0))
+            lg, fwd = loss_and_grads_ms(sharded, lambda: step.loss_and_grads(init, tflat, key, 0))
+            parts[b]["loss_and_grads"].append(lg)
+            parts[b]["forward"].append(fwd)
+    for b, part in parts.items():
+        med = {k: statistics.median(v) for k, v in part.items()}
+        print(f"routing (b) intersect_backend={b} (medians of 4 in turns): step {med['step']:.4f} "
+              f"ms, loss_and_grads {med['loss_and_grads']:.4f} ms = forward {med['forward']:.4f} "
+              f"+ backward {med['loss_and_grads'] - med['forward']:.4f}; readings step "
+              f"{[round(x, 2) for x in part['step']]}, forward "
+              f"{[round(x, 2) for x in part['forward']]} ({card})")
+    for what, x, y in zip(("loss", "gradients", "parameters", "Adam's state"), *got.values()):
+        xs, ys = tree_leaves(x), tree_leaves(y)
+        assert len(xs) == len(ys) and xs, what
+        assert all(torch.equal(a, c) for a, c in zip(xs, ys)), f"train step: {what} differ"
+    print(f"routing (b): loss, every gradient ({len(tree_leaves(got['bvh'][1]))} fields), the "
+          f"parameters and Adam's {len(tree_leaves(got['bvh'][3]))} leaves bit-equal between "
+          "pallas and bvh")
+    del mesh1, target, got
+
+    # (c) scenes past the TPU caps: the CLI's route, kernel against plain
+    def kernel_vs_plain(scene, o, d, u, what):
+        tier = kernel_tier(scene, OPTS)
+        counter = ray_color_cuda if tier == "k2" else ray_color_stream_cuda
+        before = counter.launches
+        out = ray_color_kernel(scene, o, d, u, OPTS)
+        assert counter.launches == before + 1, what
+        lanes_equal(out, ray_color(scene, o, d, u, OPTS), f"routing (c) {what} {tier} vs plain "
+                                                          f"ray_color, one stratum")
+        k_ms = time_ms(lambda: ray_color_kernel(scene, o, d, u, OPTS), reps=5)
+        p_ms = time_ms(lambda: ray_color(scene, o, d, u, OPTS), reps=1, warmup=0)
+        print(f"routing (c) {what}: one stratum (B={o.shape[0]}) {tier} {k_ms:.4f} ms, plain "
+              f"ray_color {p_ms:.4f} ms ({p_ms / k_ms:.1f}x) ({card})")
+        return tier
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in BEYOND_CAPS:
+            counts = (ray_color_cuda, ray_color_stream_cuda, closest_hit_cuda)
+            for c in counts:
+                c.launches = 0
+            res = cli.run([str(ROOT / "scenes" / f"{name}.urn"), "/o", str(pathlib.Path(tmp) / "o.bmp"),
+                           "/seed", "7"])
+            launches = dict(zip(("K2", "K3", "K1"), (c.launches for c in counts)))
+            h, w = res.linear.shape[:2]
+            n = load_scene_file(str(ROOT / "scenes" / f"{name}.urn")).samples
+            scene = load(name, w, h)
+            assert res.integrator == "kernel" and res.tier == kernel_tier(scene, OPTS), res.tier
+            assert torch.isfinite(res.linear).all()
+            print(f"routing (c) {name} {w}x{h} {n * n} spp through the CLI: the kernel integrator "
+                  f"({res.tier}), M={scene.mat_type.shape[0]}, T={scene.tex_type.shape[0]}, "
+                  f"L={scene.num_lights}, atlas {scene.atlas.shape[0]} texels, K2 shared memory "
+                  f"{k2_smem_bytes(scene)} bytes; launches {launches}; render "
+                  f"{res.render_seconds:.3f} s, samples/s {w * h * n * n / res.render_seconds:.1f} "
+                  f"({card})")
+            o, d, u = main_path_rays(scene, w, h, n, rng.PRNGKey(7), 1, OPTS)
+            kernel_vs_plain(scene, o, d, u, name)
+            if name == "textured256":  # K5 on the 65,536-texel atlas
+                L5, dbg = ray_color_kernel(scene, o, d, u, OPTS, debug=True)
+                ref_L, ref = ray_color(scene, o, d, u, OPTS, debug=True)
+                lanes_equal(L5, ref_L, "routing (c) K5 textured256 radiance vs ray_color(debug=True)")
+                channel_report(dbg, ref, "textured256 (K2)")
+    for extra, what in ((0, "K2 with 227 KB of tables (the opt-in past 48 KB)"),
+                        (1, "one material past K2's shared memory (K3)")):
+        scene = filled_demo_box(dev, FILLED_RES, extra)
+        assert kernel_tier(scene, OPTS) == ("k2", "k3")[extra], what
+        o, d, u = main_path_rays(scene, FILLED_RES, FILLED_RES, 2, rng.PRNGKey(7), 1, OPTS)
+        kernel_vs_plain(scene, o, d, u, f"demo-box + {scene.mat_type.shape[0] - 8} materials, {what}")
+    # the sphere cloud past 2^20 primitives, with one area light
+    t0 = time.perf_counter()
+    desc = cloud_with_area_light(CLOUD_P)
+    t1 = time.perf_counter()
+    leaves = compile_numpy(desc)
+    t2 = time.perf_counter()
+    cloud = scene_from_numpy(leaves).to(dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    assert cloud.num_prims == CLOUD_P + 1 and resolve_integrator_backend(cloud, OPTS, dev) == "kernel"
+    print(f"routing (c) sphere cloud P={cloud.num_prims} (point + area light): description "
+          f"{t1 - t0:.2f} s, compile (host) {t2 - t1:.2f} s, to the card {t3 - t2:.2f} s; walk "
+          f"depth {leaves['walk_depth']}, {cloud.walk_nodes.shape[0]} records ({card})")
+    o, d, u = main_path_rays(cloud, CLOUD_RES, CLOUD_RES, 1, rng.PRNGKey(7), 1, OPTS)
+    assert kernel_vs_plain(cloud, o, d, u, f"sphere cloud {CLOUD_RES}x{CLOUD_RES}") == "k3"
 
 
 def loss_and_grads_ms(sharded, fn):

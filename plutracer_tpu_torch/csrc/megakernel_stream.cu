@@ -1,5 +1,6 @@
 // K3: the stream kernel. Every bounce of every ray in one launch, for
-// scenes of 64 < P <= 2^20 primitives; and the K3 query (the BVH closest
+// scenes off K2's tier (more than 64 primitives, or tables past K2's shared
+// memory: render/integrator.kernel_tier); and the K3 query (the BVH closest
 // hit) as a launch of its own.
 //
 // Replaces the JAX package's stream megakernel

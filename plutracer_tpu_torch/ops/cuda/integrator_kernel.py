@@ -34,7 +34,7 @@ from plutracer_tpu_torch.ops.tables import pack_tables
 
 
 def _check_inputs(scene, o, d, u, options, tables):
-    from plutracer_tpu_torch.render.integrator import MAX_P, megakernel_eligible
+    from plutracer_tpu_torch.render.integrator import kernel_tier, megakernel_eligible
 
     if any(x.requires_grad for x in (o, d, u, *tables)):
         raise NotImplementedError(
@@ -43,9 +43,10 @@ def _check_inputs(scene, o, d, u, options, tables):
         )
     if not o.is_cuda:
         raise ValueError(f"ray_color_cuda: rays must be on a CUDA device, got {o.device}")
-    if not megakernel_eligible(scene, options) or scene.prim_type.shape[0] > MAX_P:
-        raise ValueError("ray_color_cuda: the scene exceeds the megakernel's "
-                         "static limits (see megakernel_eligible; P > 64 takes K3)")
+    if not megakernel_eligible(scene, options) or kernel_tier(scene, options) != "k2":
+        raise ValueError("ray_color_cuda: the scene is not on the megakernel's tier "
+                         "(see megakernel_eligible and kernel_tier: P > 64 or tables past "
+                         "K2's shared memory take K3)")
     B = o.shape[0]
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
         raise ValueError(f"ray_color_cuda: o, d must be (B, 3), got {tuple(o.shape)}, {tuple(d.shape)}")
@@ -80,10 +81,12 @@ def ray_color_kernel(scene, o, d, u, options, debug: bool = False):
 
 
 def ray_color_cuda(scene, o, d, u, options, debug: bool = False):
-    """K1 primary hit, then K2 on the current stream (no synchronisation);
+    """The primary hit (query_lite by options.intersect_backend: K1 unless
+    it names another engine), then K2 on the current stream (no
+    synchronisation);
     with debug=True K2's K5 instantiation, returning (radiance, telemetry).
-    Raises on anything the kernel does not take: CPU tensors, a scene
-    beyond the caps, inputs that require grad."""
+    Raises on anything the kernel does not take: CPU tensors, a scene off
+    its tier, inputs that require grad."""
     from plutracer_tpu_torch.ops.cuda import build
 
     tables = pack_tables(scene)
@@ -94,9 +97,9 @@ def ray_color_cuda(scene, o, d, u, options, debug: bool = False):
     dbg = torch.empty((mb, DBG_C, B), dtype=torch.float32, device=o.device) if debug else None
     if B == 0:
         return (out, dbg) if debug else out
-    # K2 reads t0 only through found = t0 < T_MAX, so a miss's t needs no
-    # rewriting
-    _, prim0, t0 = intersect.query_lite(scene, o, d)
+    # the primary hit by options.intersect_backend; K2 reads t0 only
+    # through found = t0 < T_MAX, so a miss's t needs no rewriting
+    _, prim0, t0 = intersect.query_lite(scene, o, d, options)
     u_soa = u.permute(0, 2, 1).reshape(mb * 12, B).contiguous()
     o_c, d_c = o.contiguous(), d.contiguous()
     atlas = scene.atlas.contiguous()

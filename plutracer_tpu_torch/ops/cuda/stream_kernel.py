@@ -1,5 +1,6 @@
 """K3 (the stream kernel) and K4 (the one-bounce kernel): the kernel path
-for scenes of 64 < P <= 2^20 primitives.
+for scenes off K2's tier (integrator.kernel_tier: more than 64 primitives,
+or tables past K2's shared memory).
 
 ``ray_color_stream_cuda`` launches K3 (csrc/megakernel_stream.cu): every
 bounce of every ray in one launch, the primary hit found in the kernel,
@@ -30,7 +31,7 @@ from plutracer_tpu_torch.ops.cuda.intersect_kernel import walk_pointers
 
 
 def _check(name, scene, tables, tensors, options):
-    from plutracer_tpu_torch.render.integrator import MAX_P, megakernel_eligible
+    from plutracer_tpu_torch.render.integrator import kernel_tier, megakernel_eligible
 
     if any(x.requires_grad for x in (*tensors.values(), *tables)):
         raise NotImplementedError(
@@ -40,9 +41,9 @@ def _check(name, scene, tables, tensors, options):
     dev = next(iter(tensors.values())).device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors must be on a CUDA device, got {dev}")
-    if not megakernel_eligible(scene, options) or scene.prim_type.shape[0] <= MAX_P:
+    if not megakernel_eligible(scene, options) or kernel_tier(scene, options) == "k2":
         raise ValueError(f"{name}: the scene is not on the stream tier "
-                         "(64 < P within megakernel_eligible's caps)")
+                         "(see megakernel_eligible and kernel_tier)")
     for what, x in (*tensors.items(), ("atlas", scene.atlas), *zip(tables._fields, tables)):
         if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous float32 on {dev}, "
@@ -163,7 +164,8 @@ onebounce_cuda.launches = 0
 def onebounce_plain(scene, tables, wave, i: int, perm, options):
     """K4's plain version: the same contract in torch around
     integrator.plain_bounce (which runs on every lane; only the lanes K4
-    runs are written). Its primary hit is intersect.query_lite's."""
+    runs are written). Its primary hit is intersect.query_lite's, by
+    options.intersect_backend."""
     from plutracer_tpu_torch.ops import intersect
     from plutracer_tpu_torch.render.integrator import PathState, plain_bounce
     from plutracer_tpu_torch.render.wavefront import (
@@ -175,7 +177,7 @@ def onebounce_plain(scene, tables, wave, i: int, perm, options):
     lane = torch.arange(B, device=dev)
     if i == 0:
         o, d = wave.o, wave.d
-        found, prim, t = intersect.query_lite(scene, o, d)
+        found, prim, t = intersect.query_lite(scene, o, d, options)
         carry = carry_of(PathState(
             o=o, d=d, T=torch.ones_like(o), L=torch.zeros_like(o),
             prev_spec=torch.zeros(B, dtype=torch.bool, device=dev),

@@ -14,9 +14,23 @@ only avoid self-intersection because of the exact accept rules:
 
 ``intersect_lite`` is the plain brute-force closest hit over the whole
 primitive table ((B, P) t matrix, first minimum wins). ``query_lite`` is
-the integrator's entry point: on a CUDA tensor it runs the closest-hit
-kernel K1 (ops/cuda/intersect_kernel.py), on a CPU tensor
-``intersect_lite``.
+the integrator's entry point: it answers by the engine that
+options.intersect_backend names (``_resolve_backend``, the JAX package's
+names and meanings, plutracer_tpu/ops/intersect.py:195-256):
+
+- "pallas": K1, the brute force over the packed table
+  (ops/cuda/intersect_kernel.closest_hit; closest_hit_plain on CPU
+  tensors);
+- "bvh": the K3 query, a walk of the scene's BVH (closest_hit_bvh;
+  walk_closest_plain on CPU tensors);
+- "xla": ``intersect_lite`` over the scene rows, in ray chunks of at most
+  XLA_BUDGET (ray, primitive) pairs;
+- "auto": "pallas" on CUDA tensors, "xla" on CPU tensors (as the JAX
+  package picks the Pallas kernel on an accelerator and XLA on the CPU).
+
+All four return the same winner (found, prim). The kernels' t carries no
+gradient; the integrator recomputes it at the winner on every backend but
+"xla" (render/integrator._recompute_t, the JAX package's query_closest).
 """
 
 from __future__ import annotations
@@ -36,9 +50,14 @@ from plutracer_tpu_torch.ops.safemath import (
     safe_sqrt,
 )
 from plutracer_tpu_torch.scene.types import PRIM_BOX, PRIM_SPHERE
+from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
 
 T_MAX = 100000.0  # hit_record initial t (inc/cmmn.h:228)
 _BIG = 3.0e37  # sentinel for "no hit" inside reductions
+BACKENDS = ("auto", "xla", "pallas", "bvh")  # options.intersect_backend
+# "xla": (ray, primitive) pairs of one intersect_lite call, which builds
+# (rays, P, 3) temporaries: mesh1's 65,536 rays at once would be 5.4 GB
+XLA_BUDGET = 1 << 23
 
 
 # ---------------------------------------------------------------------------
@@ -159,15 +178,38 @@ def intersect_lite(scene, o, d, t_max: float = T_MAX):
     return t < t_max, prim.to(torch.int32), t
 
 
-def query_lite(scene, o, d):
-    """Closest-hit (found, prim, t): the K1 kernel on a CUDA tensor (over
-    the type-partitioned table scene.prims_packed), the plain
-    intersect_lite on a CPU tensor."""
-    if o.is_cuda:
+def _resolve_backend(options, device) -> str:
+    """options.intersect_backend with "auto" resolved for tensors on
+    `device`: "pallas" (K1) on a CUDA device, "xla" elsewhere. Raises
+    ValueError on a name that is not in BACKENDS."""
+    backend = getattr(options, "intersect_backend", "auto")
+    if backend not in BACKENDS:
+        raise ValueError(f"intersect_backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "xla"
+    return backend
+
+
+def query_lite(scene, o, d, options=DEFAULT_OPTIONS):
+    """Closest-hit (found, prim, t) by the engine options.intersect_backend
+    names (module docstring). The kernels' inputs are detached (their t is
+    not differentiable, as the JAX package stops their gradients); "xla"
+    keeps intersect_lite's differentiable t."""
+    backend = _resolve_backend(options, o.device)
+    if backend == "pallas":
         from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit
 
-        return closest_hit(scene.prims_packed, o, d, scene.packed_type_rows)
-    return intersect_lite(scene, o, d)
+        return closest_hit(scene.prims_packed, o.detach(), d.detach(), scene.packed_type_rows)
+    if backend == "bvh":
+        from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_bvh
+
+        return closest_hit_bvh(scene, o.detach(), d.detach())
+    chunk = max(1, XLA_BUDGET // scene.prim_type.shape[0])
+    if o.shape[0] <= chunk:
+        return intersect_lite(scene, o, d)
+    parts = [intersect_lite(scene, o[i:i + chunk], d[i:i + chunk])
+             for i in range(0, o.shape[0], chunk)]
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
 # ---------------------------------------------------------------------------

@@ -60,21 +60,19 @@ from plutracer_tpu_torch.ops.tables import (
     pack_tables,
 )
 from plutracer_tpu_torch.ops.texture import eval_color_rows
+from plutracer_tpu_torch.scene.compile import MAX_TABLE_ROWS
 
-# static caps of the kernel tiers, the JAX package's megakernel_eligible
-# (plutracer_tpu/ops/pallas/integrator_kernel.py:57-108), kept so the port
-# routes every scene as the reference does: P <= MAX_P takes the
-# megakernel K2, MAX_P < P <= MAX_P_HBM the stream kernel K3 (K4 under
-# options.stream_wavefront), where the packed type segments below
-# HBM_MIN_ROWS rows must sum to at most MAX_P_STREAM (_vmem_rows_ok)
+# the kernel tiers. P <= MAX_P takes the megakernel K2 (the JAX package's
+# tier boundary, integrator_kernel.py:57) while K2's shared-memory copy of
+# the tables (k2_smem_bytes) fits K2_SMEM_MAX, the dynamic shared memory a
+# block of an H100 may opt in to (csrc/megakernel.cu's launch); every other
+# eligible scene takes the stream kernel K3 (K4 under
+# options.stream_wavefront), which reads its tables from device memory
 MAX_P = 64
-MAX_P_STREAM = 40960
-HBM_MIN_ROWS = 24576
-MAX_P_HBM = 1 << 20
-MAX_M = 16
-MAX_T = 8
-MAX_L = 8
-MAX_ATLAS = 4096
+K2_SMEM_MAX = 232448
+# table widths in floats (csrc/path_common.cuh:42: PACK_W, PRIM_W, MAT_W,
+# TEX_W, LIGHT_W), for k2_smem_bytes
+_K2_ROW_W = (24, 32, 12, 12, 8)
 
 # the scene leaves gradients flow to (parallel/sharded.DIFFERENTIABLE_FIELDS)
 DIFF_LEAVES = ("mat_color", "light_intensity", "tex_c0", "tex_c1")
@@ -158,51 +156,68 @@ def _nee_contributions(
     return contrib_l, contrib_b, l_pdf2
 
 
-def _vmem_rows_ok(type_rows) -> bool:
-    """The JAX stream tier's budget (integrator_kernel.py:82-86): packed
-    type segments below HBM_MIN_ROWS rows sum to at most MAX_P_STREAM."""
-    return sum(r for r in type_rows if r < HBM_MIN_ROWS) <= MAX_P_STREAM
-
-
 def megakernel_eligible(scene, options) -> bool:
-    """Static qualification for the kernel path (shapes only): K2 up to
-    MAX_P primitives, the stream kernels (which walk scene.bvh) beyond."""
-    A = scene.atlas.shape[0]
-    P = scene.prim_type.shape[0]
+    """Whether the kernels (K2, K3, K4, K5) take the scene: shapes and
+    options only. Each gate is something a kernel of the port needs:
+
+    - options.dtype float32: every kernel reads float32 tables and rays
+      (csrc/path_common.cuh:616 Tables; the wrappers refuse other dtypes);
+    - the packed table (scene.prims_packed): K2's queries and the walk's
+      winners read it (csrc/megakernel.cu:105, bvh_closest.cuh:150);
+    - at least one light: path_vertex picks light min(floor(u nl), nl - 1)
+      and reads its row (csrc/path_common.cuh:685-686), which is row -1 of
+      an empty table;
+    - at most MAX_TABLE_ROWS primitives and atlas texels: the kernels read
+      row ids and atlas offsets stored as float32 (path_common.cuh:73
+      row_id, :401 the texel, :144 the winner's packed col 10), exact to
+      2^24, and index in int32. compile_scene raises beyond it, and on a
+      walk deeper than the walk's stack (bvh_closest.cuh:109, WALK_STACK;
+      scene/compile.walk_tables).
+
+    The JAX package's TPU caps (M <= 16, T <= 8, L <= 8, a 4,096-texel
+    atlas, the VMEM row budget, P <= 2^20) hold nothing back on the card:
+    K3 and K4 read every table and the atlas from device memory, and K2's
+    shared-memory copy is sized by the shapes (kernel_tier)."""
     return (
-        scene.prims_packed is not None
-        and (P <= MAX_P_STREAM or _vmem_rows_ok(scene.packed_type_rows))
-        and P <= MAX_P_HBM
-        and scene.mat_type.shape[0] <= MAX_M
-        and scene.tex_type.shape[0] <= MAX_T
-        and 1 <= scene.light_type.shape[0] <= MAX_L
-        and A <= MAX_ATLAS
-        and getattr(options, "dtype", "float32") == "float32"
+        getattr(options, "dtype", "float32") == "float32"
+        and scene.prims_packed is not None
+        and scene.light_type.shape[0] >= 1
+        and scene.prim_type.shape[0] <= MAX_TABLE_ROWS
+        and scene.atlas.shape[0] <= MAX_TABLE_ROWS
     )
 
 
+def k2_smem_bytes(scene) -> int:
+    """Bytes of K2's shared-memory copy of the tables: packed table, prim,
+    mat, tex and light rows (csrc/megakernel.cu, plu_megakernel's smem)."""
+    rows = (scene.prims_packed.shape[0], scene.prim_type.shape[0], scene.mat_type.shape[0],
+            scene.tex_type.shape[0], scene.light_type.shape[0])
+    return 4 * sum(n * w for n, w in zip(rows, _K2_ROW_W))
+
+
 def kernel_tier(scene, options) -> str:
-    """Which kernel the kernel path runs: "k2" (the megakernel, P <=
-    MAX_P), "k3" (the stream kernel) or "k4" (the one-bounce kernel under
-    a host loop, options.stream_wavefront), as ray_color_pallas
-    dispatches (integrator_kernel.py:2257-2268)."""
-    if scene.prim_type.shape[0] <= MAX_P:
+    """Which kernel the kernel path runs: "k2" (the megakernel: P <= MAX_P
+    and its tables within K2_SMEM_MAX bytes of shared memory), else "k3"
+    (the stream kernel) or "k4" (the one-bounce kernel under a host loop,
+    options.stream_wavefront), as ray_color_pallas dispatches
+    (integrator_kernel.py:2257-2268)."""
+    if scene.prim_type.shape[0] <= MAX_P and k2_smem_bytes(scene) <= K2_SMEM_MAX:
         return "k2"
     return "k4" if getattr(options, "stream_wavefront", False) else "k3"
 
 
 def resolve_integrator_backend(scene, options, device) -> str:
     """'kernel' (K2, K3 or K4: kernel_tier) or 'plain'. auto = the kernel
-    path on a CUDA device for scenes within megakernel_eligible's caps,
-    the plain integrator otherwise."""
+    path on a CUDA device for scenes megakernel_eligible takes, the plain
+    integrator otherwise."""
     backend = getattr(options, "integrator_backend", "auto")
     eligible = megakernel_eligible(scene, options)
     if backend == "auto":
         return "kernel" if torch.device(device).type == "cuda" and eligible else "plain"
     if backend == "kernel" and not eligible:
         raise ValueError(
-            "integrator_backend='kernel' forced but the scene exceeds the "
-            "megakernel's static limits (see megakernel_eligible)"
+            "integrator_backend='kernel' forced but the kernels do not take the "
+            "scene (see megakernel_eligible)"
         )
     if backend not in ("kernel", "plain"):
         raise ValueError(
@@ -289,14 +304,16 @@ def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS, debug: b
     (max_bounces, 3, B, 3) by contribution site: emitted at the vertex,
     NEE light strategy, NEE BSDF strategy (their sum is the radiance up to
     the order of the float32 additions). Every closest-hit query goes
-    through intersect.query_lite (K1 on a CUDA device). Under
+    through intersect.query_lite, by options.intersect_backend (auto: K1
+    on a CUDA device, intersect_lite on the CPU); on every backend but
+    "xla" the winner's t is recomputed differentiably (_recompute_t). Under
     options.remat_bounces each bounce is rematerialised in the backward
     (torch.utils.checkpoint)."""
     B = o.shape[0]
     tables = pack_tables(scene)
     # primary hit (reference traces it before the bounce loop, renderer.cpp:61)
-    found, prim, t = intersect.query_lite(scene, o, d)
-    if o.is_cuda:
+    found, prim, t = intersect.query_lite(scene, o, d, options)
+    if intersect._resolve_backend(options, o.device) != "xla":
         t = _recompute_t(tables, o, d, found, prim, t)
     state = PathState(
         o=o, d=d, T=torch.ones_like(o), L=torch.zeros_like(o),
@@ -323,9 +340,12 @@ def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS, debug: b
 
 
 def _recompute_t(tables, o, d, found, prim, t):
-    """The kernel's t is not differentiable: recompute it at the winner
+    """The kernels' t is not differentiable: recompute it at the winner
     with the plain per-primitive test, accepted only where it agrees the
-    ray hits (a _BIG sentinel on a found lane would put p at ~4e37)."""
+    ray hits (a _BIG sentinel on a found lane would put p at ~4e37). A
+    missed lane keeps the query's t (_BIG from the walk, possibly a
+    padding row near 1e30 from K1), which nothing reads: found is
+    t < T_MAX."""
     td = intersect.prim_t_rows(o, d, gather_prim(tables, prim))
     return torch.where(found & (td < intersect.T_MAX), td, t)
 
@@ -381,7 +401,7 @@ def plain_bounce(scene, tables, state: PathState, ui, i: int,
     # ONE batched closest-hit query: [shadow | nee-bsdf | extension]
     O3 = torch.cat([hit.p, hit.p, hit.p], 0)
     D3 = torch.cat([ls.wi, bs_nee.wwi, bs.wwi], 0)
-    f3, p3, t3 = intersect.query_lite(scene, O3, D3)
+    f3, p3, t3 = intersect.query_lite(scene, O3, D3, options)
     plight3 = gather_prim_light(tables, p3[: 2 * B])
     sf, nf, xf = f3[:B], f3[B : 2 * B], f3[2 * B :]
     xp, xt = p3[2 * B :], t3[2 * B :]
@@ -424,7 +444,7 @@ def plain_bounce(scene, tables, state: PathState, ui, i: int,
             bs.pdf, dot(bs.f, bs.f), ls.pdf, l_pdf2,
             Ld[:, 0] + Ld[:, 1] + Ld[:, 2], f32(cur), xt, f32(xp), f32(bs.is_specular),
         ])
-    if o.is_cuda:
+    if intersect._resolve_backend(options, o.device) != "xla":
         xt = _recompute_t(tables, hit.p, bs.wwi, xf, xp, xt)
     nxt = PathState(hit.p, bs.wwi, T, L, bs.is_specular, alive_next, xp, xt)
     if not (debug or terms):

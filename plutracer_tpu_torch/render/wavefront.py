@@ -16,8 +16,8 @@ previous launch wrote; everything else happens in the launch
 
       0:3 o | 3:6 d | 6:9 T | 9:12 L | 12 prev_spec | 13 alive | 14 prim | 15 t
 
-  (prim is a scene row, exact in float32 below 2^24; the stream tier
-  holds at most 2^20 rows). Under a sort launch i reads its lane at
+  (prim is a scene row, exact in float32: compile_scene holds a scene to
+  scene/compile.MAX_TABLE_ROWS = 2^24 rows). Under a sort launch i reads its lane at
   perm[lane] of the previous carry, with the lane's ray index
   (orig_next[lane] = orig[perm[lane]]), and its uniforms at that ray, so
   each ray keeps its own draws; under ``none`` the carry is updated in

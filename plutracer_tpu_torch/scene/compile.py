@@ -45,6 +45,11 @@ BVH_MARGIN = 1e-4
 WALK_LEAF_ROWS = 4
 WALK_STACK = 32
 WALK_ROW_W = 20
+# the tables store row ids and atlas offsets as float32, exact up to 2^24
+# (every path reads them back as integers: ops/tables.py, csrc
+# path_common.cuh row_id), so a scene holds at most this many primitives
+# and atlas texels
+MAX_TABLE_ROWS = 1 << 24
 
 
 def build_camera(
@@ -318,6 +323,10 @@ def compile_numpy(desc: SceneDesc, options: RenderOptions = DEFAULT_OPTIONS) -> 
     lv["atlas"] = (
         np.concatenate(atlas_parts, 0) if atlas_parts else np.zeros((1, 3), np.float32)
     )
+    for what, n in (("primitives", P), ("atlas texels", lv["atlas"].shape[0])):
+        if n > MAX_TABLE_ROWS:
+            raise ValueError(f"compile_scene: {n} {what}; the tables' float32 row ids and "
+                             f"offsets are exact up to {MAX_TABLE_ROWS}")
 
     lv.update(light_type=i1(L), light_pos=f3(L), light_intensity=f3(L),
               light_prim=i1(L, -1))

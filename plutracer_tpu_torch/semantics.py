@@ -1,8 +1,7 @@
 """Reference-semantics registry (the port's copy of the JAX package's
 ``plutracer_tpu/semantics.py``: the same fields with the same defaults, so
 an options object means the same thing in both packages; the TPU-only
-fields ``intersect_backend`` and ``pallas_interpret`` are kept for that
-and ignored here).
+field ``pallas_interpret`` is kept for that and ignored here).
 
 The plutracer reference implementation contains several idiosyncrasies that
 *change rendered images*. To act as a drop-in replacement whose output matches
@@ -127,14 +126,18 @@ class RenderOptions:
     shadow_eps: float = 0.0  # reference traces shadow rays from p exactly
     dtype: str = "float32"
 
-    # --- execution backend for closest-hit queries (JAX package only:
-    # "auto" | "xla" | "pallas" | "bvh" there; this package ignores it and
-    # queries through K1 or the BVH walk of the stream kernels) ---
+    # --- execution backend for the plain integrator's closest-hit queries
+    # (ops/intersect.query_lite), the JAX package's names and meanings:
+    # "auto": K1 on a CUDA device, the brute force intersect_lite on the
+    # CPU; "pallas" K1 (its plain version on the CPU), "bvh" the K3 query's
+    # BVH walk (its plain version on the CPU), "xla" intersect_lite (all
+    # agree exactly on the winner). K2 takes its primary hit from it too;
+    # K3 and K4 always walk.
     intersect_backend: str = "auto"
 
     # --- execution backend for the whole bounce loop ---
     # "auto": the CUDA kernels (K2, K3 or K4, render/integrator.kernel_tier)
-    # on a CUDA device when the scene is within megakernel_eligible's caps,
+    # on a CUDA device when megakernel_eligible takes the scene,
     # the plain integrator elsewhere; "kernel" forces the kernels (raises if
     # the scene does not qualify), "plain" the plain integrator. Gradients
     # work through both: the kernel path is an autograd Function whose

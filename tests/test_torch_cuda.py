@@ -42,6 +42,7 @@ processes share it. The terms=True split of the plain path sums to the
 radiance within 1e-6 of its largest entry.
 """
 
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -61,7 +62,15 @@ from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
     closest_hit_plain,
 )
 from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda, ray_color_stream_cuda
-from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color
+from plutracer_tpu_torch.ops.intersect import T_MAX, query_lite
+from plutracer_tpu_torch.render.integrator import (
+    K2_SMEM_MAX,
+    draw_uniforms,
+    k2_smem_bytes,
+    kernel_tier,
+    ray_color,
+    resolve_integrator_backend,
+)
 from plutracer_tpu_torch.render.renderer import _finalize, pixel_centers, render, render_passes
 from plutracer_tpu_torch.render.wavefront import ray_color_wavefront
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
@@ -168,7 +177,9 @@ def test_k2_matches_plain(dev, name, options):
 @pytest.mark.parametrize("name", ["demo-box", "sphere-grid", "mesh0", "mesh1"])
 def test_k3_query_bit_equal_to_k1(dev, name):
     """Camera rays, and extension rays from their hit points (the rays
-    that start on a surface, where the self-hit knife edge lives)."""
+    that start on a surface, where the self-hit knife edge lives): the
+    walk against K1's plain version (the oracle of both kernels, which
+    serve the same queries as alternatives) and against K1 itself."""
     s, o, d = scene_and_rays(name, 128, dev)
     f0, _, t0 = closest_hit(s.prims_packed, o, d, s.packed_type_rows)
     p = o + d * torch.where(f0, t0, 1.0)[:, None]
@@ -176,9 +187,38 @@ def test_k3_query_bit_equal_to_k1(dev, name):
         before = closest_hit_bvh_cuda.launches
         got = closest_hit_bvh(s, ro, rd)
         assert closest_hit_bvh_cuda.launches == before + 1
-        want = closest_hit(s.prims_packed, ro, rd, s.packed_type_rows)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        assert torch.equal(got[2][want[0]], want[2][want[0]])  # t on hits
+        for want in (closest_hit_plain(s.prims_packed, ro, rd),
+                     closest_hit(s.prims_packed, ro, rd, s.packed_type_rows)):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            assert torch.equal(got[2][want[0]], want[2][want[0]])  # t on hits
+            assert (got[2][~want[0]] >= T_MAX).all()
+
+
+@pytest.mark.parametrize("name", ["demo-box", "mesh0"])
+def test_intersect_backends_on_card(dev, name):
+    """chip_smoke phase 19 (a) small: query_lite under "pallas" (one K1
+    launch), "bvh" (one K3 query launch) and "xla" (no kernel) give equal
+    winners and t on hits; plain ray_color under the three is bit-equal
+    on every lane."""
+    s, o, d = scene_and_rays(name, 48, dev)
+    counters = {"pallas": closest_hit_cuda, "bvh": closest_hit_bvh_cuda}
+    got = {}
+    for b in ("pallas", "bvh", "xla"):
+        before = {k: c.launches for k, c in counters.items()}
+        got[b] = query_lite(s, o, d, DEFAULT_OPTIONS.replace(intersect_backend=b))
+        assert {k: c.launches - before[k] for k, c in counters.items()} == \
+            {k: int(k == b) for k in counters}, b
+    f = got["xla"][0]
+    for b in ("pallas", "bvh"):
+        assert torch.equal(got[b][0], f) and torch.equal(got[b][1], got["xla"][1]), b
+        assert torch.equal(got[b][2][f], got["xla"][2][f]), b
+    u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
+    out = {b: ray_color(s, o, d, u, DEFAULT_OPTIONS.replace(intersect_backend=b))
+           for b in ("pallas", "bvh", "xla")}
+    assert out["pallas"].abs().max() > 0
+    for b in ("bvh", "xla"):
+        assert torch.equal(out[b], out["pallas"]), \
+            f"{b}: {(out[b] != out['pallas']).any(-1).sum().item()} lanes differ"
 
 
 @pytest.mark.parametrize("name", ["sphere-grid", "mesh0", "mesh1", "mesh-tex"])
@@ -403,6 +443,53 @@ def test_kernel_bit_equal_to_plain(dev, name):
     ref = ray_color(s, o, d, u, DEFAULT_OPTIONS)
     assert torch.isfinite(out).all() and ref.abs().max() > 0
     assert torch.equal(out, ref), f"{(out != ref).any(-1).sum().item()} lanes differ"
+
+
+def filled_scene(dev, extra):
+    """demo-box with unused materials appended until K2's shared-memory
+    copy of its tables holds K2_SMEM_MAX bytes (extra = 0: K2 with the
+    launch's opt-in past 48 KB) or one material row more (K3)."""
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "48x48"]),
+                      device=dev)
+    n = (K2_SMEM_MAX - k2_smem_bytes(s)) // 48 + extra
+    grow = lambda x: torch.cat([x, x[:1].expand(n, *x.shape[1:])])
+    return dataclasses.replace(s, **{f: grow(getattr(s, f)) for f in
+                                     ("mat_type", "mat_color", "mat_tex", "mat_eta", "mat_k")})
+
+
+@pytest.mark.parametrize("name", ["textured256", "tables", "k2-opt-in", "k2-budget-past"])
+def test_beyond_cap_scenes_on_card(dev, name):
+    """chip_smoke phase 19 (c) small: scenes past the JAX package's TPU
+    caps take the kernel path, through the kernel kernel_tier names,
+    bit-equal to the plain ray_color on every lane."""
+    if name.startswith("k2-"):
+        s = filled_scene(dev, int(name == "k2-budget-past"))
+        g = torch.Generator(device="cpu").manual_seed(48)
+        px = pixel_centers(48, 48, dev) + torch.rand((48 * 48, 2), generator=g).to(dev)
+        o, d = generate_rays(s.camera, px, torch.rand((48 * 48, 2), generator=g).to(dev))
+    else:
+        s, o, d = scene_and_rays(name, 48, dev)
+    tier = {"k2-budget-past": "k3"}.get(name, "k2")
+    assert resolve_integrator_backend(s, DEFAULT_OPTIONS, dev) == "kernel"
+    assert kernel_tier(s, DEFAULT_OPTIONS) == tier
+    u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
+    counter = ray_color_cuda if tier == "k2" else ray_color_stream_cuda
+    before = counter.launches
+    out = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS)
+    assert counter.launches == before + 1
+    ref = ray_color(s, o, d, u, DEFAULT_OPTIONS)
+    assert torch.isfinite(out).all() and ref.abs().max() > 0
+    assert torch.equal(out, ref), f"{(out != ref).any(-1).sum().item()} lanes differ"
+
+
+def test_cli_beyond_caps_on_card(dev, tmp_path, capsys):
+    """The CLI renders the 65,536-texel atlas scene through K2."""
+    before = ray_color_cuda.launches
+    res = cli.run([str(REPO / "scenes" / "textured256.urn"), "/res", "64x48", "/smp", "2",
+                   "/o", str(tmp_path / "t.bmp")])
+    assert res.integrator == "kernel" and res.tier == "k2"
+    assert ray_color_cuda.launches > before and torch.isfinite(res.linear).all()
+    assert "with the kernel integrator (k2)" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("name,wavefront", [("demo-box", False), ("mesh0", False),

@@ -27,7 +27,6 @@ from plutracer_tpu.semantics import DEFAULT_OPTIONS as JAX_OPTIONS
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
 from plutracer_tpu_torch.render.integrator import (
-    MAX_ATLAS,
     draw_uniforms,
     kernel_tier,
     megakernel_eligible,
@@ -121,12 +120,17 @@ def test_backend_routing():
     assert resolve_integrator_backend(demo, DEFAULT_OPTIONS, "cpu") == "plain"
     forced = DEFAULT_OPTIONS.replace(integrator_backend="kernel")
     assert resolve_integrator_backend(demo, forced, "cpu") == "kernel"
-    # a scene beyond the caps: an image atlas over MAX_ATLAS texels
-    big_atlas = dataclasses.replace(grid, atlas=torch.zeros((MAX_ATLAS + 1, 3)))
-    assert not megakernel_eligible(big_atlas, DEFAULT_OPTIONS)
-    assert resolve_integrator_backend(big_atlas, DEFAULT_OPTIONS, "cuda") == "plain"
-    with pytest.raises(ValueError, match="static limits"):
-        resolve_integrator_backend(big_atlas, forced, "cuda")
+    # an atlas past the JAX package's 4,096-texel VMEM cap: the kernels
+    # read the atlas from device memory, so it takes the kernel path
+    big_atlas = dataclasses.replace(grid, atlas=torch.zeros((4096 + 1, 3)))
+    assert megakernel_eligible(big_atlas, DEFAULT_OPTIONS)
+    assert resolve_integrator_backend(big_atlas, DEFAULT_OPTIONS, "cuda") == "kernel"
+    # beyond a gate that still stands: the kernels take float32 only
+    f64 = DEFAULT_OPTIONS.replace(dtype="float64")
+    assert not megakernel_eligible(demo, f64)
+    assert resolve_integrator_backend(demo, f64, "cuda") == "plain"
+    with pytest.raises(ValueError, match="do not take"):
+        resolve_integrator_backend(demo, f64.replace(integrator_backend="kernel"), "cuda")
     with pytest.raises(ValueError):
         resolve_integrator_backend(demo, DEFAULT_OPTIONS.replace(integrator_backend="xla"), "cpu")
 

@@ -40,7 +40,6 @@ from plutracer_tpu_torch.ops.camera import generate_rays
 from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda, ray_color_stream_cuda
 from plutracer_tpu_torch.ops.tables import pack_tables
 from plutracer_tpu_torch.render.integrator import (
-    MAX_P_HBM,
     draw_uniforms,
     kernel_tier,
     megakernel_eligible,
@@ -160,15 +159,25 @@ def shapes(P, type_rows=None, M=4, T=2, L=1, A=1):
     dict(P=40960, type_rows=(20000, 20960, 0)), dict(P=40968, type_rows=(20008, 20960, 0)),
     dict(P=45000, type_rows=(20000, 0, 25000)),
     # MAX_P_HBM
-    dict(P=MAX_P_HBM), dict(P=MAX_P_HBM + 1),
+    dict(P=jik.MAX_P_HBM), dict(P=jik.MAX_P_HBM + 1),
     dict(P=100, M=17), dict(P=100, T=9), dict(P=100, L=0), dict(P=100, L=9),
     dict(P=100, A=4096), dict(P=100, A=4097), dict(P=10, A=4097),
 ], ids=str)
 def test_routing_agrees_with_jax_at_the_edges(case):
+    """Every scene the JAX package's megakernel_eligible takes, the port
+    takes on the same tier (K2 for P <= 64, these tables being far inside
+    K2's shared memory); past the TPU's VMEM and SMEM caps (the row
+    budget, P > 2^20, M > 16, T > 8, L > 8, the atlas) the port takes it
+    too; both refuse L = 0 and a dtype other than float32."""
     js, ts = shapes(**case)
     for kw in ({}, {"dtype": "bfloat16"}):
-        assert megakernel_eligible(ts, DEFAULT_OPTIONS.replace(**kw)) == \
-            jik.megakernel_eligible(js, JAX_OPTIONS.replace(**kw)), case
+        ours = megakernel_eligible(ts, DEFAULT_OPTIONS.replace(**kw))
+        theirs = jik.megakernel_eligible(js, JAX_OPTIONS.replace(**kw))
+        assert ours == (case.get("L", 1) >= 1 and not kw), case
+        assert ours or not theirs, case
+        if ours:
+            want = "k2" if case["P"] <= jik.MAX_P else "k3"
+            assert kernel_tier(ts, DEFAULT_OPTIONS) == want, case
 
 
 @pytest.mark.parametrize("name,allowance", [("sphere-grid", 0.02), ("mesh0", 0.03)])
