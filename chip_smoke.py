@@ -98,10 +98,11 @@ both main paths of the port on the card:
      lights) through the CLI at their own settings (the kernel it routes
      to, samples/s), each kernel bit-equal to the plain ray_color on a
      stratum beside the plain stratum's time, K5 on textured256; demo-box
-     with its tables filled to K2's 227 KB of shared memory (K2, opted in
-     past 48 KB) and one material past it (K3); a cloud of 1,100,000
-     spheres with an area light: compile seconds and one K3 launch
-     bit-equal to plain.
+     with its tables filled to K2's 48 KB of shared memory (K2) and one
+     material past it (K3); a cloud of 1,100,000 spheres with an area
+     light: compile seconds and one K3 launch bit-equal to plain; on both
+     K3-tier scenes K4 (stream_wavefront) bit-equal to the plain
+     ray_color and K5 (K3's debug launch) to ray_color(debug=True).
 
 Every phase asserts and prints its seconds; any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
@@ -119,8 +120,10 @@ vertices that run and the queries each issues (``issued_queries``), the
 walks' node records and rows are counted by the walk's plain version
 (``walk_work``), and each vertex outside its queries is counted at its
 cheapest branch (``SHADE_OPS``). No single PyTorch call computes any of these functions,
-so library_ms is null. The K3 query runs inside K3 and K4 on the main
-path; its own launch is used only here, so its entry reports 0 launches.
+so library_ms is null. The K3 query runs inside K3 and K4; its own
+launch answers the plain path's queries under intersect_backend="bvh",
+and its entry reports those launches in one mesh1 train step's
+loss_and_grads (phase 19 (b)).
 The next line is the card's name and power limit; the last line is
 {"ok": true, "device": ...}.
 """
@@ -567,7 +570,7 @@ def main() -> int:
     k1_bound = work_bound(B * (24 + 9) + scene.prims_packed.numel() * 4.0, B * query_ops(scene))
     print(f"bound: K1 {k1_bound[0]:.6f} ms ({k1_bound[1]}) at B={B}")
 
-    big, mesh1_pass = big_scene_phases(phase, dev, card)
+    big, query_entry, mesh1_pass = big_scene_phases(phase, dev, card)
     # K2's bound counts the vertices the pass runs: phase 12 checks them
     k5, k2_bound = telemetry_phase(phase, card, lib, (scene, o, d, u, k2_ms), mesh1_pass)
     gradient_phase(phase, dev, card)
@@ -576,7 +579,9 @@ def main() -> int:
     recovery_phase(phase, dev, card)
     multi_device_phase(phase, dev, card)
     tools_phase(phase, dev, card)
-    routing_phase(phase, dev, card)
+    # the K3 query's own launches: the plain path's queries under
+    # intersect_backend="bvh" (phase 19 (b))
+    query_launches = routing_phase(phase, dev, card)
     phase()
     print(f"K1 launches by shape: demo-box primary (the 512x512 64-spp render) {launches['K1']}, "
           + ", ".join(f"{k} {v}" for k, v in train_k1.items())
@@ -589,7 +594,9 @@ def main() -> int:
               k1_plain_ms, k1_bound),
         entry("K2 path megakernel", K2_SOURCE, K2_REPLACES, launches["K2"], k2_err, k2_ms,
               k2_plain_ms, k2_bound),
-        *big,
+        big[0],
+        query_entry(query_launches),
+        big[1],
         k5,
     ]
     print(json.dumps({"kernels": kernels}))
@@ -730,8 +737,9 @@ def step_times(scene, o, d, u, opts, step, passes):
 
 
 def big_scene_phases(phase, dev, card):
-    """Phases 7-11: the stream tier (K3, its BVH query, K4). Returns the
-    kernels' entries of the JSON line and the mesh1 launch of the main
+    """Phases 7-11: the stream tier (K3, its BVH query, K4). Returns K3's
+    and K4's entries of the JSON line, the K3 query's entry as a function
+    of its launches (counted in phase 19) and the mesh1 launch of the main
     path (scene, o, d, u, K3 ms): 4 strata of 256x256, 262,144 rays."""
     from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
     from plutracer_tpu_torch import cli, rng
@@ -874,14 +882,13 @@ def big_scene_phases(phase, dev, card):
     # ---- 10. the big-scene path: mesh1 and mesh2 through the CLI, 256x256, 16 spp ----
     phase("10 big-scene path")
     launches = {}
-    query_launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         for name, scene in (("mesh1", mesh1), ("mesh2", mesh2)):
             ray_color_stream_cuda.launches = closest_hit_bvh_cuda.launches = 0
             res = cli.run([str(ROOT / "scenes" / f"{name}.urn"), "/o", str(pathlib.Path(tmp) / "o.bmp"),
                            "/seed", "7"])
             launches[name] = ray_color_stream_cuda.launches
-            query_launches += closest_hit_bvh_cuda.launches
+            assert closest_hit_bvh_cuda.launches == 0  # the walk runs inside K3
             assert res.integrator == "kernel" and res.tier == "k3", (res.integrator, res.tier)
             assert tuple(res.linear.shape) == (256, 256, 3) and torch.isfinite(res.linear).all()
             assert launches[name] == 16 // per, launches  # 4 strata a launch
@@ -980,15 +987,18 @@ def big_scene_phases(phase, dev, card):
           f"({q_bound[1]})")
 
     k3_launches = launches["mesh1"] + launches["mesh2"]
+    # the query runs inside every K3 and K4 launch; its own launch answers
+    # the plain path's queries under intersect_backend="bvh"
+    query_entry = lambda n: entry(
+        "K3 query bvh_closest (inside K3 and K4, and its own launch for the plain path's "
+        "queries under intersect_backend='bvh'; ms: mesh1 extension rays; launches: one mesh1 "
+        "128x128 loss_and_grads)", KQ_SOURCE, KQ_REPLACES, n, q_err, q_ms, q_plain_ms, q_bound)
     return [
         entry("K3 stream kernel (ms: the mesh1 launch of 4 strata)", K3_SOURCE, K3_REPLACES,
               k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound),
-        # the query runs inside every K3 launch (and K4's); standalone only here
-        entry("K3 query bvh_closest (inside K3 and K4; own launch off the main path)",
-              KQ_SOURCE, KQ_REPLACES, query_launches, q_err, q_ms, q_plain_ms, q_bound),
         entry("K4 one-bounce kernel (ms per launch)", K4_SOURCE, K4_REPLACES, k4_launches,
               k4_err, k4_launch_ms, k4_plain_ms, k4_bound),
-    ], (mesh1, bo, bd, bu, k3_ms)
+    ], query_entry, (mesh1, bo, bd, bu, k3_ms)
 
 
 def wavefront_split(scene, o, d, u, opts, card, passes=5):
@@ -1709,8 +1719,8 @@ def cloud_with_area_light(n):
 
 def filled_demo_box(dev, res, extra):
     """demo-box with unused materials appended until K2's shared-memory
-    copy of its tables holds K2_SMEM_MAX bytes (extra = 0: K2, the launch
-    opting in past 48 KB) or one material row more (extra = 1: K3)."""
+    copy of its tables holds K2_SMEM_MAX bytes, within one row (extra = 0:
+    K2 with 48 KB of tables), or one material row more (extra = 1: K3)."""
     import dataclasses
 
     from plutracer_tpu_torch.render.integrator import K2_SMEM_MAX, k2_smem_bytes
@@ -1744,14 +1754,16 @@ def routing_phase(phase, dev, card):
     bit-equal, times and launches; (c) the scenes past the JAX package's
     TPU caps: the CLI's route and samples/s, the kernel bit-equal to the
     plain ray_color on a stratum and the plain stratum's time, K5 on the
-    atlas scene; K2 past 48 KB of shared memory (the opt-in) and a scene
-    past K2's budget (K3); the sphere cloud past 2^20 primitives: compile
-    seconds and one K3 launch bit-equal to plain."""
+    atlas scene; K2 at its 48 KB of shared memory and a scene one row
+    past it (K3); the sphere cloud past 2^20 primitives: compile seconds
+    and one K3 launch bit-equal to plain; K4 and K5 on both K3-tier
+    scenes against the plain ray_color and ray_color(debug=True). Returns
+    the K3 query's launches in (b)'s "bvh" loss_and_grads."""
     from plutracer_tpu_torch import cli, rng
     from plutracer_tpu_torch.diff.optim import Adam
     from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
     from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_bvh_cuda, closest_hit_cuda
-    from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
+    from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda, ray_color_stream_cuda
     from plutracer_tpu_torch.parallel import sharded
     from plutracer_tpu_torch.render.integrator import (
         k2_smem_bytes, kernel_tier, ray_color, resolve_integrator_backend,
@@ -1802,7 +1814,7 @@ def routing_phase(phase, dev, card):
     init = dict(true)
     init["mat_color"] = true["mat_color"] * 0.5
     key = rng.fold_in(rng.PRNGKey(0), 0)
-    got, steps = {}, {}
+    got, steps, query_launches = {}, {}, 0
     for b in ("pallas", "bvh"):
         step = steps[b] = sharded.make_train_step(mesh1, W, W, 2, optimizer=Adam(3e-2),
                                                   options=by(b), loss_space="log")
@@ -1817,6 +1829,7 @@ def routing_phase(phase, dev, card):
               f"{launches}")
         assert launches["K1" if b == "pallas" else "K3 query"] > 0
         assert launches["K3 query" if b == "pallas" else "K1"] == 0, launches
+        query_launches += launches["K3 query"]
         got[b] = (loss, grads, params, new_state)
     # the two steps timed in turns (pallas, bvh, bvh, pallas), CUDA events
     parts = {b: {"step": [], "loss_and_grads": [], "forward": []} for b in steps}
@@ -1859,6 +1872,26 @@ def routing_phase(phase, dev, card):
               f"ray_color {p_ms:.4f} ms ({p_ms / k_ms:.1f}x) ({card})")
         return tier
 
+    def k4_k5_vs_plain(scene, o, d, u, what):
+        # K4 (the wavefront loop under stream_wavefront) and K5 (K3's debug
+        # launch) on a K3-tier scene: one call each, counts set to 0 just
+        # before, each against its plain version on every lane
+        wf = OPTS.replace(stream_wavefront=True)
+        assert kernel_tier(scene, wf) == "k4", what
+        onebounce_cuda.launches = ray_color_stream_cuda.debug_launches = 0
+        L4 = ray_color_kernel(scene, o, d, u, wf)
+        L5, dbg = ray_color_kernel(scene, o, d, u, OPTS, debug=True)
+        torch.cuda.synchronize()
+        got = {"K4": onebounce_cuda.launches, "K5": ray_color_stream_cuda.debug_launches}
+        assert got == {"K4": OPTS.max_bounces, "K5": 1}, (what, got)
+        ref_L, ref = ray_color(scene, o, d, u, OPTS, debug=True)
+        lanes_equal(L4, ref_L, f"routing (c) {what} K4 (stream_wavefront) vs plain ray_color")
+        lanes_equal(L5, ref_L, f"routing (c) {what} K5 radiance vs ray_color(debug=True)")
+        channel_report(dbg, ref, f"{what} (K3)", stream=True)
+        k4_ms = time_ms(lambda: ray_color_kernel(scene, o, d, u, wf), reps=3)
+        print(f"routing (c) {what}: launches {got}; K4 wavefront loop (B={o.shape[0]}) "
+              f"{k4_ms:.4f} ms ({card})")
+
     with tempfile.TemporaryDirectory() as tmp:
         for name in BEYOND_CAPS:
             counts = (ray_color_cuda, ray_color_stream_cuda, closest_hit_cuda)
@@ -1885,12 +1918,15 @@ def routing_phase(phase, dev, card):
                 ref_L, ref = ray_color(scene, o, d, u, OPTS, debug=True)
                 lanes_equal(L5, ref_L, "routing (c) K5 textured256 radiance vs ray_color(debug=True)")
                 channel_report(dbg, ref, "textured256 (K2)")
-    for extra, what in ((0, "K2 with 227 KB of tables (the opt-in past 48 KB)"),
+    for extra, what in ((0, "K2 with 48 KB of tables"),
                         (1, "one material past K2's shared memory (K3)")):
         scene = filled_demo_box(dev, FILLED_RES, extra)
         assert kernel_tier(scene, OPTS) == ("k2", "k3")[extra], what
         o, d, u = main_path_rays(scene, FILLED_RES, FILLED_RES, 2, rng.PRNGKey(7), 1, OPTS)
-        kernel_vs_plain(scene, o, d, u, f"demo-box + {scene.mat_type.shape[0] - 8} materials, {what}")
+        what = f"demo-box + {scene.mat_type.shape[0] - 8} materials, {what}"
+        kernel_vs_plain(scene, o, d, u, what)
+        if extra:
+            k4_k5_vs_plain(scene, o, d, u, what)
     # the sphere cloud past 2^20 primitives, with one area light
     t0 = time.perf_counter()
     desc = cloud_with_area_light(CLOUD_P)
@@ -1906,6 +1942,8 @@ def routing_phase(phase, dev, card):
           f"depth {leaves['walk_depth']}, {cloud.walk_nodes.shape[0]} records ({card})")
     o, d, u = main_path_rays(cloud, CLOUD_RES, CLOUD_RES, 1, rng.PRNGKey(7), 1, OPTS)
     assert kernel_vs_plain(cloud, o, d, u, f"sphere cloud {CLOUD_RES}x{CLOUD_RES}") == "k3"
+    k4_k5_vs_plain(cloud, o, d, u, f"sphere cloud {CLOUD_RES}x{CLOUD_RES}")
+    return query_launches
 
 
 def loss_and_grads_ms(sharded, fn):

@@ -4,8 +4,8 @@
 // (plutracer_tpu/ops/pallas/integrator_kernel.py: `kernel` built by
 // _build_kernel, launched by _megakernel_call, entered by
 // ray_color_pallas) for scenes of P <= 64 primitives whose tables fit the
-// shared memory of a block (render/integrator.kernel_tier: K2_SMEM_MAX,
-// the 227 KB a block of an H100 may opt in to).
+// 48 KB of dynamic shared memory a block takes without opting in
+// (render/integrator.kernel_tier: K2_SMEM_MAX).
 //
 // Semantics: the plain integrator plutracer_tpu_torch/render/integrator.py
 // (ray_color), per ray, with the same uniforms: u is (max_bounces * 12, B),
@@ -16,9 +16,9 @@
 // Design: one thread per ray with all path state in registers across the
 // 8 bounces; each bounce is path_common.cuh's path_vertex, the body K3 and
 // K4 share. Each block copies the scene tables (packed closest-hit table,
-// prim, mat, tex, light: 3.2 KB on demo-box; above 48 KB the launch opts in
-// to more, up to the card's limit) into shared memory once, so every row
-// fetch is an indexed shared load; the image atlas stays in
+// prim, mat, tex, light: 3.2 KB on demo-box, at most 48 KB) into shared
+// memory once, so every row fetch is an indexed shared load; the image
+// atlas stays in
 // global memory (read through L1/L2). The kernel does a few thousand flops
 // a vertex and no device-memory traffic beyond the uniforms: it is bounded
 // by operations, register pressure (occupancy) and the latency of
@@ -117,20 +117,6 @@ __global__ void __launch_bounds__(BLOCK, 1) megakernel(Params k) {
   k.out[3 * ray + 2] = s.L.z;
 }
 
-// Launches one instantiation with `smem` bytes of dynamic shared memory;
-// above the 48 KB every kernel may take, the kernel first opts in to
-// `smem` (refused past the card's limit, which the caller then reports)
-template <bool DEBUG>
-int launch(const Params& k, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(megakernel<DEBUG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  megakernel<DEBUG><<<(k.B + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(k);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int plu_megakernel(const float* prim, int P, const float* mat, int M,
@@ -145,6 +131,10 @@ extern "C" int plu_megakernel(const float* prim, int P, const float* mat, int M,
            max_bounces, swapped_mis, origin_pdf, shading_gate};
   const size_t smem =
       sizeof(float) * (P_pad * PACK_W + P * PRIM_W + M * MAT_W + T * TEX_W + L * LIGHT_W);
-  return dbg ? launch<true>(k, smem, (cudaStream_t)stream)
-             : launch<false>(k, smem, (cudaStream_t)stream);
+  const int grid = (B + BLOCK - 1) / BLOCK;
+  if (dbg)
+    megakernel<true><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(k);
+  else
+    megakernel<false><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(k);
+  return (int)cudaGetLastError();
 }

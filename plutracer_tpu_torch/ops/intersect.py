@@ -29,8 +29,8 @@ names and meanings, plutracer_tpu/ops/intersect.py:195-256):
   package picks the Pallas kernel on an accelerator and XLA on the CPU).
 
 All four return the same winner (found, prim). The kernels' t carries no
-gradient; the integrator recomputes it at the winner on every backend but
-"xla" (render/integrator._recompute_t, the JAX package's query_closest).
+gradient; ``differentiable_t`` recomputes it at the winner on every backend
+but "xla" (the JAX package's query_closest), for the integrator.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ from plutracer_tpu_torch.ops.safemath import (
     safe_rsqrt,
     safe_sqrt,
 )
+from plutracer_tpu_torch.ops.tables import gather_prim
 from plutracer_tpu_torch.scene.types import PRIM_BOX, PRIM_SPHERE
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
 
@@ -210,6 +211,21 @@ def query_lite(scene, o, d, options=DEFAULT_OPTIONS):
     parts = [intersect_lite(scene, o[i:i + chunk], d[i:i + chunk])
              for i in range(0, o.shape[0], chunk)]
     return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def differentiable_t(tables, o, d, found, prim, t, options):
+    """query_lite's t for the same rays and options, with a gradient: on
+    every backend but "xla" (whose t is intersect_lite's, differentiable
+    as it stands) it is recomputed at the winner with the plain
+    per-primitive test (tables: ops.tables.pack_tables), accepted only
+    where that test agrees the ray hits (a _BIG sentinel on a found lane
+    would put p at ~4e37). A missed lane keeps the query's t (_BIG from
+    the walk, possibly a padding row near 1e30 from K1), which nothing
+    reads: found is t < T_MAX."""
+    if _resolve_backend(options, o.device) == "xla":
+        return t
+    td = prim_t_rows(o, d, gather_prim(tables, prim))
+    return torch.where(found & (td < T_MAX), td, t)
 
 
 # ---------------------------------------------------------------------------

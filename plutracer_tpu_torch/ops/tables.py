@@ -30,6 +30,11 @@ class PackedTables(NamedTuple):
     light: torch.Tensor  # (L, 8)
 
 
+# the columns pack_tables gives each table (csrc/path_common.cuh's PRIM_W,
+# MAT_W, TEX_W, LIGHT_W)
+TABLE_W = PackedTables(prim=32, mat=12, tex=12, light=8)
+
+
 def pack_tables(scene) -> PackedTables:
     f = lambda x: x.to(torch.float32)
     c1 = lambda x: f(x)[:, None]

@@ -41,6 +41,7 @@ integrator.py:246-258; tools/term_dump.py).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -52,6 +53,7 @@ from plutracer_tpu_torch.ops import bsdf as bsdf_ops
 from plutracer_tpu_torch.ops import intersect, lights
 from plutracer_tpu_torch.ops.safemath import dot, safe_div
 from plutracer_tpu_torch.ops.tables import (
+    TABLE_W,
     gather_light,
     gather_mat,
     gather_prim,
@@ -64,15 +66,12 @@ from plutracer_tpu_torch.scene.compile import MAX_TABLE_ROWS
 
 # the kernel tiers. P <= MAX_P takes the megakernel K2 (the JAX package's
 # tier boundary, integrator_kernel.py:57) while K2's shared-memory copy of
-# the tables (k2_smem_bytes) fits K2_SMEM_MAX, the dynamic shared memory a
-# block of an H100 may opt in to (csrc/megakernel.cu's launch); every other
-# eligible scene takes the stream kernel K3 (K4 under
+# the tables (k2_smem_bytes) fits K2_SMEM_MAX, the 48 KB of dynamic shared
+# memory any kernel may take without opting in (csrc/megakernel.cu's
+# launch); every other eligible scene takes the stream kernel K3 (K4 under
 # options.stream_wavefront), which reads its tables from device memory
 MAX_P = 64
-K2_SMEM_MAX = 232448
-# table widths in floats (csrc/path_common.cuh:42: PACK_W, PRIM_W, MAT_W,
-# TEX_W, LIGHT_W), for k2_smem_bytes
-_K2_ROW_W = (24, 32, 12, 12, 8)
+K2_SMEM_MAX = 48 * 1024
 
 # the scene leaves gradients flow to (parallel/sharded.DIFFERENTIABLE_FIELDS)
 DIFF_LEAVES = ("mat_color", "light_intensity", "tex_c0", "tex_c1")
@@ -188,11 +187,12 @@ def megakernel_eligible(scene, options) -> bool:
 
 
 def k2_smem_bytes(scene) -> int:
-    """Bytes of K2's shared-memory copy of the tables: packed table, prim,
-    mat, tex and light rows (csrc/megakernel.cu, plu_megakernel's smem)."""
-    rows = (scene.prims_packed.shape[0], scene.prim_type.shape[0], scene.mat_type.shape[0],
-            scene.tex_type.shape[0], scene.light_type.shape[0])
-    return 4 * sum(n * w for n, w in zip(rows, _K2_ROW_W))
+    """Bytes of K2's shared-memory copy of the tables: the packed table and
+    pack_tables' prim, mat, tex and light rows (TABLE_W columns), float32
+    (csrc/megakernel.cu, plu_megakernel's smem). Shapes only."""
+    rows = (scene.prim_type.shape[0], scene.mat_type.shape[0], scene.tex_type.shape[0],
+            scene.light_type.shape[0])
+    return 4 * (math.prod(scene.prims_packed.shape) + sum(n * w for n, w in zip(rows, TABLE_W)))
 
 
 def kernel_tier(scene, options) -> str:
@@ -306,15 +306,15 @@ def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS, debug: b
     the order of the float32 additions). Every closest-hit query goes
     through intersect.query_lite, by options.intersect_backend (auto: K1
     on a CUDA device, intersect_lite on the CPU); on every backend but
-    "xla" the winner's t is recomputed differentiably (_recompute_t). Under
+    "xla" the winner's t is recomputed differentiably
+    (intersect.differentiable_t). Under
     options.remat_bounces each bounce is rematerialised in the backward
     (torch.utils.checkpoint)."""
     B = o.shape[0]
     tables = pack_tables(scene)
     # primary hit (reference traces it before the bounce loop, renderer.cpp:61)
     found, prim, t = intersect.query_lite(scene, o, d, options)
-    if intersect._resolve_backend(options, o.device) != "xla":
-        t = _recompute_t(tables, o, d, found, prim, t)
+    t = intersect.differentiable_t(tables, o, d, found, prim, t, options)
     state = PathState(
         o=o, d=d, T=torch.ones_like(o), L=torch.zeros_like(o),
         prev_spec=torch.zeros(B, dtype=torch.bool, device=o.device),
@@ -337,17 +337,6 @@ def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS, debug: b
     if debug or terms:
         return (state.L, *(torch.stack(x) for x in zip(*extras)))
     return state.L
-
-
-def _recompute_t(tables, o, d, found, prim, t):
-    """The kernels' t is not differentiable: recompute it at the winner
-    with the plain per-primitive test, accepted only where it agrees the
-    ray hits (a _BIG sentinel on a found lane would put p at ~4e37). A
-    missed lane keeps the query's t (_BIG from the walk, possibly a
-    padding row near 1e30 from K1), which nothing reads: found is
-    t < T_MAX."""
-    td = intersect.prim_t_rows(o, d, gather_prim(tables, prim))
-    return torch.where(found & (td < intersect.T_MAX), td, t)
 
 
 def plain_bounce(scene, tables, state: PathState, ui, i: int,
@@ -444,8 +433,7 @@ def plain_bounce(scene, tables, state: PathState, ui, i: int,
             bs.pdf, dot(bs.f, bs.f), ls.pdf, l_pdf2,
             Ld[:, 0] + Ld[:, 1] + Ld[:, 2], f32(cur), xt, f32(xp), f32(bs.is_specular),
         ])
-    if intersect._resolve_backend(options, o.device) != "xla":
-        xt = _recompute_t(tables, hit.p, bs.wwi, xf, xp, xt)
+    xt = intersect.differentiable_t(tables, hit.p, bs.wwi, xf, xp, xt, options)
     nxt = PathState(hit.p, bs.wwi, T, L, bs.is_specular, alive_next, xp, xt)
     if not (debug or terms):
         return nxt

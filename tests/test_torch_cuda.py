@@ -447,8 +447,8 @@ def test_kernel_bit_equal_to_plain(dev, name):
 
 def filled_scene(dev, extra):
     """demo-box with unused materials appended until K2's shared-memory
-    copy of its tables holds K2_SMEM_MAX bytes (extra = 0: K2 with the
-    launch's opt-in past 48 KB) or one material row more (K3)."""
+    copy of its tables holds K2_SMEM_MAX bytes, within one row (extra = 0:
+    K2 with 48 KB of tables), or one material row more (K3)."""
     s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "48x48"]),
                       device=dev)
     n = (K2_SMEM_MAX - k2_smem_bytes(s)) // 48 + extra
@@ -457,7 +457,7 @@ def filled_scene(dev, extra):
                                      ("mat_type", "mat_color", "mat_tex", "mat_eta", "mat_k")})
 
 
-@pytest.mark.parametrize("name", ["textured256", "tables", "k2-opt-in", "k2-budget-past"])
+@pytest.mark.parametrize("name", ["textured256", "tables", "k2-budget-full", "k2-budget-past"])
 def test_beyond_cap_scenes_on_card(dev, name):
     """chip_smoke phase 19 (c) small: scenes past the JAX package's TPU
     caps take the kernel path, through the kernel kernel_tier names,
@@ -480,6 +480,49 @@ def test_beyond_cap_scenes_on_card(dev, name):
     ref = ray_color(s, o, d, u, DEFAULT_OPTIONS)
     assert torch.isfinite(out).all() and ref.abs().max() > 0
     assert torch.equal(out, ref), f"{(out != ref).any(-1).sum().item()} lanes differ"
+
+
+def cloud_past_2_20(dev):
+    """sphere_cloud(2^20) with one area light: 2^20 + 1 primitives, past
+    the JAX package's P <= 2^20 cap (chip_smoke.py renders a larger one)."""
+    from plutracer_tpu_torch.scene.loader import sphere_cloud
+    from plutracer_tpu_torch.scene.types import LIGHT_AREA, MAT_EMISSION, LightDesc, MaterialDesc
+
+    desc = sphere_cloud(1 << 20, seed=0)
+    f32 = lambda *v: np.array(v, np.float32)
+    pid = desc.add_prim(PrimDesc(PRIM_SPHERE, a=f32(0.0, 15.0, 0.0), b=f32(2.0, 0.0, 0.0),
+                                 material=desc.add_material(MaterialDesc(MAT_EMISSION))))
+    desc.prims[pid].light = desc.add_light(LightDesc(LIGHT_AREA, intensity=np.full(3, 50.0, np.float32),
+                                                     prim=pid))
+    return compile_scene(desc, device=dev)
+
+
+@pytest.mark.parametrize("name", ["k2-budget-past", "cloud-2^20+1"])
+def test_k4_k5_beyond_caps_on_card(dev, name):
+    """chip_smoke phase 19 (c) small: on K3-tier scenes past the JAX
+    package's TPU caps (demo-box past K2's shared memory, with M far past
+    16; a sphere cloud past 2^20 primitives), K4 (stream_wavefront: one
+    launch a bounce) bit-equal to the plain ray_color on every lane, and
+    K5 (K3's debug launch) equal to ray_color(debug=True) on every
+    channel."""
+    # each scene's own camera resolution
+    s, res = (filled_scene(dev, 1), 48) if name == "k2-budget-past" else (cloud_past_2_20(dev), 64)
+    g = torch.Generator(device="cpu").manual_seed(res)
+    px = pixel_centers(res, res, dev) + torch.rand((res * res, 2), generator=g).to(dev)
+    o, d = generate_rays(s.camera, px, torch.rand((res * res, 2), generator=g).to(dev))
+    wf = DEFAULT_OPTIONS.replace(stream_wavefront=True)
+    assert resolve_integrator_backend(s, wf, dev) == "kernel" and kernel_tier(s, wf) == "k4"
+    u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
+    before = (onebounce_cuda.launches, ray_color_stream_cuda.debug_launches)
+    L4 = ray_color_kernel(s, o, d, u, wf)
+    L5, dbg = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS, debug=True)
+    assert (onebounce_cuda.launches - before[0], ray_color_stream_cuda.debug_launches - before[1]) \
+        == (DEFAULT_OPTIONS.max_bounces, 1)
+    ref_L, ref = ray_color(s, o, d, u, DEFAULT_OPTIONS, debug=True)
+    assert torch.isfinite(L4).all() and ref_L.abs().max() > 0
+    for what, L in (("K4", L4), ("K5", L5)):
+        assert torch.equal(L, ref_L), f"{what}: {(L != ref_L).any(-1).sum().item()} lanes differ"
+    k5_close(dbg, ref, name, stream=True)
 
 
 def test_cli_beyond_caps_on_card(dev, tmp_path, capsys):

@@ -191,7 +191,7 @@ def test_routing_table(name):
     if name == "tables":
         shape = (s.mat_type.shape[0], s.tex_type.shape[0], s.light_type.shape[0])
         assert shape == (20, 10, 12) and s.num_prims <= MAX_P
-        assert k2_smem_bytes(s) <= 48 * 1024  # no opt-in needed
+        assert k2_smem_bytes(s) <= K2_SMEM_MAX
     if not name.startswith("sphere-cloud"):
         assert resolve_integrator_backend(s, DEFAULT_OPTIONS, "cuda") == "kernel"
         assert resolve_integrator_backend(s, DEFAULT_OPTIONS, "cpu") == "plain"
@@ -264,15 +264,18 @@ def test_every_kept_gate_is_reached(case):
 @pytest.mark.parametrize("extra,want", [(0, "k2"), (1, "k3")])
 def test_k2_shared_memory_budget(extra, want):
     """K2 takes a scene of P <= 64 while its tables fit K2_SMEM_MAX
-    bytes of shared memory: unused materials fill demo-box's tables to the
-    budget (K2, with the launch's opt-in above 48 KB) and one row past it
-    (K3)."""
+    bytes of shared memory (the 48 KB a block takes without opting in):
+    unused materials fill demo-box's tables to the budget (K2) and one
+    row past it (K3)."""
     s = load("demo-box", 4)
     fill = (K2_SMEM_MAX - k2_smem_bytes(s)) // (4 * 12)  # a material row is 12 floats
     grow = lambda x, n: torch.cat([x, x[:1].expand(n, *x.shape[1:])])
-    big = dataclasses.replace(s, mat_type=grow(s.mat_type, fill + extra))
+    big = dataclasses.replace(s, **{f: grow(getattr(s, f), fill + extra) for f in
+                                    ("mat_type", "mat_color", "mat_tex", "mat_eta", "mat_k")})
+    assert K2_SMEM_MAX == 48 * 1024
+    assert tuple(x.shape[1] for x in tables.pack_tables(big)) == tuple(tables.TABLE_W)
     assert (k2_smem_bytes(big) <= K2_SMEM_MAX) == (extra == 0)
-    assert k2_smem_bytes(big) > 48 * 1024
+    assert k2_smem_bytes(big) > K2_SMEM_MAX - 48  # filled to within one material row
     assert megakernel_eligible(big, DEFAULT_OPTIONS)
     assert kernel_tier(big, DEFAULT_OPTIONS) == want
 
