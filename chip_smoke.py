@@ -102,7 +102,19 @@ both main paths of the port on the card:
      material past it (K3); a cloud of 1,100,000 spheres with an area
      light: compile seconds and one K3 launch bit-equal to plain; on both
      K3-tier scenes K4 (stream_wavefront) bit-equal to the plain
-     ray_color and K5 (K3's debug launch) to ray_color(debug=True).
+     ray_color and K5 (K3's debug launch) to ray_color(debug=True);
+20.  the scene-level API: (a) ops/intersect.query_closest under "pallas"
+     (K1), "bvh" (the K3 query) and "xla" on one stratum's camera rays
+     and one bounce's extension rays of demo-box 512x512 (262,144 rays),
+     and under the two kernels on mesh2 256x256 (65,536): found, prim, t,
+     p, norm, uv and dpdu bit-equal on hits, the gradient of sum(hit.p)
+     with respect to prim_a bit-equal between the kernels, each engine's
+     call timed; (b) ops/bvh.bvh_closest (the reference tree's lockstep
+     skip-link traversal, plain torch) on mesh1's 65,536 camera rays
+     against K1 and the K3 query (winners, t on hits), its steps and
+     time; (c) render/integrator.estimate_direct at demo-box's and
+     tables' 512x512 primary hits, one light drawn a ray, under the three
+     engines with shading_normal_le_gate on and off: bit-equal, timed.
 
 Every phase asserts and prints its seconds; any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
@@ -123,7 +135,8 @@ cheapest branch (``SHADE_OPS``). No single PyTorch call computes any of these fu
 so library_ms is null. The K3 query runs inside K3 and K4; its own
 launch answers the plain path's queries under intersect_backend="bvh",
 and its entry reports those launches in one mesh1 train step's
-loss_and_grads (phase 19 (b)).
+loss_and_grads (phase 19 (b)) and in phase 20's API calls; K1's entry
+adds phase 20's launches to the demo-box render's.
 The next line is the card's name and power limit; the last line is
 {"ok": true, "device": ...}.
 """
@@ -131,6 +144,7 @@ The next line is the card's name and power limit; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -214,6 +228,15 @@ ROUTE_TRAIN = 128
 BEYOND_CAPS = ("textured256", "tables")
 FILLED_RES = 256  # demo-box with its tables filled to and past K2's shared memory
 CLOUD_P, CLOUD_RES = 1_100_000, 64
+# phase 20: (a) query_closest on one stratum's camera rays and one bounce's
+# extension rays of each scene at its main path's shape ("xla" on
+# demo-box only: a mesh stratum under "xla" takes seconds); (b)
+# bvh_closest's rays on mesh1; (c) estimate_direct's scenes (512x512
+# primary hits)
+API_QUERY = (("demo-box", 512, INTERSECT_BACKENDS), ("mesh2", 256, ("pallas", "bvh")))
+API_BVH_RES = 256  # mesh1, 65,536 camera rays
+API_DIRECT = ("demo-box", "tables")
+API_DIRECT_RES = 512
 
 
 def work_bound(nbytes: float, ops: float):
@@ -582,20 +605,23 @@ def main() -> int:
     # the K3 query's own launches: the plain path's queries under
     # intersect_backend="bvh" (phase 19 (b))
     query_launches = routing_phase(phase, dev, card)
+    api_launches = api_phase(phase, dev, card)
     phase()
     print(f"K1 launches by shape: demo-box primary (the 512x512 64-spp render) {launches['K1']}, "
           + ", ".join(f"{k} {v}" for k, v in train_k1.items())
-          + "; the mesh renders (K3) and the wavefront render (K4) 0")
+          + f", the scene-level API's queries (phase 20) {api_launches['K1']}; the mesh renders "
+          "(K3) and the wavefront render (K4) 0")
     assert not spills, f"ptxas spills (stores, loads) in {spills}"
 
     kernels = [
-        entry("K1 closest_hit (ms: kernel-only, demo-box primary; launches: the demo-box render)",
-              K1_SOURCE, K1_REPLACES, launches["K1"], k1_err, k1_ms,
+        entry("K1 closest_hit (ms: kernel-only, demo-box primary; launches: the demo-box render "
+              "and the scene-level API's queries)",
+              K1_SOURCE, K1_REPLACES, launches["K1"] + api_launches["K1"], k1_err, k1_ms,
               k1_plain_ms, k1_bound),
         entry("K2 path megakernel", K2_SOURCE, K2_REPLACES, launches["K2"], k2_err, k2_ms,
               k2_plain_ms, k2_bound),
         big[0],
-        query_entry(query_launches),
+        query_entry(query_launches + api_launches["K3 query"]),
         big[1],
         k5,
     ]
@@ -992,7 +1018,8 @@ def big_scene_phases(phase, dev, card):
     query_entry = lambda n: entry(
         "K3 query bvh_closest (inside K3 and K4, and its own launch for the plain path's "
         "queries under intersect_backend='bvh'; ms: mesh1 extension rays; launches: one mesh1 "
-        "128x128 loss_and_grads)", KQ_SOURCE, KQ_REPLACES, n, q_err, q_ms, q_plain_ms, q_bound)
+        "128x128 loss_and_grads and the scene-level API's queries)", KQ_SOURCE, KQ_REPLACES, n,
+        q_err, q_ms, q_plain_ms, q_bound)
     return [
         entry("K3 stream kernel (ms: the mesh1 launch of 4 strata)", K3_SOURCE, K3_REPLACES,
               k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound),
@@ -1944,6 +1971,140 @@ def routing_phase(phase, dev, card):
     assert kernel_vs_plain(cloud, o, d, u, f"sphere cloud {CLOUD_RES}x{CLOUD_RES}") == "k3"
     k4_k5_vs_plain(cloud, o, d, u, f"sphere cloud {CLOUD_RES}x{CLOUD_RES}")
     return query_launches
+
+
+def api_phase(phase, dev, card):
+    """Phase 20: the scene-level API on the card. (a) query_closest under
+    each engine on a stratum's camera rays and a bounce's extension rays
+    (demo-box 512x512, mesh2 256x256): found and prim equal, t, p, norm,
+    uv and dpdu bit-equal on hits, the gradient of sum(hit.p) with respect
+    to prim_a bit-equal between "pallas" and "bvh", each query timed; (b)
+    bvh_closest (the reference tree's lockstep skip-link traversal, plain
+    torch) on mesh1's 65,536 camera rays against K1 and the K3 query:
+    winners equal, t equal on hits, its steps and time; (c) estimate_direct
+    at demo-box's and tables' 512x512 primary hits, one light drawn a ray,
+    under each engine with shading_normal_le_gate on and off: bit-equal.
+    Returns the K1 and K3-query launches of (a) and (c)'s API calls (the
+    counts set to 0 just before each, read just after)."""
+    from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.ops import bsdf, tables, texture
+    from plutracer_tpu_torch.ops.bvh import bvh_closest
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
+        closest_hit, closest_hit_bvh, closest_hit_bvh_cuda, closest_hit_cuda,
+    )
+    from plutracer_tpu_torch.ops.intersect import query_closest
+    from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
+    from plutracer_tpu_torch.parallel.sharded import _deterministic
+    from plutracer_tpu_torch.render.integrator import estimate_direct
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+    from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS as OPTS
+
+    phase("20 scene-level API")
+    by = lambda b, **kw: OPTS.replace(intersect_backend=b, **kw)
+    load = lambda name, res: compile_scene(load_scene_file(
+        str(ROOT / "scenes" / f"{name}.urn"), ["/res", f"{res}x{res}"]), device=dev)
+    counters = {"K1": closest_hit_cuda, "K3 query": closest_hit_bvh_cuda}
+    made = {k: 0 for k in counters}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        for k, c in counters.items():
+            made[k] += c.launches
+        return out
+
+    def query_and_grad(scene, o, d, b):
+        a = scene.prim_a.clone().requires_grad_(True)
+        with _deterministic():
+            h = query_closest(dataclasses.replace(scene, prim_a=a), o, d, by(b))
+            (g,) = torch.autograd.grad(h.p.sum(), a)
+        return h, g
+
+    # (a) query_closest under each engine
+    for name, res, engines in API_QUERY:
+        scene = load(name, res)
+        o, d, _ = main_path_rays(scene, res, res, 2, rng.PRNGKey(7), 1, OPTS)
+        f0, _, t0 = closest_hit(scene.prims_packed, o, d, scene.packed_type_rows)
+        ext = (o + d * torch.where(f0, t0, 1.0)[:, None],
+               uniform_sphere_sample(rng.uniform(rng.PRNGKey(99), (o.shape[0], 2), dev)))
+        for rays, (ro, rd) in (("camera", (o, d)), ("extension", ext)):
+            got = {b: counted(lambda: query_and_grad(scene, ro, rd, b)) for b in engines}
+            h0, g0 = got["pallas"]
+            f = h0.found
+            for b, (h, g) in got.items():
+                assert torch.equal(h.found, f) and torch.equal(h.prim[f], h0.prim[f]), (name, b)
+                for field in ("t", "p", "norm", "uv", "dpdu"):
+                    x, y = getattr(h, field)[f], getattr(h0, field)[f]
+                    assert torch.equal(x, y), f"{name} {rays} {b}: {field} differs on " \
+                                              f"{(x != y).reshape(x.shape[0], -1).any(-1).sum().item()} hits"
+            g_bvh = got["bvh"][1]
+            assert g0.abs().max() > 0 and torch.equal(g_bvh, g0), f"{name} {rays}: gradient differs"
+            ms = {b: time_ms(lambda: query_closest(scene, ro, rd, by(b)), reps=3, warmup=1)
+                  for b in engines}
+            print(f"api (a) query_closest {name} {res}x{res} {rays} rays (B={ro.shape[0]}, "
+                  f"P={scene.num_prims}), engines {list(engines)}: found, prim, t, p, norm, uv, "
+                  f"dpdu bit-equal on hits (hit fraction {f.double().mean().item():.4f}); "
+                  f"d sum(p) / d prim_a bit-equal pallas vs bvh; ms "
+                  + ", ".join(f"{b} {v:.4f}" for b, v in ms.items()) + f" ({card})")
+        del scene, got
+
+    # (b) bvh_closest over the reference's tree against both kernels
+    mesh1 = load("mesh1", API_BVH_RES)
+    o, d, _ = main_path_rays(mesh1, API_BVH_RES, API_BVH_RES, 2, rng.PRNGKey(7), 1, OPTS)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    f, p, t, steps = bvh_closest(mesh1, mesh1.bvh, o, d, count=True)
+    end.record()
+    torch.cuda.synchronize()
+    bvh_ms = start.elapsed_time(end)
+    for who, want in (("K1", closest_hit(mesh1.prims_packed, o, d, mesh1.packed_type_rows)),
+                      ("K3 query", closest_hit_bvh(mesh1, o, d))):
+        assert torch.equal(f, want[0]) and torch.equal(p[f], want[1][f]), who
+        assert torch.equal(t[f], want[2][f]), who
+    k1_ms = time_ms(lambda: closest_hit(mesh1.prims_packed, o, d, mesh1.packed_type_rows), reps=5)
+    q_ms = time_ms(lambda: closest_hit_bvh(mesh1, o, d), reps=5)
+    print(f"api (b) bvh_closest mesh1 {API_BVH_RES}x{API_BVH_RES} camera rays (B={o.shape[0]}, "
+          f"P={mesh1.num_prims}, {mesh1.bvh.num_nodes} nodes): winners and t on hits equal to K1's "
+          f"and the K3 query's (hit fraction {f.double().mean().item():.4f}); {steps} lockstep "
+          f"steps, {bvh_ms:.4f} ms ({bvh_ms / steps:.4f} ms a step); K1 {k1_ms:.4f} ms, K3 query "
+          f"{q_ms:.4f} ms ({card})")
+    del mesh1
+
+    # (c) estimate_direct at the primary hit under each engine, both gates
+    for name in API_DIRECT:
+        scene = load(name, API_DIRECT_RES)
+        o, d, _ = main_path_rays(scene, API_DIRECT_RES, API_DIRECT_RES, 2, rng.PRNGKey(7), 1,
+                                 OPTS)
+        B = o.shape[0]
+        h = query_closest(scene, o, d)
+        packed = tables.pack_tables(scene)
+        mat = tables.gather_prim(packed, h.prim).material
+        u = rng.uniform(rng.PRNGKey(3), (B, 8), dev)
+        li = torch.clamp((u[:, 7] * scene.num_lights).to(torch.int32), max=scene.num_lights - 1)
+        args = (scene, h, bsdf.make_frame(h.norm, h.dpdu), tables.gather_mat(packed, mat).mtype,
+                texture.eval_color(scene, mat, h.uv), -d, li, u)
+        for gate in (False, True):
+            out, ms = {}, {}
+            for b in INTERSECT_BACKENDS:
+                opts = by(b, shading_normal_le_gate=gate)
+                out[b] = counted(lambda: estimate_direct(*args, opts))
+                ms[b] = time_ms(lambda: estimate_direct(*args, opts), reps=2, warmup=0)
+            L0 = out["pallas"]
+            assert torch.isfinite(L0).all() and L0.abs().max() > 0, name
+            for b, L in out.items():
+                assert torch.equal(L, L0), f"{name} gate={gate} {b}: differs on " \
+                                           f"{(L != L0).any(-1).sum().item()} rays"
+            print(f"api (c) estimate_direct {name} {API_DIRECT_RES}x{API_DIRECT_RES} primary hits "
+                  f"(B={B}, L={scene.num_lights}), shading_normal_le_gate={gate}: bit-equal "
+                  f"under {list(INTERSECT_BACKENDS)} (lit rays "
+                  f"{(L0.abs().amax(-1) > 0).double().mean().item():.4f}); ms "
+                  + ", ".join(f"{b} {v:.4f}" for b, v in ms.items()) + f" ({card})")
+        del scene
+    print(f"api: launches of the API calls {made}")
+    assert made["K1"] > 0 and made["K3 query"] > 0, made
+    return made
 
 
 def loss_and_grads_ms(sharded, fn):

@@ -41,6 +41,11 @@ import numpy as np
 import torch
 
 
+def pathlib_stem(path: str) -> str:
+    """The file name of `path` without its last suffix."""
+    return pathlib.Path(path).stem
+
+
 def _pop_flag(args: List[str], flag: str) -> Optional[str]:
     if flag in args:
         i = args.index(flag)
@@ -134,7 +139,7 @@ def run(args: List[str]) -> RenderResult:
 
         if profile_dir:
             print("(/profile is ignored under /supervise: the render runs in a worker process)")
-        workdir = checkpoint or f".supervise_{pathlib.Path(scn_path).stem}_{width}x{height}_s{seed}"
+        workdir = checkpoint or f".supervise_{pathlib_stem(scn_path)}_{width}x{height}_s{seed}"
         if os.path.exists(workdir) and not os.path.isdir(workdir):
             raise SystemExit(f"/checkpoint {workdir} is a file; under /supervise it names the "
                              "supervisor's work directory")

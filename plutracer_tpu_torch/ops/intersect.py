@@ -30,7 +30,13 @@ names and meanings, plutracer_tpu/ops/intersect.py:195-256):
 
 All four return the same winner (found, prim). The kernels' t carries no
 gradient; ``differentiable_t`` recomputes it at the winner on every backend
-but "xla" (the JAX package's query_closest), for the integrator.
+but "xla", for the integrator. ``query_closest`` is the scene-level query
+with shading detail: query_lite, then differentiable_t, then
+hit_detail_rows, so its t and hit point carry a gradient to the primitive
+tables on every backend (the JAX package's query_closest,
+plutracer_tpu/ops/intersect.py:258-271). ``intersect_closest`` is the same
+over intersect_lite alone, and ``hit_detail`` / ``intersect_prim_t`` the
+scene-level forms of hit_detail_rows / prim_t_rows.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from plutracer_tpu_torch.ops.geometry import Aabb
 from plutracer_tpu_torch.ops.safemath import (
     cross,
     dot,
@@ -49,7 +56,7 @@ from plutracer_tpu_torch.ops.safemath import (
     safe_rsqrt,
     safe_sqrt,
 )
-from plutracer_tpu_torch.ops.tables import gather_prim
+from plutracer_tpu_torch.ops.tables import gather_prim, pack_tables
 from plutracer_tpu_torch.scene.types import PRIM_BOX, PRIM_SPHERE
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
 
@@ -119,13 +126,9 @@ def _prim_t_batched(o, d, ptype, a, b, c):
 def line_hit_aabb(o, d, mn, mx):
     """Reference aabb::hit (inc/cmmn.h:150-172): slab LINE test, hit iff
     tmax >= tmin — no positivity, boxes fully behind the ray still 'hit'.
-    Broadcasts over leading dims of (o, d) x (mn, mx)."""
-    rrd = 1.0 / torch.where(d == 0.0, 1e-20, d)
-    t1 = (mn - o) * rrd
-    t2 = (mx - o) * rrd
-    tmin = torch.amax(torch.minimum(t1, t2), dim=-1)
-    tmax = torch.amin(torch.maximum(t1, t2), dim=-1)
-    return tmax >= tmin
+    Broadcasts over leading dims of (o, d) x (mn, mx). Delegates to the
+    math-core Aabb (ops/geometry.py), which owns the cmmn.h box kit."""
+    return Aabb(mn, mx).hit(o, d)
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +182,13 @@ def intersect_lite(scene, o, d, t_max: float = T_MAX):
     return t < t_max, prim.to(torch.int32), t
 
 
+def intersect_closest(scene, o, d, t_max: float = T_MAX) -> Hit:
+    """Closest-hit query (intersect_lite) + full shading detail for the
+    winner."""
+    found, prim, t = intersect_lite(scene, o, d, t_max)
+    return hit_detail(scene, o, d, t, prim, found)
+
+
 def _resolve_backend(options, device) -> str:
     """options.intersect_backend with "auto" resolved for tensors on
     `device`: "pallas" (K1) on a CUDA device, "xla" elsewhere. Raises
@@ -226,6 +236,23 @@ def differentiable_t(tables, o, d, found, prim, t, options):
         return t
     td = prim_t_rows(o, d, gather_prim(tables, prim))
     return torch.where(found & (td < T_MAX), td, t)
+
+
+def query_closest(scene, o, d, options=DEFAULT_OPTIONS) -> Hit:
+    """Closest hit by the engine options.intersect_backend names
+    (query_lite: K1 under "auto" on the card and under "pallas", the K3
+    query under "bvh"), with shading detail and a differentiable t:
+    recomputed at the winning primitive on every backend but "xla", which
+    keeps intersect_lite's own differentiable t."""
+    tables = pack_tables(scene)
+    found, prim, t = query_lite(scene, o, d, options)
+    t = differentiable_t(tables, o, d, found, prim, t, options)
+    return hit_detail_rows(o, d, t, prim, found, gather_prim(tables, prim))
+
+
+def intersect_prim_t(scene, prim_idx, o, d):
+    """t for a *single* primitive row per ray (used by area-light pdfs)."""
+    return prim_t_rows(o, d, gather_prim(pack_tables(scene), prim_idx))
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +356,11 @@ def hit_detail_rows(o, d, t, prim, found, rows) -> Hit:
     uv = torch.where(is_s, suv, torch.where(is_b, buv, tuv))
     dpdu = torch.where(is_s, sdpdu, torch.where(is_b, bdpdu, tdpdu))
     return Hit(found=found, t=t, prim=prim, p=p, norm=norm, uv=uv, dpdu=dpdu)
+
+
+def hit_detail(scene, o, d, t, prim, found) -> Hit:
+    """Gather the winning primitive's row and compute shading detail."""
+    return hit_detail_rows(o, d, t, prim, found, gather_prim(pack_tables(scene), prim))
 
 
 def prim_t_rows(o, d, rows):

@@ -7,7 +7,9 @@ term is the squared distance of the hit point from the WORLD ORIGIN — a
 reference bug that changes images, replicated behind
 RenderOptions.origin_distance_pdf.
 
-All functions operate on pre-gathered packed rows (ops.tables).
+The primary implementations operate on pre-gathered packed rows
+(ops.tables); the scene-based wrappers at the bottom keep the simple API
+for tests, tools and user code.
 """
 
 from __future__ import annotations
@@ -20,7 +22,13 @@ import torch.nn.functional as F
 from plutracer_tpu_torch.ops import intersect
 from plutracer_tpu_torch.ops.safemath import dot, normalize, safe_div, sqrt
 from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
-from plutracer_tpu_torch.ops.tables import LightRows, PrimRows
+from plutracer_tpu_torch.ops.tables import (
+    LightRows,
+    PrimRows,
+    gather_light,
+    gather_prim,
+    pack_tables,
+)
 from plutracer_tpu_torch.scene.types import (
     LIGHT_AREA,
     LIGHT_POINT,
@@ -133,3 +141,41 @@ def emitted_rows(prim_rows: PrimRows, lrows_of_prim: LightRows, norm, w):
     has = prim_rows.light >= 0
     gate = dot(norm, w) > 0.0
     return torch.where((has & gate)[..., None], lrows_of_prim.intensity, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# scene-based wrappers (tests/tools API)
+# ---------------------------------------------------------------------------
+
+
+def sample_surface(scene, prim_idx, u2, u_face, u_axis):
+    rows = gather_prim(pack_tables(scene), prim_idx)
+    return sample_surface_rows(rows, u2, u_face, u_axis)
+
+
+def surface_pdf(scene, prim_idx, p, wi, options):
+    rows = gather_prim(pack_tables(scene), prim_idx)
+    return surface_pdf_rows(rows, p, wi, options)
+
+
+def _light_and_carrier(scene, light_idx):
+    tables = pack_tables(scene)
+    lrows = gather_light(tables, light_idx)
+    return lrows, gather_prim(tables, torch.clamp(lrows.prim, min=0))
+
+
+def sample_light(scene, light_idx, p, u2, u_face, u_axis, options) -> LightSample:
+    lrows, carrier = _light_and_carrier(scene, light_idx)
+    return sample_light_rows(lrows, carrier, p, u2, u_face, u_axis, options)
+
+
+def light_pdf(scene, light_idx, p, wi, options):
+    lrows, carrier = _light_and_carrier(scene, light_idx)
+    return light_pdf_rows(lrows, carrier, p, wi, options)
+
+
+def emitted(scene, prim_idx, norm, w):
+    tables = pack_tables(scene)
+    prows = gather_prim(tables, prim_idx)
+    lrows = gather_light(tables, torch.clamp(prows.light, min=0))
+    return emitted_rows(prows, lrows, norm, w)

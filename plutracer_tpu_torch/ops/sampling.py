@@ -1,5 +1,12 @@
 """Sampling distributions (reference inc/cmmn.h:239-299), batched over
-uniforms drawn by the caller (plutracer_tpu_torch.rng)."""
+uniforms drawn by the caller (plutracer_tpu_torch.rng), and stratified
+sample offsets drawn from a threefry key.
+
+Every square root is ops/safemath.sqrt (rounded to nearest on the CPU too)
+and every division by a number divides by a float32 tensor on the
+dividend's device (render/renderer.over): on CUDA torch turns a division
+by a Python number into a product with its reciprocal.
+"""
 
 from __future__ import annotations
 
@@ -7,6 +14,7 @@ import math
 
 import torch
 
+from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops.safemath import sqrt
 
 
@@ -36,6 +44,16 @@ def concentric_disk_sample(u: torch.Tensor) -> torch.Tensor:
     return torch.where(zero[..., None], 0.0, out)
 
 
+def uniform_hemisphere_sample(u: torch.Tensor) -> torch.Tensor:
+    r = sqrt(torch.clamp(1.0 - u[..., 0] * u[..., 0], min=0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), u[..., 0]], -1)
+
+
+def uniform_hemisphere_pdf() -> float:
+    return 1.0 / (2.0 * math.pi)
+
+
 def uniform_sphere_sample(u: torch.Tensor) -> torch.Tensor:
     z = 1.0 - 2.0 * u[..., 0]
     r = sqrt(torch.clamp(1.0 - z * z, min=0.0))
@@ -43,8 +61,37 @@ def uniform_sphere_sample(u: torch.Tensor) -> torch.Tensor:
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
 
 
+def uniform_sphere_pdf() -> float:
+    return 1.0 / (4.0 * math.pi)
+
+
 def cosine_hemisphere_sample(u: torch.Tensor) -> torch.Tensor:
     d = concentric_disk_sample(u)
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
     z = sqrt(torch.clamp(1.0 - d2, min=0.0))
     return torch.cat([d, z[..., None]], -1)
+
+
+def cosine_hemisphere_pdf(costheta: torch.Tensor) -> torch.Tensor:
+    from plutracer_tpu_torch.render.renderer import over
+
+    return over(costheta, math.pi)
+
+
+def stratified_offsets(key: torch.Tensor, n: int, jitter: bool = True) -> torch.Tensor:
+    """(n*n, 2) stratified offsets in [0,1)^2: (cell + jitter*0.999)/n, on
+    the key's device.
+
+    Matches samplers::stratified_sample_2d (inc/sampler.h:44-50), including
+    the 0.999 jitter shrink; jitter=False centers at 0.5. The jitter is
+    rng.uniform(key, (n*n, 2)), bit-equal to jax.random.uniform.
+    """
+    from plutracer_tpu_torch.render.renderer import over
+
+    ix = torch.arange(n * n, device=key.device)
+    cell = torch.stack([ix % n, ix // n], -1).to(torch.float32)
+    if jitter:
+        j = rng.uniform(key, (n * n, 2), key.device) * 0.999
+    else:
+        j = torch.full((n * n, 2), 0.5, device=key.device)
+    return over(cell + j, n)

@@ -3,14 +3,15 @@
 Reference: props::color (inc/props.h:9-31) evaluated at hr.texture_coords;
 procedural textures inc/textures/textures.h:7-31; image texel lookup
 inc/texture.h:53-60 (wrap-mode nearest neighbor). Row-based: the caller
-gathers one packed material row and one texture row per shading point.
+gathers one packed material row and one texture row per shading point;
+``eval_color`` is the scene-level form for tests, tools and user code.
 """
 
 from __future__ import annotations
 
 import torch
 
-from plutracer_tpu_torch.ops.tables import MatRows, TexRows
+from plutracer_tpu_torch.ops.tables import MatRows, TexRows, gather_mat, gather_tex, pack_tables
 from plutracer_tpu_torch.scene.types import TEX_CHECKERBOARD, TEX_GRID
 
 
@@ -56,3 +57,11 @@ def eval_color_rows(atlas, mrows: MatRows, trows: TexRows, uv, has_images: bool)
         torch.where((ttype == TEX_GRID)[..., None], grid, img),
     )
     return torch.where(has_tex[..., None], texval, mrows.color)
+
+
+def eval_color(scene, mat_idx, uv):
+    """Scene-based wrapper (tests/tools API). mat_idx: (B,); uv: (B,2)."""
+    tables = pack_tables(scene)
+    mrows = gather_mat(tables, mat_idx)
+    trows = gather_tex(tables, torch.clamp(mrows.tex, min=0))
+    return eval_color_rows(scene.atlas, mrows, trows, uv, has_images=scene.atlas.shape[0] > 1)

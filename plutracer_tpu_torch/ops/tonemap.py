@@ -12,7 +12,7 @@ import torch
 WHITE = 2.0
 
 
-def postprocess_image(color: torch.Tensor) -> torch.Tensor:
+def reinhard(color: torch.Tensor) -> torch.Tensor:
     """(..., 3) linear -> tonemapped + gamma. Vectorized over any batch."""
     w = torch.tensor([0.2126, 0.7152, 0.0722], device=color.device)
     cw = color * w
@@ -21,3 +21,7 @@ def postprocess_image(color: torch.Tensor) -> torch.Tensor:
     scale = torch.where(luma > 0.0, tone / torch.where(luma == 0.0, 1.0, luma), 0.0)
     c = torch.clamp(color * scale, min=0.0)
     return c ** (1.0 / 2.2)
+
+
+# the JAX package's name for reinhard over a full (H, W, 3) image
+postprocess_image = reinhard

@@ -155,6 +155,35 @@ def _nee_contributions(
     return contrib_l, contrib_b, l_pdf2
 
 
+def estimate_direct(scene, hit, frame, mtype, albedo, wwo, li, u,
+                    options: RenderOptions = DEFAULT_OPTIONS):
+    """Standalone estimate_direct_light (renderer.cpp:5-51; the JAX
+    package's estimate_direct, integrator.py:136-163) for tests, tools and
+    user code: light li's sample and a non-specular BSDF sample at the
+    shading point, their two closest-hit queries by
+    options.intersect_backend (query_lite: K1 or the K3 query on the
+    card), and the two strategies' MIS-weighted sum. `u`: (B, 8)
+    uniforms. ray_color uses the batched-query path of plain_bounce."""
+    tables = pack_tables(scene)
+    lrows = gather_light(tables, li)
+    carrier = gather_prim(tables, torch.clamp(lrows.prim, min=0))
+    ls = lights.sample_light_rows(lrows, carrier, hit.p, u[:, 0:2], u[:, 2], u[:, 3], options)
+    mrows = gather_mat(tables, gather_prim(tables, hit.prim).material)
+    bs = bsdf_ops.bsdf_sample(frame, mtype, albedo, mrows.eta, mrows.k, wwo, u[:, 4], u[:, 5:7],
+                              non_specular_only=True)
+    sf, sp, _ = intersect.query_lite(scene, hit.p, ls.wi, options)
+    nf, npr, nt = intersect.query_lite(scene, hit.p, bs.wwi, options)
+    s_hits = gather_prim_light(tables, sp) == li
+    n_hits = gather_prim_light(tables, npr) == li
+    if options.shading_normal_le_gate:
+        nn = hit.norm  # unused in this mode
+    else:
+        nn = intersect.hit_detail(scene, hit.p, bs.wwi, nt, npr, nf).norm
+    cl, cb, _ = _nee_contributions(hit, frame, mtype, albedo, wwo, options, ls, bs, lrows,
+                                   carrier, sf, s_hits, nf, n_hits, nn)
+    return cl + cb
+
+
 def megakernel_eligible(scene, options) -> bool:
     """Whether the kernels (K2, K3, K4, K5) take the scene: shapes and
     options only. Each gate is something a kernel of the port needs:

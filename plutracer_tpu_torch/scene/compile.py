@@ -233,6 +233,17 @@ def walk_tables(prim_type, bvh, prims_packed) -> Dict:
     hi = np.asarray(bvh.node_max, np.float32) + np.float32(h["margin"])
     N = node_prim.shape[0]
     leaf = node_prim >= 0
+    # a sphere leaf's box also holds its row's cull box (packed cols 11:17,
+    # its parent's box): the reference tests a leaf without its own box, so
+    # a phantom hit outside the sphere's box stands wherever the ray's LINE
+    # crosses the parent's. Only a walk child that is one reference leaf
+    # (the children of a root over at most 3 primitives, or the root of a
+    # one-primitive scene) has a leaf's box; every other child is an
+    # internal node, which holds its spheres' parents.
+    cull = np.array(prims_packed, np.float32)[np.maximum(h["leaf_row"], 0), 11:17]
+    widen = (leaf & line_only)[:, None]
+    lo = np.where(widen, np.minimum(lo, cull[:, :3]), lo)
+    hi = np.where(widen, np.maximum(hi, cull[:, 3:]), hi)
     csum = np.concatenate([[0], np.cumsum(leaf)])
     n_leaves = csum[skip] - csum[np.arange(N)]
     order = h["leaf_row"].astype(np.int64)[leaf]  # packed rows in leaf order

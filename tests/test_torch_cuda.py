@@ -663,3 +663,123 @@ def test_terms_on_card(dev):
     assert ys.shape == (DEFAULT_OPTIONS.max_bounces, 3, o.shape[0], 3)
     err = (ys.double().sum((0, 1)) - L.double()).abs().max()
     assert err <= 1e-6 * L.double().abs().max()
+
+
+ENGINES = ("pallas", "bvh", "xla")
+
+
+def query_closest_on_card(s, o, d, engine):
+    """query_closest under `engine`, the K1 and K3-query launches it made,
+    and the gradient of sum(hit.p) with respect to prim_a (deterministic
+    algorithms: the row gather's backward accumulates with atomics)."""
+    from plutracer_tpu_torch.ops.intersect import query_closest
+    from plutracer_tpu_torch.parallel.sharded import _deterministic
+
+    a = s.prim_a.clone().requires_grad_(True)
+    before = (closest_hit_cuda.launches, closest_hit_bvh_cuda.launches)
+    with _deterministic():
+        h = query_closest(dataclasses.replace(s, prim_a=a), o, d,
+                          DEFAULT_OPTIONS.replace(intersect_backend=engine))
+        (g,) = torch.autograd.grad(h.p.sum(), a)
+    launches = (closest_hit_cuda.launches - before[0], closest_hit_bvh_cuda.launches - before[1])
+    return h, g, launches
+
+
+@pytest.mark.parametrize("name", ["demo-box", "mesh0"])
+def test_query_closest_backends_on_card(dev, name):
+    """chip_smoke phase 20 (a) small: query_closest on camera rays and
+    extension rays from their hits under "pallas" (one K1 launch), "bvh"
+    (one K3 query launch) and "xla" (none): found and prim equal, t, p,
+    norm, uv and dpdu bit-equal on hits, and the gradient of sum(hit.p)
+    with respect to prim_a bit-equal between "pallas" and "bvh" (both
+    recompute t at the winner)."""
+    s, o, d = scene_and_rays(name, 48, dev)
+    f0, _, t0 = closest_hit(s.prims_packed, o, d, s.packed_type_rows)
+    ext = (o + d * torch.where(f0, t0, 1.0)[:, None], interior_rays(s, o.shape[0], dev)[1])
+    for ro, rd in ((o, d), ext):
+        got = {b: query_closest_on_card(s, ro, rd, b) for b in ENGINES}
+        assert [got[b][2] for b in ENGINES] == [(1, 0), (0, 1), (0, 0)]
+        h0 = got["pallas"][0]
+        f = h0.found
+        assert f.float().mean() > 0.1
+        for b in ("bvh", "xla"):
+            h = got[b][0]
+            assert torch.equal(h.found, f) and torch.equal(h.prim[f], h0.prim[f]), b
+            for field in ("t", "p", "norm", "uv", "dpdu"):
+                assert torch.equal(getattr(h, field)[f], getattr(h0, field)[f]), (b, field)
+        assert got["pallas"][1].abs().max() > 0
+        assert torch.equal(got["bvh"][1], got["pallas"][1])
+
+
+@pytest.mark.parametrize("name", ["demo-box", "mesh0", "mesh1"])
+def test_bvh_closest_matches_kernels_on_card(dev, name):
+    """chip_smoke phase 20 (b) small: bvh_closest (the reference tree's
+    lockstep skip-link traversal, plain torch on the card) against K1 and
+    the K3 query on camera rays and random rays from inside the scene:
+    found and prim equal, t equal on hits."""
+    from plutracer_tpu_torch.ops.bvh import bvh_closest
+
+    s, o, d = scene_and_rays(name, 32, dev)
+    for ro, rd in ((o, d), interior_rays(s, 1024, dev)):
+        f, p, t, steps = bvh_closest(s, s.bvh, ro, rd, count=True)
+        assert steps > 1 and f.float().mean() > 0.05
+        for want in (closest_hit(s.prims_packed, ro, rd, s.packed_type_rows),
+                     closest_hit_bvh(s, ro, rd)):
+            assert torch.equal(f, want[0]) and torch.equal(p[f], want[1][f])
+            assert torch.equal(t[f], want[2][f])
+
+
+@pytest.mark.parametrize("name", ["demo-box", "tables"])
+def test_estimate_direct_backends_on_card(dev, name):
+    """chip_smoke phase 20 (c) small: estimate_direct at the primary hit,
+    one light drawn a ray, under "pallas" (two K1 launches), "bvh" (two K3
+    query launches) and "xla", with shading_normal_le_gate on and off:
+    bit-equal across the engines."""
+    from plutracer_tpu_torch.ops import bsdf, tables, texture
+    from plutracer_tpu_torch.ops.intersect import query_closest
+    from plutracer_tpu_torch.render.integrator import estimate_direct
+
+    s, o, d = scene_and_rays(name, 48, dev)
+    B = o.shape[0]
+    h = query_closest(s, o, d)
+    packed = tables.pack_tables(s)
+    mat = tables.gather_prim(packed, h.prim).material
+    u = rng.uniform(rng.PRNGKey(3), (B, 8), dev)
+    li = torch.clamp((u[:, 7] * s.num_lights).to(torch.int32), max=s.num_lights - 1)
+    args = (s, h, bsdf.make_frame(h.norm, h.dpdu), tables.gather_mat(packed, mat).mtype,
+            texture.eval_color(s, mat, h.uv), -d, li, u)
+    for gate in (False, True):
+        out = {}
+        for b in ENGINES:
+            before = (closest_hit_cuda.launches, closest_hit_bvh_cuda.launches)
+            out[b] = estimate_direct(*args, DEFAULT_OPTIONS.replace(
+                intersect_backend=b, shading_normal_le_gate=gate))
+            made = (closest_hit_cuda.launches - before[0], closest_hit_bvh_cuda.launches - before[1])
+            assert made == {"pallas": (2, 0), "bvh": (0, 2), "xla": (0, 0)}[b], (b, made)
+        assert torch.isfinite(out["pallas"]).all() and out["pallas"].abs().max() > 0
+        for b in ("bvh", "xla"):
+            assert torch.equal(out[b], out["pallas"]), (gate, b)
+
+
+@pytest.mark.parametrize("centres", [(10.0,), (0.0, 10.0), (0.0, 10.0, 20.0)])
+def test_phantom_sphere_hit_kernels_on_card(dev, centres):
+    """A ray with |d| = 2 from (6, 0, 0) along (1.2, 0, 1.6): its sphere
+    test reports a hit on the unit sphere at x = 10 that its line misses.
+    The reference keeps it where no internal node's box culls it (one
+    sphere; two, under their root), and culls it when the sphere's parent
+    is the box of the spheres at 10 and 20: K1, the K3 query and
+    bvh_closest agree bit for bit on each."""
+    from plutracer_tpu_torch.ops.bvh import bvh_closest
+    from plutracer_tpu_torch.scene.types import SceneDesc
+
+    desc = SceneDesc()
+    for x in centres:
+        desc.add_prim(PrimDesc(PRIM_SPHERE, a=np.float32([x, 0, 0]), b=np.float32([1, 0, 0])))
+    s = compile_scene(desc, device=dev)
+    o = torch.tensor([[6.0, 0.0, 0.0]], device=dev)
+    d = torch.tensor([[1.2, 0.0, 1.6]], device=dev)
+    want = bvh_closest(s, s.bvh, o, d)
+    assert bool(want[0][0]) == (len(centres) < 3)
+    for got in (closest_hit(s.prims_packed, o, d, s.packed_type_rows), closest_hit_bvh(s, o, d)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1][want[0]], want[1][want[0]])
+        assert torch.equal(got[2][want[0]], want[2][want[0]])

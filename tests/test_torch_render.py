@@ -97,8 +97,9 @@ NO_JAX = (
 
 def test_package_never_imports_jax(tmp_path):
     """A fresh interpreter: import the port, render a tiny image through the
-    CLI, take one train step, run the flagship tool, a sharded render and
-    a (2, 2) mesh train step and term_dump on the CPU, and find
+    CLI, take one train step, query the scene-level API (query_closest,
+    bvh_closest, stratified_offsets), run the flagship tool, a sharded
+    render and a (2, 2) mesh train step and term_dump on the CPU, and find
     no jax or optax module and no module of the JAX package
     (plutracer_tpu, plutracer_tpu.*) loaded; then the same in a supervisor
     worker subprocess run as the supervisor runs it."""
@@ -106,6 +107,9 @@ def test_package_never_imports_jax(tmp_path):
         "import sys\n"
         "import plutracer_tpu_torch.cli as cli\n"
         "import plutracer_tpu_torch.ops.cuda.build, plutracer_tpu_torch.ops.cuda.integrator_kernel\n"
+        "from plutracer_tpu_torch.ops import bvh, geometry, intersect, lights, sampling, texture\n"
+        "from plutracer_tpu_torch.ops.tonemap import reinhard\n"
+        "from plutracer_tpu_torch.render.integrator import estimate_direct\n"
         "from plutracer_tpu_torch import rng\n"
         "from plutracer_tpu_torch.diff.optimize import InverseRenderConfig, optimize_scene\n"
         "from plutracer_tpu_torch.scene import compile_scene, load_scene_file\n"
@@ -116,6 +120,12 @@ def test_package_never_imports_jax(tmp_path):
         "p, losses = optimize_scene(s, s.atlas.new_zeros((6, 8, 3)), InverseRenderConfig(\n"
         "    width=8, height=6, n=1, steps=1, trainable=('mat_color',)))\n"
         "assert len(losses) == 1\n"
+        "import torch\n"
+        "o = s.camera.pos.expand(4, 3).contiguous()\n"
+        "d = torch.nn.functional.normalize(torch.randn(4, 3), dim=-1)\n"
+        "intersect.query_closest(s, o, d)\n"
+        "bvh.bvh_closest(s, s.bvh, o, d)\n"
+        "sampling.stratified_offsets(rng.PRNGKey(0), 2)\n"
         "from plutracer_tpu_torch.tools import inverse_flagship\n"
         "r = inverse_flagship.main(['--res', '8', '--steps', '1', '--phase2-steps', '1',"
         " '--target-n', '1', '--n', '1', '--phase2-n', '1', '--phase2-downsample', '2',"
