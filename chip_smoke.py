@@ -115,6 +115,16 @@ both main paths of the port on the card:
      time; (c) render/integrator.estimate_direct at demo-box's and
      tables' 512x512 primary hits, one light drawn a ray, under the three
      engines with shading_normal_le_gate on and off: bit-equal, timed.
+21.  R1, the threefry draw kernel: bit-equal to its plain version
+     (rng.uniform_block_plain, int64 tensor ops on the card) at a
+     demo-box 512x512 stratum's path uniforms (8, 262,144, 12), a 4-strata
+     mesh1 launch's (8, 4 x 65,536, 12), both launches' jitter blocks,
+     ragged B (1, 127, 1,000,003) and blocks past 2^24 words, one launch
+     a call; kernel-only (torch.profiler) and wrapper times beside the
+     plain version's and the bound; demo-box 512x512 and mesh1 256x256
+     renders, a demo-box 256x256 train step (loss and gradients) and a
+     1x1-mesh render_sharded through R1 bit-equal to the same with
+     plain-drawn uniforms (the draws before R1), R1 launches counted.
 
 Every phase asserts and prints its seconds; any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
@@ -136,7 +146,12 @@ so library_ms is null. The K3 query runs inside K3 and K4; its own
 launch answers the plain path's queries under intersect_backend="bvh",
 and its entry reports those launches in one mesh1 train step's
 loss_and_grads (phase 19 (b)) and in phase 20's API calls; K1's entry
-adds phase 20's launches to the demo-box render's.
+adds phase 20's launches to the demo-box render's. R1's entry counts
+its launches in the CLI renders of phases 5 and 10 (two a pass-loop
+launch), and its bound is the larger of the bytes it writes over HBM's
+rate and its 32-bit integer operations (R1_WORD_OPS a word) over 128 a
+clock on each SM at the card's maximum SM clock; torch's generators are
+Philox, not threefry, so no library call computes its function.
 The next line is the card's name and power limit; the last line is
 {"ok": true, "device": ...}.
 """
@@ -171,6 +186,21 @@ KQ_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1451"
 K4_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1920"
 K5_REPLACES = "plutracer_tpu/ops/pallas/integrator_kernel.py:1229"
 K1_KERNELS = ("closest_hit_ring",)  # K1's launches (its two instantiations)
+R1_SOURCE = "plutracer_tpu_torch/csrc/threefry.cu"
+R1_REPLACES = "plutracer_tpu/render/integrator.py:283"
+R1_KERNELS = ("threefry_uniform",)
+# 32-bit integer operations of one R1 word (csrc/threefry.cu: 20 rounds
+# of add, funnel shift and xor; 5 key injections of two adds, each step's
+# key word plus its count hoisted out of the word; the counter's add; the
+# final xor, shift, or and subtract), and the most 32-bit operations an
+# H100 SM issues a clock: its 128 lanes, the 64 INT32 units and the
+# integer multiply-add forms of the FP32 pipe (the compiler moves adds
+# there: at 64 a clock R1 ran faster than the bound, PERF.md)
+R1_WORD_OPS = 20 * 3 + 5 * 2 + 1 + 4
+INT32_OPS_A_CLOCK = 128
+# phase 21: the ragged batches, the blocks past 2^24 words (keys, words)
+R1_RAGGED = (1, 127, 1_000_003)
+R1_BIG = ((1, 2**24 + 3), (3, 2**24 + 1))
 RAGGED = 77  # rays short of a whole block tile in phase 3's ragged batches
 PLAIN_CHUNK = 4096  # rays per closest_hit_plain call: it builds a (B, P) matrix
 WALK_RAYS = 16384  # rays of each set whose walks phase 7 counts (plain lockstep walks)
@@ -408,7 +438,7 @@ def ptxas_report(log: str):
     out, kernel = {}, "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in ("closest_hit_bvh_kernel", *K1_KERNELS,
+            name = next((k for k in ("closest_hit_bvh_kernel", *K1_KERNELS, *R1_KERNELS,
                                      "megakernel_stream", "megakernel_onebounce", "megakernel")
                          if k in line), re.search(r"function '([^']+)'", line).group(1))
             m = re.search(name + r"ILb([01])E", line)
@@ -457,8 +487,9 @@ def main() -> int:
         closest_hit, closest_hit_cuda, closest_hit_plain,
     )
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
     from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color
-    from plutracer_tpu_torch.render.renderer import pixel_centers, render
+    from plutracer_tpu_torch.render.renderer import launch_draws, pixel_centers, render
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
     dev = torch.device("cuda")
@@ -549,24 +580,35 @@ def main() -> int:
         bmp = pathlib.Path(tmp) / "demo-box.bmp"
         closest_hit_cuda.launches = 0
         ray_color_cuda.launches = 0
+        uniform_block_cuda.launches = 0
         res = cli.run([str(ROOT / "scenes" / "demo-box.urn"), "/o", str(bmp), "/seed", "7"])
-        launches = {"K1": closest_hit_cuda.launches, "K2": ray_color_cuda.launches}
+        launches = {"K1": closest_hit_cuda.launches, "K2": ray_color_cuda.launches,
+                    "R1": uniform_block_cuda.launches}
         assert bmp.exists() and bmp.stat().st_size > 512 * 512 * 3, "BMP not written"
     assert res.integrator == "kernel", res.integrator
     assert tuple(res.linear.shape) == (512, 512, 3) and res.linear.device.type == "cuda"
     assert torch.isfinite(res.linear).all(), "non-finite radiance in the main-path render"
     # 262,144 rays a stratum: one stratum a launch
     assert launches["K1"] == 64 and launches["K2"] == 64, launches
+    # two R1 launches a pass-loop launch: the jitter block and the path uniforms
+    assert launches["R1"] == 2 * launches["K2"], launches
     same = torch.equal(res.linear, stratum_by_stratum(scene, W, H, 8, rng.PRNGKey(7),
                                                       DEFAULT_OPTIONS))
     print(f"main path: the CLI render bit-identical to one stratum a launch: {same}")
     assert same
     samples = 512 * 512 * 64
     # one pass of that render by stage (CUDA events), to see where the time goes
+    words = rng.key_words(key)
+    path_keys = [rng.fold_in_words(rng.key_words(k_path), i) for i in range(8)]
     stages = {
-        "threefry uniforms (8, B, 12)": lambda: draw_uniforms(k_path, B, 8, dev),
-        "pixel + lens jitter (2 x (B, 2))": lambda: (rng.uniform(k_px, (B, 2), dev),
-                                                     rng.uniform(k_lens, (B, 2), dev)),
+        "threefry uniforms (8, B, 12), R1": lambda: draw_uniforms(k_path, B, 8, dev),
+        "threefry uniforms (8, B, 12), plain (eager int64, the draw before R1)": lambda: (
+            rng.uniform_block_plain(path_keys, 12 * B, dev)),
+        "pixel + lens jitter (2 x (B, 2)), R1": lambda: rng.uniform_block(
+            [k_px, k_lens], 2 * B, dev),
+        "pixel + lens jitter (2 x (B, 2)), plain": lambda: rng.uniform_block_plain(
+            [k_px, k_lens], 2 * B, dev),
+        "launch_draws (host keys + both R1 launches)": lambda: launch_draws([words], B, 8, dev),
         "camera rays": lambda: generate_rays(scene.camera, px, px),
         "K1 primary hit + K2": lambda: ray_color_cuda(scene, o, d, u, DEFAULT_OPTIONS),
     }
@@ -593,7 +635,7 @@ def main() -> int:
     k1_bound = work_bound(B * (24 + 9) + scene.prims_packed.numel() * 4.0, B * query_ops(scene))
     print(f"bound: K1 {k1_bound[0]:.6f} ms ({k1_bound[1]}) at B={B}")
 
-    big, query_entry, mesh1_pass = big_scene_phases(phase, dev, card)
+    big, query_entry, mesh1_pass, r1_big = big_scene_phases(phase, dev, card)
     # K2's bound counts the vertices the pass runs: phase 12 checks them
     k5, k2_bound = telemetry_phase(phase, card, lib, (scene, o, d, u, k2_ms), mesh1_pass)
     gradient_phase(phase, dev, card)
@@ -606,6 +648,7 @@ def main() -> int:
     # intersect_backend="bvh" (phase 19 (b))
     query_launches = routing_phase(phase, dev, card)
     api_launches = api_phase(phase, dev, card)
+    r1 = rng_phase(phase, dev, card, launches["R1"] + r1_big)
     phase()
     print(f"K1 launches by shape: demo-box primary (the 512x512 64-spp render) {launches['K1']}, "
           + ", ".join(f"{k} {v}" for k, v in train_k1.items())
@@ -624,6 +667,7 @@ def main() -> int:
         query_entry(query_launches + api_launches["K3 query"]),
         big[1],
         k5,
+        r1,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -778,7 +822,8 @@ def big_scene_phases(phase, dev, card):
     )
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
     from plutracer_tpu_torch.render.integrator import draw_uniforms, kernel_tier, ray_color
-    from plutracer_tpu_torch.render.renderer import render, strata_per_launch
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+    from plutracer_tpu_torch.render.renderer import launch_draws, render, strata_per_launch
     from plutracer_tpu_torch.render.wavefront import SORTS, ray_color_wavefront
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
     from plutracer_tpu_torch.scene.loader import sphere_cloud
@@ -908,18 +953,23 @@ def big_scene_phases(phase, dev, card):
     # ---- 10. the big-scene path: mesh1 and mesh2 through the CLI, 256x256, 16 spp ----
     phase("10 big-scene path")
     launches = {}
+    r1_launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         for name, scene in (("mesh1", mesh1), ("mesh2", mesh2)):
             ray_color_stream_cuda.launches = closest_hit_bvh_cuda.launches = 0
+            uniform_block_cuda.launches = 0
             res = cli.run([str(ROOT / "scenes" / f"{name}.urn"), "/o", str(pathlib.Path(tmp) / "o.bmp"),
                            "/seed", "7"])
             launches[name] = ray_color_stream_cuda.launches
             assert closest_hit_bvh_cuda.launches == 0  # the walk runs inside K3
+            # the draws of a launch of 4 strata: two R1 launches
+            assert uniform_block_cuda.launches == 2 * launches[name], uniform_block_cuda.launches
+            r1_launches += uniform_block_cuda.launches
             assert res.integrator == "kernel" and res.tier == "k3", (res.integrator, res.tier)
             assert tuple(res.linear.shape) == (256, 256, 3) and torch.isfinite(res.linear).all()
             assert launches[name] == 16 // per, launches  # 4 strata a launch
             print(f"main path: {name} 256x256 16 spp through the CLI, K3 launches "
-                  f"{launches[name]}, render {res.render_seconds:.3f} s, mean radiance "
+                  f"{launches[name]}, R1 launches {uniform_block_cuda.launches}, render {res.render_seconds:.3f} s, mean radiance "
                   f"{res.linear.mean().item():.4f}; samples/s "
                   f"{256 * 256 * 16 / res.render_seconds:.1f} ({card})")
             before = ray_color_stream_cuda.launches
@@ -936,10 +986,19 @@ def big_scene_phases(phase, dev, card):
     # one launch of the mesh1 render by stage (CUDA events)
     k_px, k_lens, k_path = rng.split(rng.fold_in(rng.PRNGKey(7), 0), 3)
     B1 = o.shape[0]
+    launch_keys = [rng.fold_in_words(rng.key_words(rng.PRNGKey(7)), s) for s in range(per)]
+    path_keys = [rng.fold_in_words(rng.key_words(k_path), i) for i in range(mb)]
     stages = {
-        f"threefry uniforms (8, B, 12), one stratum": lambda: draw_uniforms(k_path, B1, mb, dev),
-        "pixel + lens jitter (2 x (B, 2)), one stratum": lambda: (
-            rng.uniform(k_px, (B1, 2), dev), rng.uniform(k_lens, (B1, 2), dev)),
+        f"threefry uniforms (8, B, 12), one stratum, R1": lambda: draw_uniforms(
+            k_path, B1, mb, dev),
+        f"threefry uniforms (8, B, 12), one stratum, plain (the draw before R1)": lambda: (
+            rng.uniform_block_plain(path_keys, 12 * B1, dev)),
+        "pixel + lens jitter (2 x (B, 2)), one stratum, R1": lambda: rng.uniform_block(
+            [k_px, k_lens], 2 * B1, dev),
+        "pixel + lens jitter (2 x (B, 2)), one stratum, plain": lambda: (
+            rng.uniform_block_plain([k_px, k_lens], 2 * B1, dev)),
+        f"launch_draws, {per} strata (host keys + both R1 launches)": lambda: launch_draws(
+            launch_keys, B1, mb, dev),
         "camera rays, one stratum": lambda: generate_rays(mesh1.camera, o[:, :2], o[:, :2]),
         f"K3 (primary hit in the kernel), {per} strata": lambda: ray_color_stream_cuda(
             mesh1, bo, bd, bu, DEFAULT_OPTIONS),
@@ -1025,7 +1084,7 @@ def big_scene_phases(phase, dev, card):
               k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound),
         entry("K4 one-bounce kernel (ms per launch)", K4_SOURCE, K4_REPLACES, k4_launches,
               k4_err, k4_launch_ms, k4_plain_ms, k4_bound),
-    ], query_entry, (mesh1, bo, bd, bu, k3_ms)
+    ], query_entry, (mesh1, bo, bd, bu, k3_ms), r1_launches
 
 
 def wavefront_split(scene, o, d, u, opts, card, passes=5):
@@ -2129,6 +2188,175 @@ def loss_and_grads_ms(sharded, fn):
     finally:
         sharded._trace_stratum = trace
     return total, sum(s.elapsed_time(e) for s, e in events)
+
+
+@contextlib.contextmanager
+def plain_draws():
+    """rng.uniform_block drawing with its plain version on every device:
+    the pass loop's, the train step's and render_sharded's draws as they
+    were before R1 (eager int64 tensor ops), for bit-equality checks."""
+    from plutracer_tpu_torch import rng
+
+    real = rng.uniform_block
+    rng.uniform_block = lambda keys, n, device="cpu": rng.uniform_block_plain(keys, n, device)
+    try:
+        yield
+    finally:
+        rng.uniform_block = real
+
+
+def r1_bound(K: int, n: int):
+    """(bound ms, "bytes" or "operations") of an R1 block of K keys and n
+    words a key: the output written once and the keys read once, against
+    R1_WORD_OPS INT32 operations a word at INT32_OPS_A_CLOCK an SM a clock
+    at the card's maximum SM clock (nvidia-smi)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_bytes = (K * n * 4 + K * 8) / HBM_BYTES_PER_S * 1e3
+    t_ops = K * n * R1_WORD_OPS / (INT32_OPS_A_CLOCK * sms * mhz * 1e6) * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), mhz, sms
+
+
+def r1_times(keys, n, what, card, reps=20):
+    """(kernel-only ms, wrapper ms, plain ms, bound) of an R1 block: the
+    kernel's device time a launch from torch.profiler, CUDA events around
+    calls of the wrapper (the key table's copy, the checks, the launch)
+    and of the plain version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+
+    dev = torch.device("cuda")
+    table = rng.key_table(keys)
+    call = lambda: uniform_block_cuda(table, n, dev)
+    wrapper = time_ms(call, reps)
+    plain = time_ms(lambda: rng.uniform_block_plain(table, n, dev), reps=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if any(k in ev.key for k in R1_KERNELS)]
+    dev_us = sum(getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+                 for ev in evs)
+    kernel = dev_us / 1e3 / sum(ev.count for ev in evs) if dev_us > 0 else wrapper
+    how = "torch.profiler" if dev_us > 0 else "the profiler recorded none: wrapper time"
+    bound, mhz, sms = r1_bound(table.shape[0], n)
+    print(f"R1 time {what} ({table.shape[0]} keys x {n} words): kernel-only {kernel:.4f} ms "
+          f"({how}), wrapper {wrapper:.4f} ms a call, plain {plain:.4f} ms; bound "
+          f"{bound[0]:.6f} ms ({bound[1]}; {sms} SMs at {mhz:.0f} MHz) ({card})")
+    return kernel, wrapper, plain, bound
+
+
+def rng_phase(phase, dev, card, main_launches):
+    """Phase 21: R1 against its plain version, bit for bit, at the main
+    paths' shapes and past them; its times; renders, a train step and
+    render_sharded through R1 against the same with plain-drawn
+    uniforms. Returns R1's kernels-line entry (launches: main_launches,
+    the CLI renders' of phases 5 and 10)."""
+    from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+    from plutracer_tpu_torch.parallel import make_mesh, render_sharded, sharded
+    from plutracer_tpu_torch.render.renderer import render
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+    from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+
+    phase("21 R1 threefry")
+    mb = DEFAULT_OPTIONS.max_bounces
+    base = rng.key_words(rng.PRNGKey(7))
+
+    def launch_tables(strata, B):
+        """(path keys, jitter keys, path words a key, jitter words a key) of
+        a pass-loop launch of `strata` strata of B rays (renderer.launch_draws)."""
+        trip = [rng.split_words(rng.fold_in_words(base, j), 3) for j in range(strata)]
+        path = [rng.fold_in_words(t[2], i) for i in range(mb) for t in trip]
+        return path, [t[0] for t in trip] + [t[1] for t in trip], 12 * B, 2 * B
+
+    demo = launch_tables(1, 512 * 512)
+    mesh1 = launch_tables(4, 256 * 256)
+    cases = [
+        ("demo-box 512x512 stratum: path uniforms (8, 262,144, 12)", demo[0], demo[2]),
+        ("demo-box 512x512 stratum: jitter (2, 262,144, 2)", demo[1], demo[3]),
+        ("mesh1 256x256 launch of 4 strata: path uniforms (8, 4 x 65,536, 12)", mesh1[0],
+         mesh1[2]),
+        ("mesh1 256x256 launch of 4 strata: jitter (2, 4, 65,536, 2)", mesh1[1], mesh1[3]),
+    ]
+    for B in R1_RAGGED:
+        keys, jit, n_path, n_jit = launch_tables(1, B)
+        cases += [(f"ragged B={B}: path uniforms", keys, n_path),
+                  (f"ragged B={B}: jitter", jit, n_jit),
+                  (f"ragged B={B}: one key, B words", keys[:1], B)]
+    for K, n in R1_BIG:
+        cases.append((f"{K} key(s) x {n} words (past 2^24)", demo[0][:K], n))
+    for what, keys, n in cases:
+        table = rng.key_table(keys)
+        before = uniform_block_cuda.launches
+        got = uniform_block_cuda(table, n, dev)
+        assert uniform_block_cuda.launches == before + 1, what  # one launch a call
+        want = rng.uniform_block_plain(table, n, dev)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (table.shape[0], n), what
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        assert differ == 0, f"R1 vs plain ({what}): {differ} words differ"
+        print(f"R1 {what}: {table.shape[0] * n} words bit-equal to plain, mean "
+              f"{got.double().mean().item():.6f}")
+        del got, want
+    r1_ms, _, r1_plain_ms, bound = r1_times(demo[0], demo[2], "demo-box stratum path uniforms",
+                                           card)
+    r1_times(demo[1], demo[3], "demo-box stratum jitter", card)
+    r1_times(mesh1[0], mesh1[2], "mesh1 launch path uniforms", card)
+    r1_times(mesh1[1], mesh1[3], "mesh1 launch jitter", card)
+
+    # the path through R1 against plain-drawn uniforms, bit for bit
+    def load(name, res):
+        return compile_scene(load_scene_file(str(ROOT / "scenes" / f"{name}.urn"),
+                                             ["/res", f"{res}x{res}"]), device=dev)
+
+    for name, res, n in (("demo-box", 512, 2), ("mesh1", 256, 4)):
+        sc = load(name, res)
+        uniform_block_cuda.launches = 0
+        img = render(sc, res, res, n, rng.PRNGKey(7))
+        torch.cuda.synchronize()
+        made = uniform_block_cuda.launches
+        with plain_draws():
+            ref = render(sc, res, res, n, rng.PRNGKey(7))
+        assert uniform_block_cuda.launches == made and made > 0, (name, made)
+        assert torch.equal(img, ref), f"{name}: the render through R1 differs from plain draws"
+        print(f"R1 {name} {res}x{res} {n * n} spp render: bit-equal to plain-drawn uniforms, "
+              f"R1 launches {made}")
+        del sc, img, ref
+    sc = load("demo-box", TRAIN_RES)
+    target = render(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(11))
+    params = sharded.get_params(sc)
+    step = sharded.make_train_step(sc, TRAIN_RES, TRAIN_RES, 2, loss_space="log",
+                                   trainable=("mat_color",))
+    uniform_block_cuda.launches = 0
+    got = step.loss_and_grads(params, target.reshape(-1, 3), rng.PRNGKey(3), 1)
+    torch.cuda.synchronize()
+    made = uniform_block_cuda.launches
+    with plain_draws():
+        want = step.loss_and_grads(params, target.reshape(-1, 3), rng.PRNGKey(3), 1)
+    assert made > 0 and uniform_block_cuda.launches == made, made
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]), "train step loss"
+    for f in got[1]:
+        assert torch.equal(got[1][f], want[1][f]), f"train step gradient {f}"
+    print(f"R1 demo-box {TRAIN_RES}x{TRAIN_RES} log train step: loss {got[0].item():.6f} and "
+          f"gradients bit-equal to plain-drawn uniforms, R1 launches {made}")
+    mesh = make_mesh((1, 1), [dev])
+    uniform_block_cuda.launches = 0
+    img = render_sharded(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(5), mesh)
+    torch.cuda.synchronize()
+    made = uniform_block_cuda.launches
+    with plain_draws():
+        ref = render_sharded(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(5), mesh)
+    assert made > 0 and torch.equal(img, ref), made
+    print(f"R1 render_sharded demo-box {TRAIN_RES}x{TRAIN_RES} 4 spp on a 1x1 mesh: bit-equal "
+          f"to plain-drawn uniforms, R1 launches {made}")
+    return entry("R1 threefry uniforms (ms: kernel-only, a demo-box 512x512 stratum's path "
+                 "uniforms (8, 262,144, 12); launches: the CLI renders of demo-box, mesh1 and "
+                 "mesh2)", R1_SOURCE, R1_REPLACES, main_launches, 0.0, r1_ms, r1_plain_ms, bound)
 
 
 if __name__ == "__main__":

@@ -61,6 +61,8 @@ _SIGNATURES = {
                                  _vp, _vp, _vp,
                                  _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                  _i, _i, _i, _i, _i, _i, _i, _vp],
+    # keys (K x 2 uint32 words), K, n words a key, out (K x n float32), stream
+    "plu_threefry_uniform": [_vp, _i, ctypes.c_longlong, _vp, _vp],
 }
 
 

@@ -257,10 +257,11 @@ def resolve_integrator_backend(scene, options, device) -> str:
 
 def draw_uniforms(key, B: int, max_bounces: int, device) -> torch.Tensor:
     """(max_bounces, B, 12): uniform(fold_in(key, i), (B, 12)) per bounce
-    (the JAX integrator's draw, integrator.py:283-284)."""
-    return torch.stack(
-        [rng.uniform(rng.fold_in(key, i), (B, 12), device) for i in range(max_bounces)]
-    )
+    (the JAX integrator's draw, integrator.py:283-284), as one
+    rng.uniform_block: one R1 launch on the card."""
+    words = rng.key_words(key)
+    keys = [rng.fold_in_words(words, i) for i in range(max_bounces)]
+    return rng.uniform_block(keys, 12 * B, device).reshape(max_bounces, B, 12)
 
 
 def radiance(scene, o, d, key, options: RenderOptions = DEFAULT_OPTIONS, terms: bool = False):

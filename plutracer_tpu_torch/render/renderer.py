@@ -34,7 +34,6 @@ from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops.camera import generate_rays
 from plutracer_tpu_torch.render.integrator import (
-    draw_uniforms,
     radiance_of_uniforms,
     resolve_integrator_backend,
 )
@@ -61,24 +60,41 @@ def pixel_centers(width: int, height: int, device="cpu") -> torch.Tensor:
     return torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)
 
 
-def _sample_positions(px0, k_px, k_lens, stratum: int, n: int):
+def launch_draws(keys, B: int, max_bounces: int, device):
+    """The random numbers of a launch of S = len(keys) strata of B rays,
+    stratum j keyed keys[j] ((k1, k2) ints): with (k_px, k_lens, k_path) =
+    split(keys[j], 3) (renderer.py:36-41 of the JAX package), its pixel
+    and lens jitter uniform(k_px, (B, 2)) and uniform(k_lens, (B, 2)), and
+    bounce i's path uniforms uniform(fold_in(k_path, i), (B, 12))
+    (integrator.py:283-284). Returns (jit (2, S, B, 2): pixel then lens,
+    u (max_bounces, S*B, 12): stratum j's rays at rows j*B..(j+1)*B), two
+    rng.uniform_block calls: two R1 launches on the card, whatever S."""
+    S = len(keys)
+    trip = [rng.split_words(k, 3) for k in keys]
+    jit = rng.uniform_block([t[0] for t in trip] + [t[1] for t in trip], 2 * B, device)
+    u = rng.uniform_block([rng.fold_in_words(t[2], i) for i in range(max_bounces) for t in trip],
+                          12 * B, device)
+    return jit.reshape(2, S, B, 2), u.reshape(max_bounces, S * B, 12)
+
+
+def _sample_positions(px0, jit_px, jit_lens, stratum: int, n: int):
     """(px, lens): the jittered pixel and lens positions of one stratified
     sample per pixel from the given stratum cell, (cell + u*0.999)/n
-    (inc/sampler.h:44-50)."""
-    B, dev = px0.shape[0], px0.device
-    cell = torch.tensor([stratum % n, stratum // n], dtype=torch.float32, device=dev)
-    jit_px = rng.uniform(k_px, (B, 2), dev) * 0.999
-    jit_lens = rng.uniform(k_lens, (B, 2), dev) * 0.999
-    return px0 + over(cell + jit_px, n), over(cell + jit_lens, n)
+    (inc/sampler.h:44-50), from the (B, 2) uniforms jit_px, jit_lens."""
+    cell = torch.tensor([stratum % n, stratum // n], dtype=torch.float32, device=px0.device)
+    return px0 + over(cell + jit_px * 0.999, n), over(cell + jit_lens * 0.999, n)
+
+
+def _camera_rays(scene, px0, jit, j: int, stratum: int, n: int):
+    """o, d of stratum j of a launch_draws jitter block, from cell `stratum`."""
+    return generate_rays(scene.camera, *_sample_positions(px0, jit[0, j], jit[1, j], stratum, n))
 
 
 def _stratum_rays(scene, px0, key, stratum: int, n: int, options: RenderOptions):
     """The primary rays o, d and the path uniforms u of one stratified
     sample per pixel from the given stratum cell."""
-    k_px, k_lens, k_path = rng.split(key, 3)
-    px, lens = _sample_positions(px0, k_px, k_lens, stratum, n)
-    o, d = generate_rays(scene.camera, px, lens)
-    return o, d, draw_uniforms(k_path, px0.shape[0], options.max_bounces, px0.device)
+    jit, u = launch_draws([rng.key_words(key)], px0.shape[0], options.max_bounces, px0.device)
+    return (*_camera_rays(scene, px0, jit, 0, stratum, n), u)
 
 
 def _trace_stratum(scene, px0, key, stratum: int, n: int, options: RenderOptions):
@@ -110,15 +126,18 @@ def stratum_launches(scene, key, pairs, px0, n: int, options: RenderOptions = DE
     """The (rows of px0, 3) radiance of each (key index, stratum) pair, in
     order: pair (j, s) is one sample per pixel of px0 from stratum cell s,
     keyed fold_in(key, j) (a render's pass s is the pair (s, s));
-    strata_per_launch strata a launch, yielded launch by launch as lists."""
+    strata_per_launch strata a launch, yielded launch by launch as lists.
+    A launch's random numbers are one launch_draws call."""
     B = px0.shape[0]
     pairs = list(pairs)
     per = strata_per_launch(scene, options, B)
+    words = rng.key_words(key)
     for i in range(0, len(pairs), per):
         group = pairs[i:i + per]
-        o, d, u = zip(*(_stratum_rays(scene, px0, rng.fold_in(key, j), s, n, options)
-                        for j, s in group))
-        L = radiance_of_uniforms(scene, torch.cat(o), torch.cat(d), torch.cat(u, 1), options)
+        jit, u = launch_draws([rng.fold_in_words(words, j) for j, _ in group], B,
+                              options.max_bounces, px0.device)
+        o, d = zip(*(_camera_rays(scene, px0, jit, k, s, n) for k, (_, s) in enumerate(group)))
+        L = radiance_of_uniforms(scene, torch.cat(o), torch.cat(d), u, options)
         yield [L[j * B:(j + 1) * B] for j in range(len(group))]
 
 

@@ -7,12 +7,17 @@ default): keys are pairs of uint32 words, ``split`` and random bits hash a
 bits2``. Matching the reference's draws bit for bit lets the port's
 images be compared per pixel with the JAX package at the same seed.
 
-torch's uint32 lacks most arithmetic, so every uint32 word is held in an
-int64 tensor and masked back to 32 bits after each add or shift.
+Keys are tiny int64 CPU tensors of shape (2,) (or (n, 2) from ``split``),
+derived on Python ints (``threefry2x32`` takes ints as well as tensors):
+deriving a key issues no tensor op and never touches the device.
 
-Keys are tiny int64 CPU tensors of shape (2,) (or (n, 2) from ``split``);
-deriving a key never touches the device. ``uniform`` hashes its counters
-on the requested device.
+Draws: ``uniform_block(keys, n, device)`` fills a (K, n) float32 block,
+row k being ``uniform(keys[k], (n,))``. On a CUDA device that is one
+launch of the R1 kernel (csrc/threefry.cu, ops/cuda/rng_kernel.py); on
+the CPU it is ``uniform_block_plain``, the same hash on int64 tensors
+(torch's uint32 lacks most arithmetic, so every uint32 word is held in an
+int64 tensor and masked back to 32 bits after each add or shift).
+``uniform`` is a block of one key.
 """
 
 from __future__ import annotations
@@ -23,18 +28,20 @@ from typing import Sequence
 import torch
 
 _MASK = 0xFFFFFFFF
+_PARITY = 0x1BD11BDA
 _ROT0 = (13, 15, 26, 6)
 _ROT1 = (17, 29, 16, 24)
 
 
-def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+def _rotl(v, r: int):
     return ((v << r) | (v >> (32 - r))) & _MASK
 
 
-def threefry2x32(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
+def threefry2x32(k1, k2, x1, x2):
     """The Threefry-2x32 hash (20 rounds) of the counter pair (x1, x2)
-    under key (k1, k2). x1, x2: int64 tensors holding uint32 values."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    under key (k1, k2): on Python ints, or on int64 tensors holding uint32
+    values (ints and tensors broadcast against each other)."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     a = (x1 + ks[0]) & _MASK
     b = (x2 + ks[1]) & _MASK
     for step in range(5):
@@ -46,10 +53,21 @@ def threefry2x32(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
     return a, b
 
 
-def _words(key: torch.Tensor):
+def key_words(key: torch.Tensor):
+    """The (k1, k2) ints of a single key of shape (2,)."""
     if key.shape != (2,):
         raise ValueError(f"expected a single key of shape (2,), got {tuple(key.shape)}")
     return int(key[0]), int(key[1])
+
+
+def fold_in_words(words, data: int):
+    """fold_in on (k1, k2) ints: the hash of the counter pair (0, data)."""
+    return threefry2x32(words[0], words[1], 0, int(data) & _MASK)
+
+
+def split_words(words, num: int = 2):
+    """split on (k1, k2) ints: num (k1, k2) pairs, counters (0, i)."""
+    return [threefry2x32(words[0], words[1], 0, i) for i in range(num)]
 
 
 def PRNGKey(seed: int) -> torch.Tensor:
@@ -62,36 +80,76 @@ def PRNGKey(seed: int) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """jax.random.fold_in: hash the counter pair (0, data) under key."""
-    k1, k2 = _words(key)
-    x1 = torch.zeros(1, dtype=torch.int64)
-    x2 = torch.tensor([int(data) & _MASK], dtype=torch.int64)
-    a, b = threefry2x32(k1, k2, x1, x2)
-    return torch.cat([a, b])
+    return torch.tensor(fold_in_words(key_words(key), data), dtype=torch.int64)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """jax.random.split (partitionable layout): (num, 2) new keys."""
-    k1, k2 = _words(key)
-    lo = torch.arange(num, dtype=torch.int64)
-    a, b = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return torch.stack([a, b], -1)
+    return torch.tensor(split_words(key_words(key), num), dtype=torch.int64).reshape(num, 2)
+
+
+def _check_count(n: int) -> None:
+    if n >= 2**32:
+        raise ValueError("a key draws fewer than 2**32 values")
+
+
+def key_table(keys) -> torch.Tensor:
+    """(K, 2) int64 CPU words of a key, a (K, 2) key tensor or a sequence
+    of keys or (k1, k2) pairs."""
+    if isinstance(keys, torch.Tensor):
+        return keys.reshape(-1, 2).to(torch.int64)
+    return torch.tensor([key_words(k) if isinstance(k, torch.Tensor) else k for k in keys],
+                        dtype=torch.int64).reshape(-1, 2)
+
+
+def _block_bits(table: torch.Tensor, n: int, device) -> torch.Tensor:
+    """(K, n) 32-bit words (as int64) of the (K, 2) key table's rows on
+    `device`: row-major counters, partitionable layout, bits1 ^ bits2."""
+    _check_count(n)
+    table = table.to(device)
+    lo = torch.arange(n, dtype=torch.int64, device=device)[None]
+    a, b = threefry2x32(table[:, :1], table[:, 1:], torch.zeros_like(lo), lo)
+    return a ^ b
+
+
+def _bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """The top 23 bits become the mantissa of a float in [1, 2), minus 1."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int], device="cpu") -> torch.Tensor:
-    """32-bit random words (as int64) of the given shape, row-major
-    counters, partitionable layout: bits1 ^ bits2."""
-    k1, k2 = _words(key)
-    n = math.prod(shape)
-    if n >= 2**32:
-        raise ValueError("random_bits supports fewer than 2**32 values")
-    lo = torch.arange(n, dtype=torch.int64, device=device)
-    a, b = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return (a ^ b).reshape(tuple(shape))
+    """32-bit random words (as int64) of the given shape (plain tensor ops)."""
+    return _block_bits(key_table([key]), math.prod(shape), device).reshape(tuple(shape))
+
+
+def uniform_plain(key: torch.Tensor, shape: Sequence[int], device="cpu") -> torch.Tensor:
+    """jax.random.uniform(key, shape) in float32 on [0, 1), on int64
+    tensors on `device`."""
+    return _bits_to_uniform(random_bits(key, shape, device))
+
+
+def uniform_block_plain(keys, n: int, device="cpu") -> torch.Tensor:
+    """(K, n) float32 on `device`: row k is uniform_plain(keys[k], (n,)).
+    The plain version of the R1 kernel, on int64 tensors."""
+    return _bits_to_uniform(_block_bits(key_table(keys), n, device))
+
+
+def uniform_block(keys, n: int, device="cpu") -> torch.Tensor:
+    """(K, n) float32 on `device`: row k is uniform(keys[k], (n,)). A CUDA
+    device takes one launch of the R1 kernel (it raises where it cannot
+    launch), the CPU uniform_block_plain."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+
+        return uniform_block_cuda(key_table(keys), n, dev)
+    if dev.type != "cpu":
+        raise ValueError(f"uniform_block: no draw for device {dev}")
+    return uniform_block_plain(keys, n, dev)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], device="cpu") -> torch.Tensor:
-    """jax.random.uniform(key, shape) in float32 on [0, 1): the top 23
-    bits become the mantissa of a float in [1, 2), minus 1."""
-    bits = random_bits(key, shape, device)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return f - 1.0
+    """jax.random.uniform(key, shape) in float32 on [0, 1): uniform_block
+    of the one key."""
+    return uniform_block(key_table([key]), math.prod(shape), device).reshape(tuple(shape))

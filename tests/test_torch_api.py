@@ -60,6 +60,7 @@ from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.scene.loader import sphere_cloud
 from plutracer_tpu_torch.scene.types import PRIM_SPHERE, PrimDesc, SceneDesc
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 SCENES = ("demo-box", "tables", "mesh0", "cloud")
 # the scenes the JAX package runs each group of functions on (tracing and

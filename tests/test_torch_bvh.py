@@ -34,6 +34,7 @@ from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.scene.compile import bvh_helpers
 from plutracer_tpu_torch.scene.loader import sphere_cloud
 from plutracer_tpu_torch.scene.types import PRIM_TRIANGLE, PrimDesc, SceneDesc
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def load(name, res=32):

@@ -568,9 +568,12 @@ def test_divisions_are_ieee_on_card(dev):
     from plutracer_tpu_torch.render.renderer import _sample_positions, over
 
     k_px, k_lens = rng.split(rng.PRNGKey(5), 2)
+    B = 64 * 48
     for stratum in range(9):
-        got = _sample_positions(pixel_centers(64, 48, dev), k_px, k_lens, stratum, 3)
-        want = _sample_positions(pixel_centers(64, 48), k_px, k_lens, stratum, 3)
+        got = _sample_positions(pixel_centers(64, 48, dev), rng.uniform(k_px, (B, 2), dev),
+                                rng.uniform(k_lens, (B, 2), dev), stratum, 3)
+        want = _sample_positions(pixel_centers(64, 48), rng.uniform(k_px, (B, 2)),
+                                 rng.uniform(k_lens, (B, 2)), stratum, 3)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w), stratum
     g = torch.Generator().manual_seed(0)
@@ -783,3 +786,93 @@ def test_phantom_sphere_hit_kernels_on_card(dev, centres):
     for got in (closest_hit(s.prims_packed, o, d, s.packed_type_rows), closest_hit_bvh(s, o, d)):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1][want[0]], want[1][want[0]])
         assert torch.equal(got[2][want[0]], want[2][want[0]])
+
+
+# R1, the threefry draw kernel: bit-equal to its plain version, and every
+# draw of the pass loop and the train step through it
+
+def r1_keys(K):
+    words = rng.key_words(rng.PRNGKey(7))
+    return rng.key_table([rng.fold_in_words(words, k) for k in range(K)])
+
+
+@pytest.mark.parametrize("K,n", [
+    (8, 12 * 262144),  # a demo-box 512x512 stratum's path uniforms
+    (32, 12 * 65536),  # a 4-strata mesh1 256x256 launch's
+    (8, 2 * 65536),  # that launch's jitter
+    (8, 12), (2, 2), (1, 1),  # ragged B = 1
+    (8, 12 * 127), (2, 2 * 127), (1, 127),
+    (8, 12 * 1_000_003), (2, 2 * 1_000_003), (1, 1_000_003),
+    (1, 2**24 + 3), (3, 2**24 + 1),  # past 2^24 words
+], ids=str)
+def test_r1_bit_equal_to_plain(dev, K, n):
+    """Every word of R1's block equals the plain int64 hash's, on the card;
+    one launch a call."""
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+
+    keys = r1_keys(K)
+    before = uniform_block_cuda.launches
+    got = rng.uniform_block(keys, n, dev)
+    assert uniform_block_cuda.launches == before + 1
+    want = rng.uniform_block_plain(keys, n, dev)
+    assert got.shape == want.shape == (K, n)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_r1_equals_cpu_draws(dev):
+    """R1 on the card against the plain block on the CPU (the one the CPU
+    tests hold against jax.random)."""
+    keys = r1_keys(5)
+    assert torch.equal(rng.uniform_block(keys, 4099, dev).cpu(), rng.uniform_block(keys, 4099))
+
+
+def plain_drawn(monkeypatch):
+    """The draws as they were before R1: uniform_block's plain version on
+    every device."""
+    monkeypatch.setattr(rng, "uniform_block",
+                        lambda keys, n, device="cpu": rng.uniform_block_plain(keys, n, device))
+
+
+@pytest.mark.parametrize("name", ["demo-box", "mesh1"])
+def test_r1_cli_render_equals_plain_draws(dev, name, tmp_path, monkeypatch):
+    """A CLI render through the kernels, its draws by R1 (two launches a
+    pass-loop launch, counted), is bit-identical to the same render with
+    plain-drawn uniforms."""
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+
+    args = [str(REPO / "scenes" / f"{name}.urn"), "/smp", "2", "/seed", "7",
+            "/o", str(tmp_path / "x.bmp")]
+    uniform_block_cuda.launches = 0
+    got = cli.run(args)
+    torch.cuda.synchronize()
+    made = uniform_block_cuda.launches
+    assert got.integrator == "kernel" and made > 0 and made % 2 == 0
+    with monkeypatch.context() as m:
+        plain_drawn(m)
+        want = cli.run(args)
+    assert uniform_block_cuda.launches == made
+    assert torch.equal(got.linear, want.linear)
+
+
+def test_r1_train_step_equals_plain_draws(dev, monkeypatch):
+    """A demo-box train step's loss and gradients with R1's draws equal
+    those with plain-drawn uniforms, bit for bit."""
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+    from plutracer_tpu_torch.parallel import sharded
+
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x64"]),
+                      device=dev)
+    target = render(s, 64, 64, 2, rng.PRNGKey(11)).reshape(-1, 3)
+    params = sharded.get_params(s)
+    for loss_space in ("log", "ab"):
+        step = sharded.make_train_step(s, 64, 64, 2, loss_space=loss_space,
+                                       trainable=("mat_color", "light_intensity"))
+        uniform_block_cuda.launches = 0
+        got = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
+        assert uniform_block_cuda.launches == (4 if loss_space == "ab" else 2)
+        with monkeypatch.context() as m:
+            plain_drawn(m)
+            want = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        assert got[1].keys() == want[1].keys()
+        assert all(torch.equal(got[1][f], want[1][f]) for f in got[1])

@@ -53,6 +53,7 @@ from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_kernel
 from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 KEY = 7
 RES = 16

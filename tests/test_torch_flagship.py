@@ -69,6 +69,7 @@ from plutracer_tpu_torch.diff.optim import (
 from plutracer_tpu_torch.diff.optimize import InverseRenderConfig, load_train_checkpoint
 from plutracer_tpu_torch.parallel.sharded import params_from_numpy
 from plutracer_tpu_torch.tools import inverse_flagship as flagship
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 LABELS = flagship.LABELS

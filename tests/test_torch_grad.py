@@ -41,6 +41,7 @@ from plutracer_tpu_torch.parallel.sharded import (
 from plutracer_tpu_torch.render.renderer import render_pass
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 W, H, N, SEED = 24, 18, 2, 0
 

@@ -35,6 +35,7 @@ from plutracer_tpu_torch.render.integrator import (
 )
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 XLA = JAX_OPTIONS.replace(integrator_backend="xla")
 SCENES = ["demo-box", "dof", "textured0"]

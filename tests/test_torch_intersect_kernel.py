@@ -33,6 +33,7 @@ from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
     closest_hit_segments_plain,
 )
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def rays(js, res, seed):

@@ -19,6 +19,7 @@ import torch.distributed as dist
 from plutracer_tpu_torch.parallel.dryrun import ROOT, mesh_jobs, run_processes
 from plutracer_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 SCENE = str(ROOT / "scenes" / "demo-box.urn")
 SPECS = [

@@ -30,6 +30,7 @@ from plutracer_tpu_torch.ops import (bsdf, camera, intersect, lights, safemath, 
                                     texture, tonemap)
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 B = 2048
 SCENES = ["demo-box", "dof", "textured0", "mesh0"]

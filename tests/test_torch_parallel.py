@@ -62,6 +62,7 @@ from plutracer_tpu_torch.parallel.sharded import DIFFERENTIABLE_FIELDS, get_para
 from plutracer_tpu_torch.render.renderer import _trace_stratum, over, pixel_centers, render
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 DEMO = str(REPO / "scenes" / "demo-box.urn")

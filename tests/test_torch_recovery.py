@@ -35,6 +35,7 @@ from plutracer_tpu_torch.render.progressive import render_with_checkpoint, save_
 from plutracer_tpu_torch.render.renderer import render, render_passes
 from plutracer_tpu_torch.render.supervisor import WorkerFailure, _worker, supervise_render
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SCENE = str(REPO / "scenes" / "demo-box.urn")

@@ -23,6 +23,7 @@ from plutracer_tpu_torch import cli, rng
 from plutracer_tpu_torch.io.bmp import read_bmp
 from plutracer_tpu_torch.render.renderer import render
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDENS = REPO / "tests" / "goldens"
@@ -98,7 +99,8 @@ NO_JAX = (
 def test_package_never_imports_jax(tmp_path):
     """A fresh interpreter: import the port, render a tiny image through the
     CLI, take one train step, query the scene-level API (query_closest,
-    bvh_closest, stratified_offsets), run the flagship tool, a sharded
+    bvh_closest, stratified_offsets), import R1's wrapper
+    (ops/cuda/rng_kernel), run the flagship tool, a sharded
     render and a (2, 2) mesh train step and term_dump on the CPU, and find
     no jax or optax module and no module of the JAX package
     (plutracer_tpu, plutracer_tpu.*) loaded; then the same in a supervisor
@@ -107,6 +109,7 @@ def test_package_never_imports_jax(tmp_path):
         "import sys\n"
         "import plutracer_tpu_torch.cli as cli\n"
         "import plutracer_tpu_torch.ops.cuda.build, plutracer_tpu_torch.ops.cuda.integrator_kernel\n"
+        "import plutracer_tpu_torch.ops.cuda.rng_kernel\n"
         "from plutracer_tpu_torch.ops import bvh, geometry, intersect, lights, sampling, texture\n"
         "from plutracer_tpu_torch.ops.tonemap import reinhard\n"
         "from plutracer_tpu_torch.render.integrator import estimate_direct\n"

@@ -59,6 +59,7 @@ from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.scene.compile import MAX_TABLE_ROWS
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
 from plutracer_tpu_torch.tools.swirl_texture import swirl
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 BACKENDS = ("pallas", "bvh", "xla")
 QUERY_SCENES = ("demo-box", "sphere-grid", "mesh0")

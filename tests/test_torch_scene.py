@@ -15,6 +15,7 @@ from plutracer_tpu.scene import compile_scene as jax_compile
 from plutracer_tpu.scene import load_scene_file as jax_load
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file, scene_from_numpy
 from plutracer_tpu_torch.scene.types import CameraParams, Scene
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 SCENES = ["demo-box", "dof", "textured0", "sphere-grid", "mesh0"]
 

@@ -36,6 +36,7 @@ from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
 from plutracer_tpu_torch.tools import term_diff, term_dump
 from plutracer_tpu_torch.utils.profiling import PhaseTimer, RenderStats, profile_trace
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 DEMO = str(REPO / "scenes" / "demo-box.urn")

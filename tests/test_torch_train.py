@@ -49,6 +49,7 @@ from plutracer_tpu_torch.parallel.sharded import (
 )
 from plutracer_tpu_torch.render.renderer import render
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 W, H, N = 16, 12, 2
 STEP_KW = dict(loss_downsample=2, loss_clamp=5.0, project_nonnegative=True,

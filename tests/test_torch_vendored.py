@@ -18,6 +18,7 @@ from plutracer_tpu.urn import repl as jax_repl
 from plutracer_tpu_torch import native, semantics, urn
 from plutracer_tpu_torch.io import bmp, font
 from plutracer_tpu_torch.urn import repl
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SCENES = sorted(p.name for p in (REPO / "scenes").glob("*.urn"))

@@ -42,6 +42,7 @@ from plutracer_tpu_torch.scene.compile import (
 from plutracer_tpu_torch.scene.loader import sphere_cloud
 from plutracer_tpu_torch.scene.types import PRIM_SPHERE, PRIM_TRIANGLE, PrimDesc, SceneDesc
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 BRUTE_CHUNK = 256  # rays per closest_hit_plain call: it builds a (B, P) matrix
 
