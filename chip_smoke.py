@@ -125,6 +125,17 @@ both main paths of the port on the card:
      renders, a demo-box 256x256 train step (loss and gradients) and a
      1x1-mesh render_sharded through R1 bit-equal to the same with
      plain-drawn uniforms (the draws before R1), R1 launches counted.
+22.  launch devices: (a) over demo-box and mesh1 renders at 64x64, n = 2
+     (K1 + K2, K3, and K4 under stream_wavefront), a K3 query, K2's and
+     K3's K5 launches and an R1 block, the launch helper
+     (ops/cuda/build.on_device) entered exactly once a launch (its entries
+     equal the sum of every wrapper's counters, K1's plan inside its
+     launch's entry), each launch with its tensors' card current; the
+     helper's own cost; (b) with two cards or more, launched while cuda:0
+     is current: render_elastic of demo-box over [cuda:0, cuda:1], a
+     (2, 1) mesh over both cards in one process, and K1's split path on
+     mesh0 with cuda:1's tensors, each bit-equal to the same on cuda:0
+     (with one card it prints that (b) was not run, and why).
 
 Every phase asserts and prints its seconds; any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
@@ -649,6 +660,7 @@ def main() -> int:
     query_launches = routing_phase(phase, dev, card)
     api_launches = api_phase(phase, dev, card)
     r1 = rng_phase(phase, dev, card, launches["R1"] + r1_big)
+    launch_devices_phase(phase, card)
     phase()
     print(f"K1 launches by shape: demo-box primary (the 512x512 64-spp render) {launches['K1']}, "
           + ", ".join(f"{k} {v}" for k, v in train_k1.items())
@@ -1642,7 +1654,7 @@ def multi_device_phase(phase, dev, card):
     with tempfile.TemporaryDirectory() as tmp:
         initialize_distributed(f"file://{tmp}/rendezvous", 1, 0, "nccl", timeout=300.0)
         try:
-            mesh = make_mesh((1, 1), [dev])
+            mesh = make_mesh((1, 1), devices=[dev])
             assert mesh.distributed
             closest_hit_cuda.launches = ray_color_cuda.launches = 0
             img_a, cold_a = timed_render(lambda: render_sharded(scene, res, res, n, key, mesh))
@@ -1651,7 +1663,7 @@ def multi_device_phase(phase, dev, card):
         finally:
             dist.destroy_process_group()
     img_1, wall_1 = timed_render(
-        lambda: render_sharded(scene, res, res, n, key, make_mesh((1, 1), [dev])))
+        lambda: render_sharded(scene, res, res, n, key, make_mesh((1, 1), devices=[dev])))
     _, wall_r = timed_render(lambda: render(scene, res, res, n, key))
     same_a = torch.equal(img_a, img_1)
     print(f"multi-device (a) demo-box {res}x{res} {n * n} spp on a 1x1 mesh in an NCCL world "
@@ -1662,7 +1674,7 @@ def multi_device_phase(phase, dev, card):
     assert same_a and bool(torch.isfinite(img_a).all())
     assert launches["K1"] == n * n and launches["K2"] == n * n, launches
     # (b) the (2, 2) mesh of cuda:0 positions in this process
-    mesh4 = make_mesh((2, 2), [dev] * 4)
+    mesh4 = make_mesh((2, 2), devices=[dev] * 4)
     ray_color_cuda.launches = 0
     img_b, wall_b = timed_render(lambda: render_sharded(scene, res, res, n, key, mesh4))
     k2_b = ray_color_cuda.launches
@@ -2344,7 +2356,7 @@ def rng_phase(phase, dev, card, main_launches):
         assert torch.equal(got[1][f], want[1][f]), f"train step gradient {f}"
     print(f"R1 demo-box {TRAIN_RES}x{TRAIN_RES} log train step: loss {got[0].item():.6f} and "
           f"gradients bit-equal to plain-drawn uniforms, R1 launches {made}")
-    mesh = make_mesh((1, 1), [dev])
+    mesh = make_mesh((1, 1), devices=[dev])
     uniform_block_cuda.launches = 0
     img = render_sharded(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(5), mesh)
     torch.cuda.synchronize()
@@ -2357,6 +2369,142 @@ def rng_phase(phase, dev, card, main_launches):
     return entry("R1 threefry uniforms (ms: kernel-only, a demo-box 512x512 stratum's path "
                  "uniforms (8, 262,144, 12); launches: the CLI renders of demo-box, mesh1 and "
                  "mesh2)", R1_SOURCE, R1_REPLACES, main_launches, 0.0, r1_ms, r1_plain_ms, bound)
+
+
+LAUNCH_RES = 64  # phase 22's renders: demo-box and mesh1 at 64x64, n = 2
+ENTRY_REPS = 10000  # phase 22: empty entries of the launch helper timed
+
+
+@contextlib.contextmanager
+def checked_launches():
+    """Phase 22: every entry of build.on_device (each kernel launch) goes
+    through the real helper (and its entry count) and checks that the
+    device it made current is the tensors' device; yields the device
+    index of each entry."""
+    from plutracer_tpu_torch.ops.cuda import build
+
+    real = build.on_device
+    seen = []
+
+    @contextlib.contextmanager
+    def on_device(dev):
+        with real(dev) as stream:
+            want = torch.device(dev)
+            want = torch.cuda.current_device() if want.index is None else want.index
+            assert torch.cuda.current_device() == want, (torch.cuda.current_device(), dev)
+            seen.append(want)
+            yield stream
+
+    build.on_device = on_device
+    try:
+        yield seen
+    finally:
+        build.on_device = real
+
+
+def launch_devices_phase(phase, card):
+    """Phase 22: (a) over a small render (K1, K2, R1), a batched mesh1
+    launch (K3), a K4 wavefront render, the K3 query, K5 and an R1 block,
+    the launch helper's entries equal the sum of the wrappers' launch
+    counters (K1's plan inside its launch's entry), and in each launch
+    the current device is the tensors'; the helper's own cost. (b) with
+    two cards or more: render_elastic over [cuda:0, cuda:1], a (2, 1) mesh
+    over them in one process and K1's split path with cuda:1's tensors,
+    each bit-equal to the same on cuda:0 alone, launched while cuda:0 is
+    current."""
+    from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.ops.cuda import build
+    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
+        closest_hit, closest_hit_bvh_cuda, closest_hit_cuda, closest_hit_plain,
+    )
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+    from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda, ray_color_stream_cuda
+    from plutracer_tpu_torch.ops.intersect import query_lite
+    from plutracer_tpu_torch.parallel import make_mesh, render_sharded
+    from plutracer_tpu_torch.render.elastic import render_elastic
+    from plutracer_tpu_torch.render.integrator import draw_uniforms
+    from plutracer_tpu_torch.render.renderer import render
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+    from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+
+    phase("22 launch devices")
+    res, n = LAUNCH_RES, 2
+    cuda0 = torch.device("cuda", 0)
+
+    def load(name, dev, w=res):
+        return compile_scene(load_scene_file(str(ROOT / "scenes" / f"{name}.urn"),
+                                             ["/res", f"{w}x{w}"]), device=dev)
+
+    counters = ((closest_hit_cuda, "launches"), (closest_hit_bvh_cuda, "launches"),
+                (ray_color_cuda, "launches"), (ray_color_cuda, "debug_launches"),
+                (ray_color_stream_cuda, "launches"), (ray_color_stream_cuda, "debug_launches"),
+                (onebounce_cuda, "launches"), (uniform_block_cuda, "launches"))
+    demo, mesh1 = load("demo-box", cuda0), load("mesh1", cuda0)
+    o = torch.zeros((1024, 3), device=cuda0)
+    g = torch.Generator().manual_seed(22)
+    d = torch.nn.functional.normalize(torch.randn((1024, 3), generator=g), dim=-1).to(cuda0)
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    build.on_device.entries = 0
+    with checked_launches() as seen:
+        render(demo, res, res, n, rng.PRNGKey(3))  # K1 + K2 + R1
+        render(mesh1, res, res, n, rng.PRNGKey(3))  # K3 (the strata batched) + R1
+        render(mesh1, res, res, n, rng.PRNGKey(3), DEFAULT_OPTIONS.replace(stream_wavefront=True))
+        query_lite(mesh1, o, d, DEFAULT_OPTIONS.replace(intersect_backend="bvh"))  # K3 query
+        u = draw_uniforms(rng.PRNGKey(4), 1024, DEFAULT_OPTIONS.max_bounces, cuda0)  # R1
+        ray_color_kernel(demo, o, d, u, DEFAULT_OPTIONS, debug=True)  # K1 + K5 (K2's)
+        ray_color_kernel(mesh1, o, d, u, DEFAULT_OPTIONS, debug=True)  # K5 (K3's)
+        torch.cuda.synchronize()
+    entries = build.on_device.entries
+    counts = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counters}
+    total = sum(counts.values())
+    print(f"launch devices (a): helper entries {entries}, wrappers' launches {total} {counts}; "
+          f"current device = the tensors' in {len(seen)} launches")
+    assert entries == total == len(seen) and all(counts.values()), (entries, counts)
+    assert set(seen) == {0}, set(seen)
+    # the helper's cost: entries of an empty block on the current card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ENTRY_REPS):
+        with build.on_device(cuda0):
+            pass
+    entry_us = (time.perf_counter() - t0) / ENTRY_REPS * 1e6
+    print(f"launch devices (a): one entry of build.on_device (the card already current) "
+          f"{entry_us:.3f} us, host clock, mean of {ENTRY_REPS} ({card})")
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"launch devices (b): not run: {cards} card (needs 2)")
+        return
+    cuda1 = torch.device("cuda", 1)
+    torch.cuda.set_device(cuda0)
+    with checked_launches() as seen:
+        one = render_elastic(demo, res, res, n, 7, devices=[cuda0])
+        two = render_elastic(demo, res, res, n, 7, devices=[cuda0, cuda1])
+        mesh_one = render_sharded(demo, res, res, n, rng.PRNGKey(7),
+                                  make_mesh((2, 1), devices=[cuda0] * 2))
+        mesh_two = render_sharded(demo, res, res, n, rng.PRNGKey(7),
+                                  make_mesh((2, 1), devices=[cuda0, cuda1]))
+        # a ray tile of mesh0's camera rays: the table split across blocks
+        mesh0 = {dev: load("mesh0", dev, 256) for dev in (cuda0, cuda1)}
+        ro, rd, _ = main_path_rays(mesh0[cuda0], 256, 256, 1, rng.PRNGKey(7), 1, DEFAULT_OPTIONS)
+        ro, rd = ro[:256].cpu(), rd[:256].cpu()
+        hits = {dev: closest_hit(mesh0[dev].prims_packed, ro.to(dev), rd.to(dev),
+                                 mesh0[dev].packed_type_rows) for dev in mesh0}
+        torch.cuda.synchronize(cuda0)
+        torch.cuda.synchronize(cuda1)
+    want = closest_hit_plain(mesh0[cuda0].prims_packed.cpu(), ro, rd)
+    same_k1 = all(torch.equal(a.cpu(), b.cpu()) and torch.equal(a.cpu(), c)
+                  for a, b, c in zip(hits[cuda0], hits[cuda1], want))
+    same_elastic = np.array_equal(one, two)
+    same_mesh = torch.equal(mesh_one, mesh_two.to(mesh_one.device))
+    print(f"launch devices (b) with cuda:0 current: render_elastic demo-box {res}x{res} "
+          f"n = {n} over [cuda:0, cuda:1] bit-equal to [cuda:0]: {same_elastic}; a (2, 1) mesh "
+          f"over cuda:0 and cuda:1 in one process bit-equal to two cuda:0 positions: "
+          f"{same_mesh}; K1 split path (mesh0, 256 rays) on cuda:1 bit-equal to cuda:0 and "
+          f"to plain: {same_k1}; launches on cuda:1 {seen.count(1)} of {len(seen)}")
+    assert same_elastic and same_mesh and same_k1 and seen.count(1) > 0
 
 
 if __name__ == "__main__":

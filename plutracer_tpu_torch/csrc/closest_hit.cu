@@ -36,6 +36,8 @@
 // The kernel writes found itself: one launch a call.
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 #include "path_common.cuh"
 
 using namespace plu;
@@ -264,22 +266,29 @@ __global__ void __launch_bounds__(BLOCK)
   store_rays(packed, first, B, r, t_out, prim_out, found_out);
 }
 
-// the card's SM count and how many ring blocks fit on an SM (queried once)
+// the current device's SM count and how many ring blocks fit on one of its
+// SMs, queried once a device: a process may launch on several cards
+constexpr int MAX_DEVICES = 64;
+std::atomic<int> shape_sms[MAX_DEVICES];  // 0 until the device's shape is known
+std::atomic<int> shape_per[MAX_DEVICES];
+
 cudaError_t card_shape(int* sms, int* ring_per_sm) {
-  static int s = 0, per = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int s = shape_sms[dev].load();
   if (!s) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    int per = 0;
+    err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, closest_hit_ring<true>, BLOCK, 0);
-    if (err != cudaSuccess) {
-      s = 0;
-      return err;
-    }
+    if (err != cudaSuccess) return err;
+    shape_per[dev].store(per);  // before the SM count, which marks the entry as set
+    shape_sms[dev].store(s);
   }
   *sms = s;
-  *ring_per_sm = per;
+  *ring_per_sm = shape_per[dev].load();
   return cudaSuccess;
 }
 

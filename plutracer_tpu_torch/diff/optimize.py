@@ -149,7 +149,7 @@ def optimize_scene(
     NaN/Inf; such steps are rejected, see make_train_step).
     """
     opt = config.optimizer or Adam(config.learning_rate)
-    mesh = make_mesh(config.mesh_shape, mesh_devices(scene, config.mesh_shape))
+    mesh = make_mesh(config.mesh_shape, devices=mesh_devices(scene, config.mesh_shape))
     step = make_train_step(
         scene, config.width, config.height, config.n, mesh, optimizer=opt,
         options=config.options, loss_space=config.loss_space,

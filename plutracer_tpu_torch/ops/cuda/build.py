@@ -24,6 +24,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -152,3 +154,27 @@ def check(rc: int, name: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch entry point."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
+
+
+class on_device:
+    """``with on_device(dev) as stream``: make the CUDA device `dev`
+    current for the block and give the handle of its current stream, for
+    the launch entry points' last argument. ``on_device.entries`` counts
+    the blocks entered: one for each kernel launch (K1's plan call is
+    inside its launch's block)."""
+
+    entries = 0
+
+    def __init__(self, dev):
+        self.dev = torch.device(dev)
+        if self.dev.type != "cuda":
+            raise ValueError(f"on_device: needs a CUDA device, got {self.dev}")
+        self.guard = torch.cuda.device(self.dev)
+
+    def __enter__(self) -> int:
+        self.guard.__enter__()
+        type(self).entries += 1
+        return torch.cuda.current_stream(self.dev).cuda_stream
+
+    def __exit__(self, *exc):
+        return self.guard.__exit__(*exc)

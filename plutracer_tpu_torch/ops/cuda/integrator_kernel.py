@@ -82,8 +82,8 @@ def ray_color_kernel(scene, o, d, u, options, debug: bool = False):
 
 def ray_color_cuda(scene, o, d, u, options, debug: bool = False):
     """The primary hit (query_lite by options.intersect_backend: K1 unless
-    it names another engine), then K2 on the current stream (no
-    synchronisation);
+    it names another engine), then K2 on the rays' card and its current
+    stream (no synchronisation);
     with debug=True K2's K5 instantiation, returning (radiance, telemetry).
     Raises on anything the kernel does not take: CPU tensors, a scene off
     its tier, inputs that require grad."""
@@ -103,19 +103,20 @@ def ray_color_cuda(scene, o, d, u, options, debug: bool = False):
     u_soa = u.permute(0, 2, 1).reshape(mb * 12, B).contiguous()
     o_c, d_c = o.contiguous(), d.contiguous()
     atlas = scene.atlas.contiguous()
-    rc = build.load().lib.plu_megakernel(
-        tables.prim.data_ptr(), tables.prim.shape[0],
-        tables.mat.data_ptr(), tables.mat.shape[0],
-        tables.tex.data_ptr(), tables.tex.shape[0],
-        tables.light.data_ptr(), tables.light.shape[0],
-        scene.prims_packed.data_ptr(), scene.prims_packed.shape[0],
-        atlas.data_ptr(), atlas.shape[0], int(atlas.shape[0] > 1),
-        o_c.data_ptr(), d_c.data_ptr(), prim0.data_ptr(), t0.data_ptr(),
-        u_soa.data_ptr(), out.data_ptr(), dbg.data_ptr() if debug else None, B, mb,
-        int(options.swapped_light_mis_weight), int(options.origin_distance_pdf),
-        int(options.shading_normal_le_gate),
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
+    lib = build.load().lib
+    with build.on_device(o.device) as stream:
+        rc = lib.plu_megakernel(
+            tables.prim.data_ptr(), tables.prim.shape[0],
+            tables.mat.data_ptr(), tables.mat.shape[0],
+            tables.tex.data_ptr(), tables.tex.shape[0],
+            tables.light.data_ptr(), tables.light.shape[0],
+            scene.prims_packed.data_ptr(), scene.prims_packed.shape[0],
+            atlas.data_ptr(), atlas.shape[0], int(atlas.shape[0] > 1),
+            o_c.data_ptr(), d_c.data_ptr(), prim0.data_ptr(), t0.data_ptr(),
+            u_soa.data_ptr(), out.data_ptr(), dbg.data_ptr() if debug else None, B, mb,
+            int(options.swapped_light_mis_weight), int(options.origin_distance_pdf),
+            int(options.shading_normal_le_gate), stream,
+        )
     build.check(rc, "plu_megakernel")
     if debug:
         ray_color_cuda.debug_launches += 1

@@ -166,11 +166,12 @@ def closest_hit(packed, o, d, type_rows=None):
 
 
 def closest_hit_cuda(packed, o, d, type_rows=None):
-    """Launch K1 on the current stream (no synchronisation): one launch,
-    which writes found, prim and t. type_rows gives the rows of the sphere
-    and box segments (the rest are triangles). The kernel's plan splits
-    the table across blocks when the rays alone cannot fill the card.
-    Raises on anything the kernel does not take, CPU tensors included."""
+    """Launch K1 on the tensors' card and its current stream (no
+    synchronisation): one launch, which writes found, prim and t.
+    type_rows gives the rows of the sphere and box segments (the rest are
+    triangles). The kernel's plan splits the table across blocks when the
+    rays alone cannot fill the card. Raises on anything the kernel does
+    not take, CPU tensors included."""
     import ctypes
 
     from plutracer_tpu_torch.ops.cuda import build
@@ -195,31 +196,37 @@ def closest_hit_cuda(packed, o, d, type_rows=None):
         return found, prim, t
     lib = build.load().lib
     tiles = ctypes.c_int(0)
-    splits = lib.plu_closest_hit_plan(n_rows, B, ctypes.byref(tiles))
-    build.check(-min(splits, 0), "plu_closest_hit_plan")
-    part_t = part_k = arrivals = None
-    if splits > 1:  # the splits' partial answers and each ray tile's arrivals
-        part_t = torch.empty(splits * B, dtype=torch.float32, device=dev)
-        part_k = torch.empty(splits * B, dtype=torch.int32, device=dev)
-        arrivals = _arrivals(dev, tiles.value)
-    ptr = lambda x: None if x is None else x.data_ptr()
-    rc = lib.plu_closest_hit(
-        packed.data_ptr(), n_rows, n_sph, n_box, o.data_ptr(), d.data_ptr(), t.data_ptr(),
-        prim.data_ptr(), found.data_ptr(), B, splits, ptr(part_t), ptr(part_k), ptr(arrivals),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with build.on_device(dev) as stream:  # the plan reads this card's SM count
+        splits = lib.plu_closest_hit_plan(n_rows, B, ctypes.byref(tiles))
+        build.check(-min(splits, 0), "plu_closest_hit_plan")
+        part_t = part_k = arrivals = None
+        if splits > 1:  # the splits' partial answers and each ray tile's arrivals
+            part_t = torch.empty(splits * B, dtype=torch.float32, device=dev)
+            part_k = torch.empty(splits * B, dtype=torch.int32, device=dev)
+            arrivals = _arrivals(dev, tiles.value)
+        ptr = lambda x: None if x is None else x.data_ptr()
+        rc = lib.plu_closest_hit(
+            packed.data_ptr(), n_rows, n_sph, n_box, o.data_ptr(), d.data_ptr(), t.data_ptr(),
+            prim.data_ptr(), found.data_ptr(), B, splits, ptr(part_t), ptr(part_k), ptr(arrivals),
+            stream,
+        )
     build.check(rc, "plu_closest_hit")
     closest_hit_cuda.launches += 1
     return found, prim, t
 
 
-_ARRIVALS = {}  # device -> int32 counts, all 0 between launches (the kernel resets them)
+_ARRIVALS = {}  # device index -> int32 counts, all 0 between launches (the kernel resets them)
 
 
 def _arrivals(dev, n):
-    buf = _ARRIVALS.get(dev)
+    """The arrival counts of n ray tiles on the CUDA device `dev`, one
+    buffer a card ("cuda" names the current one)."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    buf = _ARRIVALS.get(index)
     if buf is None or buf.numel() < n:
-        buf = _ARRIVALS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        buf = _ARRIVALS[index] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                             device=torch.device("cuda", index))
     return buf
 
 
@@ -362,9 +369,9 @@ def walk_pointers(scene):
 
 
 def closest_hit_bvh_cuda(scene, o, d):
-    """Launch the K3 query kernel on the current stream (no
-    synchronisation). Raises on anything the kernel does not take, CPU
-    tensors included."""
+    """Launch the K3 query kernel on the tensors' card and its current
+    stream (no synchronisation). Raises on anything the kernel does not
+    take, CPU tensors included."""
     from plutracer_tpu_torch.ops.cuda import build
 
     _check(scene.prims_packed, o, d)
@@ -374,10 +381,10 @@ def closest_hit_bvh_cuda(scene, o, d):
     prim = torch.empty(B, dtype=torch.int32, device=o.device)
     if B == 0:
         return t < T_MAX, prim, t
-    rc = build.load().lib.plu_closest_hit_bvh(
-        *tables, o.data_ptr(), d.data_ptr(), t.data_ptr(), prim.data_ptr(), B,
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
+    lib = build.load().lib
+    with build.on_device(o.device) as stream:
+        rc = lib.plu_closest_hit_bvh(
+            *tables, o.data_ptr(), d.data_ptr(), t.data_ptr(), prim.data_ptr(), B, stream)
     build.check(rc, "plu_closest_hit_bvh")
     closest_hit_bvh_cuda.launches += 1
     return t < T_MAX, prim, t

@@ -34,9 +34,9 @@ def _device_words(keys: torch.Tensor, device) -> torch.Tensor:
 
 
 def uniform_block_cuda(keys: torch.Tensor, n: int, device) -> torch.Tensor:
-    """Launch R1 on the current stream (no synchronisation): (K, n)
-    float32 on the CUDA `device`, row k = uniform(keys[k], (n,)). One
-    launch for every K in 1..MAX_KEYS and 0 < n < 2**32; raises on
+    """Launch R1 on `device` and its current stream (no synchronisation):
+    (K, n) float32 on the CUDA `device`, row k = uniform(keys[k], (n,)).
+    One launch for every K in 1..MAX_KEYS and 0 < n < 2**32; raises on
     anything else, a CPU device included."""
     from plutracer_tpu_torch.ops.cuda import build
 
@@ -56,8 +56,9 @@ def uniform_block_cuda(keys: torch.Tensor, n: int, device) -> torch.Tensor:
         return out
     if out.data_ptr() % 16:
         raise ValueError("uniform_block_cuda: the output must be 16-byte aligned")
-    rc = build.load().lib.plu_threefry_uniform(
-        words.data_ptr(), K, n, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    lib = build.load().lib
+    with build.on_device(dev) as stream:
+        rc = lib.plu_threefry_uniform(words.data_ptr(), K, n, out.data_ptr(), stream)
     build.check(rc, "plu_threefry_uniform")
     uniform_block_cuda.launches += 1
     return out

@@ -68,11 +68,12 @@ def _flag_args(options):
 
 
 def ray_color_stream_cuda(scene, o, d, u, options, debug: bool = False):
-    """K3 on the current stream (no synchronisation): radiance (B, 3) for
-    rays o, d (B, 3) and uniforms u (max_bounces, B, 12); with debug=True
-    K3's K5 instantiation, returning (radiance, telemetry (max_bounces,
-    DBG_C, B)). Raises on anything the kernel does not take: CPU tensors,
-    a scene off the stream tier, inputs that require grad."""
+    """K3 on the rays' card and its current stream (no synchronisation):
+    radiance (B, 3) for rays o, d (B, 3) and uniforms u (max_bounces, B,
+    12); with debug=True K3's K5 instantiation, returning (radiance,
+    telemetry (max_bounces, DBG_C, B)). Raises on anything the kernel does
+    not take: CPU tensors, a scene off the stream tier, inputs that
+    require grad."""
     from plutracer_tpu_torch.ops.cuda import DBG_C, build
     from plutracer_tpu_torch.ops.tables import pack_tables
 
@@ -91,12 +92,13 @@ def ray_color_stream_cuda(scene, o, d, u, options, debug: bool = False):
     dbg = torch.empty((mb, DBG_C, B), dtype=torch.float32, device=o.device) if debug else None
     if B == 0:
         return (out, dbg) if debug else out
-    rc = build.load().lib.plu_megakernel_stream(
-        *_table_args(scene, tables),
-        o.data_ptr(), d.data_ptr(), u_soa.data_ptr(), out.data_ptr(),
-        dbg.data_ptr() if debug else None, B,
-        *_flag_args(options), torch.cuda.current_stream(o.device).cuda_stream,
-    )
+    lib = build.load().lib
+    with build.on_device(o.device) as stream:
+        rc = lib.plu_megakernel_stream(
+            *_table_args(scene, tables),
+            o.data_ptr(), d.data_ptr(), u_soa.data_ptr(), out.data_ptr(),
+            dbg.data_ptr() if debug else None, B, *_flag_args(options), stream,
+        )
     build.check(rc, "plu_megakernel_stream")
     if debug:
         ray_color_stream_cuda.debug_launches += 1
@@ -110,11 +112,12 @@ ray_color_stream_cuda.debug_launches = 0
 
 
 def onebounce_cuda(scene, tables, wave, i: int, perm, options):
-    """K4 on the current stream (no synchronisation): vertex i of the
-    wavefront's lanes (render/wavefront.py: launch 0 finds the primary
-    hit; under a sort a lane reads its state at perm[lane]), writing the
-    Wave's next carry, lane rays, keys, counts and the radiance of the
-    rays that end. Raises on anything the kernel does not take."""
+    """K4 on the wave's card and its current stream (no synchronisation):
+    vertex i of the wavefront's lanes (render/wavefront.py: launch 0 finds
+    the primary hit; under a sort a lane reads its state at perm[lane]),
+    writing the Wave's next carry, lane rays, keys, counts and the
+    radiance of the rays that end. Raises on anything the kernel does not
+    take."""
     from plutracer_tpu_torch.ops.cuda import build
     from plutracer_tpu_torch.render.wavefront import CARRY_W, SORTS
 
@@ -146,14 +149,16 @@ def onebounce_cuda(scene, tables, wave, i: int, perm, options):
         return
     sorting = wave.sort != "none" and i < mb - 1
     ptr = lambda x: None if x is None else x.data_ptr()
-    rc = build.load().lib.plu_megakernel_onebounce(
-        *_table_args(scene, tables),
-        wave.o.data_ptr(), wave.d.data_ptr(), wave.carry.data_ptr(), wave.carry_next.data_ptr(),
-        ptr(perm), ptr(wave.orig if i > 0 else None), ptr(wave.orig_next if sorting else None),
-        wave.u.data_ptr(), wave.out.data_ptr(), ptr(wave.key if sorting else None),
-        wave.counts.data_ptr(), wave.bounds.data_ptr(), B, i, SORTS.index(wave.sort),
-        *_flag_args(options), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    lib = build.load().lib
+    with build.on_device(dev) as stream:
+        rc = lib.plu_megakernel_onebounce(
+            *_table_args(scene, tables),
+            wave.o.data_ptr(), wave.d.data_ptr(), wave.carry.data_ptr(),
+            wave.carry_next.data_ptr(), ptr(perm), ptr(wave.orig if i > 0 else None),
+            ptr(wave.orig_next if sorting else None), wave.u.data_ptr(), wave.out.data_ptr(),
+            ptr(wave.key if sorting else None), wave.counts.data_ptr(), wave.bounds.data_ptr(),
+            B, i, SORTS.index(wave.sort), *_flag_args(options), stream,
+        )
     build.check(rc, "plu_megakernel_onebounce")
     onebounce_cuda.launches += 1
 

@@ -26,7 +26,9 @@ names and meanings, plutracer_tpu/ops/intersect.py:195-256):
 - "xla": ``intersect_lite`` over the scene rows, in ray chunks of at most
   XLA_BUDGET (ray, primitive) pairs;
 - "auto": "pallas" on CUDA tensors, "xla" on CPU tensors (as the JAX
-  package picks the Pallas kernel on an accelerator and XLA on the CPU).
+  package picks the Pallas kernel on an accelerator and XLA on the CPU),
+  and "xla" for a scene compiled without its accelerator
+  (compile_scene(build_accel=False)), on which "pallas" and "bvh" raise.
 
 All four return the same winner (found, prim). The kernels' t carries no
 gradient; ``differentiable_t`` recomputes it at the winner on every backend
@@ -189,15 +191,23 @@ def intersect_closest(scene, o, d, t_max: float = T_MAX) -> Hit:
     return hit_detail(scene, o, d, t, prim, found)
 
 
-def _resolve_backend(options, device) -> str:
-    """options.intersect_backend with "auto" resolved for tensors on
-    `device`: "pallas" (K1) on a CUDA device, "xla" elsewhere. Raises
-    ValueError on a name that is not in BACKENDS."""
+def _resolve_backend(scene, options, device) -> str:
+    """options.intersect_backend with "auto" resolved for the scene's
+    tensors on `device`: "pallas" (K1) on a CUDA device, "xla" elsewhere
+    and for a scene without the packed table. Raises ValueError on a name
+    that is not in BACKENDS, and on an engine whose table the scene lacks
+    (compile_scene(build_accel=False))."""
     backend = getattr(options, "intersect_backend", "auto")
     if backend not in BACKENDS:
         raise ValueError(f"intersect_backend must be one of {BACKENDS}, got {backend!r}")
     if backend == "auto":
-        return "pallas" if torch.device(device).type == "cuda" else "xla"
+        cuda = torch.device(device).type == "cuda"
+        return "pallas" if cuda and scene.prims_packed is not None else "xla"
+    needs = {"pallas": ("prims_packed", "the packed table"),
+             "bvh": ("walk_nodes", "the BVH walk")}.get(backend)
+    if needs and getattr(scene, needs[0]) is None:
+        raise ValueError(f"intersect_backend={backend!r} needs {needs[1]}, which "
+                         "compile_scene(..., build_accel=False) does not build")
     return backend
 
 
@@ -206,7 +216,7 @@ def query_lite(scene, o, d, options=DEFAULT_OPTIONS):
     names (module docstring). The kernels' inputs are detached (their t is
     not differentiable, as the JAX package stops their gradients); "xla"
     keeps intersect_lite's differentiable t."""
-    backend = _resolve_backend(options, o.device)
+    backend = _resolve_backend(scene, options, o.device)
     if backend == "pallas":
         from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit
 
@@ -223,7 +233,7 @@ def query_lite(scene, o, d, options=DEFAULT_OPTIONS):
     return tuple(torch.cat(x) for x in zip(*parts))
 
 
-def differentiable_t(tables, o, d, found, prim, t, options):
+def differentiable_t(scene, tables, o, d, found, prim, t, options):
     """query_lite's t for the same rays and options, with a gradient: on
     every backend but "xla" (whose t is intersect_lite's, differentiable
     as it stands) it is recomputed at the winner with the plain
@@ -232,7 +242,7 @@ def differentiable_t(tables, o, d, found, prim, t, options):
     would put p at ~4e37). A missed lane keeps the query's t (_BIG from
     the walk, possibly a padding row near 1e30 from K1), which nothing
     reads: found is t < T_MAX."""
-    if _resolve_backend(options, o.device) == "xla":
+    if _resolve_backend(scene, options, o.device) == "xla":
         return t
     td = prim_t_rows(o, d, gather_prim(tables, prim))
     return torch.where(found & (td < T_MAX), td, t)
@@ -246,7 +256,7 @@ def query_closest(scene, o, d, options=DEFAULT_OPTIONS) -> Hit:
     keeps intersect_lite's own differentiable t."""
     tables = pack_tables(scene)
     found, prim, t = query_lite(scene, o, d, options)
-    t = differentiable_t(tables, o, d, found, prim, t, options)
+    t = differentiable_t(scene, tables, o, d, found, prim, t, options)
     return hit_detail_rows(o, d, t, prim, found, gather_prim(tables, prim))
 
 

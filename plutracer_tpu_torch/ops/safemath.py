@@ -164,7 +164,11 @@ def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     return sqrt(torch.where(pos, x, 1.0)) * pos.to(x.dtype)
 
 
-def normalize(v: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
-    """v * rsqrt(|v|^2 + eps) over the last axis, through the guarded
-    rsqrt: derivative finite even at |v| -> 0."""
-    return v * safe_rsqrt(dot(v, v) + eps)[..., None]
+def normalize(v: torch.Tensor, axis: int = -1, eps: float = 1e-30) -> torch.Tensor:
+    """v * rsqrt(sum(v * v, axis) + eps), through the guarded rsqrt:
+    derivative finite even at |v| -> 0. Over a last axis of length 3 the
+    sum is ``dot``'s fixed order, which the kernels round alike; over any
+    other axis it is torch.sum."""
+    if axis % v.dim() == v.dim() - 1 and v.shape[-1] == 3:
+        return v * safe_rsqrt(dot(v, v) + eps)[..., None]
+    return v * safe_rsqrt(torch.sum(v * v, axis, keepdim=True) + eps)

@@ -63,7 +63,7 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict
     if len(devices) < n_devices:
         raise ValueError(f"need {n_devices} devices, have {len(devices)}")
     shape = (n_devices // 2, 2) if n_devices % 2 == 0 and n_devices > 1 else (n_devices, 1)
-    mesh = make_mesh(shape, devices)
+    mesh = make_mesh(shape, devices=devices)
     scene = compile_scene(load_scene_file(str(SCENE), ["/res", f"{W}x{H}"]), device=devices[0])
 
     img = render_sharded(scene, W, H, N, rng.PRNGKey(0), mesh)
@@ -103,7 +103,7 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict
           f"(losses={[round(x, 4) for x in losses.tolist()]}, nonfinite_frac={nf.tolist()})")
 
     # the phase-2 variant on the spp axis alone (pooling needs whole images)
-    mesh2 = make_mesh((1, n_devices), devices)
+    mesh2 = make_mesh((1, n_devices), devices=devices)
     p2step = make_train_step(scene, W, H, N, mesh2, optimizer=Adam(1e-2), loss_space="ab",
                              trainable=("mat_color",), grad_mask=mask, project_nonnegative=True,
                              loss_downsample=8, loss_clamp=20.0,
@@ -132,7 +132,7 @@ def mesh_jobs(specs: Sequence[dict], devices: Sequence) -> Dict[str, np.ndarray]
         w, h = spec["res"]
         scene = compile_scene(load_scene_file(spec["scene"], ["/res", f"{w}x{h}"]),
                               device=devices[0])
-        mesh = make_mesh(tuple(spec["shape"]), devices)
+        mesh = make_mesh(tuple(spec["shape"]), devices=devices)
         key = rng.PRNGKey(spec["seed"])
         if spec["kind"] == "render":
             img = render_sharded(scene, w, h, spec["n"], key, mesh)

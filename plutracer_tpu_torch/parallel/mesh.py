@@ -80,9 +80,14 @@ def single(device) -> Mesh:
 
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None,
+              axis_names: Tuple[str, str] = AXES,
               devices: Optional[Sequence] = None) -> Mesh:
-    """A (tiles, spp) mesh over every process's devices.
+    """A (tiles, spp) mesh over every process's devices: the JAX
+    package's make_mesh(shape, axis_names, devices).
 
+    `axis_names`: the mesh's axes, which must be ("tiles", "spp") (the
+    port's meshes have only those); anything else, a list of devices
+    passed in its place included, raises ValueError.
     `devices`: this process's devices, the same list on every process of
     the job (default: every visible card in a job of one process, the
     card of the rank's own index modulo the card count in a larger one:
@@ -91,6 +96,9 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
     default shape puts every position on `tiles`. Raises ValueError when
     the shape needs more positions than there are, and RuntimeError
     without a card when no devices are given."""
+    if not isinstance(axis_names, (tuple, list)) or tuple(axis_names) != AXES:
+        raise ValueError(f"make_mesh: axis_names must be {AXES}, got {axis_names!r} "
+                         "(pass the devices as devices=)")
     distributed = dist.is_available() and dist.is_initialized()
     world, rank = (dist.get_world_size(), dist.get_rank()) if distributed else (1, 0)
     if devices is not None:

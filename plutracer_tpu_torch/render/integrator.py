@@ -244,9 +244,11 @@ def resolve_integrator_backend(scene, options, device) -> str:
     if backend == "auto":
         return "kernel" if torch.device(device).type == "cuda" and eligible else "plain"
     if backend == "kernel" and not eligible:
+        lacks = (" (compiled with build_accel=False: no packed table or BVH walk)"
+                 if scene.prims_packed is None else "")
         raise ValueError(
             "integrator_backend='kernel' forced but the kernels do not take the "
-            "scene (see megakernel_eligible)"
+            f"scene{lacks} (see megakernel_eligible)"
         )
     if backend not in ("kernel", "plain"):
         raise ValueError(
@@ -344,7 +346,7 @@ def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS, debug: b
     tables = pack_tables(scene)
     # primary hit (reference traces it before the bounce loop, renderer.cpp:61)
     found, prim, t = intersect.query_lite(scene, o, d, options)
-    t = intersect.differentiable_t(tables, o, d, found, prim, t, options)
+    t = intersect.differentiable_t(scene, tables, o, d, found, prim, t, options)
     state = PathState(
         o=o, d=d, T=torch.ones_like(o), L=torch.zeros_like(o),
         prev_spec=torch.zeros(B, dtype=torch.bool, device=o.device),
@@ -463,7 +465,7 @@ def plain_bounce(scene, tables, state: PathState, ui, i: int,
             bs.pdf, dot(bs.f, bs.f), ls.pdf, l_pdf2,
             Ld[:, 0] + Ld[:, 1] + Ld[:, 2], f32(cur), xt, f32(xp), f32(bs.is_specular),
         ])
-    xt = intersect.differentiable_t(tables, hit.p, bs.wwi, xf, xp, xt, options)
+    xt = intersect.differentiable_t(scene, tables, hit.p, bs.wwi, xf, xp, xt, options)
     nxt = PathState(hit.p, bs.wwi, T, L, bs.is_specular, alive_next, xp, xt)
     if not (debug or terms):
         return nxt

@@ -23,6 +23,7 @@ int64 tensor and masked back to 32 bits after each add or shift).
 from __future__ import annotations
 
 import math
+import operator
 from typing import Sequence
 
 import torch
@@ -70,16 +71,25 @@ def split_words(words, num: int = 2):
     return [threefry2x32(words[0], words[1], 0, i) for i in range(num)]
 
 
-def PRNGKey(seed: int) -> torch.Tensor:
-    """jax.random.PRNGKey(seed) for a 32-bit non-negative seed: (0, seed)."""
-    seed = int(seed)
-    if not 0 <= seed < 2**31:
-        raise ValueError(f"seed must lie in [0, 2**31), got {seed}")
-    return torch.tensor([0, seed], dtype=torch.int64)
+def PRNGKey(seed) -> torch.Tensor:
+    """jax.random.PRNGKey(seed): (0, seed mod 2**32) for any integer seed
+    (a Python int must fit an int64, as jax converts it to a C long;
+    OverflowError beyond); TypeError for a seed that is not an integer."""
+    try:
+        value = operator.index(seed)
+    except TypeError:
+        raise TypeError(f"PRNG key seed must be an integer; got {seed!r}") from None
+    if isinstance(seed, int) and not -2**63 <= value < 2**63:
+        raise OverflowError("Python int too large to convert to C long")
+    return torch.tensor([0, value & _MASK], dtype=torch.int64)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """jax.random.fold_in: hash the counter pair (0, data) under key."""
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """jax.random.fold_in: hash the counter pair (0, data) under key. A
+    Python int outside [0, 2**32) raises OverflowError, as jax's uint32
+    conversion does; other numbers are converted to uint32 words."""
+    if isinstance(data, int) and not 0 <= data <= _MASK:
+        raise OverflowError(f"Python integer {data} out of bounds for uint32")
     return torch.tensor(fold_in_words(key_words(key), data), dtype=torch.int64)
 
 

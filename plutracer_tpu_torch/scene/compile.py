@@ -280,9 +280,11 @@ def walk_tables(prim_type, bvh, prims_packed) -> Dict:
     return dict(walk_nodes=np.ascontiguousarray(nodes), walk_rows=rows, walk_depth=walk_depth)
 
 
-def compile_numpy(desc: SceneDesc, options: RenderOptions = DEFAULT_OPTIONS) -> Dict:
+def compile_numpy(desc: SceneDesc, options: RenderOptions = DEFAULT_OPTIONS,
+                  build_accel: bool = True) -> Dict:
     """The host stage: every Scene field as a numpy leaf (camera as a
-    dict of CameraParams fields)."""
+    dict of CameraParams fields). build_accel=False leaves out the
+    accelerator (ACCEL_FIELDS), as the JAX package's compile_scene does."""
     P = max(len(desc.prims), 1)
     M = max(len(desc.materials), 1)
     T = max(len(desc.textures), 1)
@@ -352,21 +354,22 @@ def compile_numpy(desc: SceneDesc, options: RenderOptions = DEFAULT_OPTIONS) -> 
         desc.lens_radius, desc.focal_distance,
     )
 
-    # reference bvh_tree internal-node culling (phantom-hit parity for
-    # non-unit rays — see scene/bvh.parent_bounds_tables). Only sphere
-    # rows can change under the cull, so the row list is filtered to them.
-    bvh = build_bvh(types.SimpleNamespace(**lv))
-    parent_min, parent_max = parent_bounds_tables(bvh, P)
-    cull_rows = tuple(
-        int(j)
-        for j in np.nonzero(lv["prim_type"] == PRIM_SPHERE)[0]
-        if parent_max[j, 0] < 3.0e38
-    )
-    lv.update(parent_min=parent_min, parent_max=parent_max,
-              cull_rows=cull_rows or None, bvh=bvh)
-    lv["prims_packed"] = pack_prims_np(lv)
-    lv["packed_type_rows"] = packed_type_rows(lv["prim_type"])
-    lv.update(walk_tables(lv["prim_type"], bvh, lv["prims_packed"]))
+    if build_accel:
+        # reference bvh_tree internal-node culling (phantom-hit parity for
+        # non-unit rays — see scene/bvh.parent_bounds_tables). Only sphere
+        # rows can change under the cull, so the row list is filtered to them.
+        bvh = build_bvh(types.SimpleNamespace(**lv))
+        parent_min, parent_max = parent_bounds_tables(bvh, P)
+        cull_rows = tuple(
+            int(j)
+            for j in np.nonzero(lv["prim_type"] == PRIM_SPHERE)[0]
+            if parent_max[j, 0] < 3.0e38
+        )
+        lv.update(parent_min=parent_min, parent_max=parent_max,
+                  cull_rows=cull_rows or None, bvh=bvh)
+        lv["prims_packed"] = pack_prims_np(lv)
+        lv["packed_type_rows"] = packed_type_rows(lv["prim_type"])
+        lv.update(walk_tables(lv["prim_type"], bvh, lv["prims_packed"]))
     _assert_finite(lv)
     return lv
 
@@ -392,7 +395,7 @@ def scene_from_numpy(leaves: Dict) -> Scene:
     walk layout and the packed type rows are derived when absent); keys
     that are not Scene fields are ignored."""
     t = lambda x: torch.as_tensor(np.array(x))
-    if "walk_nodes" not in leaves:
+    if "walk_nodes" not in leaves and leaves.get("bvh") is not None:
         leaves = {**leaves, "packed_type_rows": packed_type_rows(leaves["prim_type"]),
                   **walk_tables(leaves["prim_type"], leaves["bvh"], leaves["prims_packed"])}
     cam = CameraParams(**{
@@ -405,9 +408,9 @@ def scene_from_numpy(leaves: Dict) -> Scene:
         v = leaves[f.name]
         if f.name == "cull_rows":
             kw[f.name] = tuple(int(r) for r in v) if v else None
-        elif f.name == "packed_type_rows":
+        elif f.name == "packed_type_rows" and v is not None:
             kw[f.name] = tuple(int(r) for r in v)
-        elif f.name == "bvh":
+        elif f.name == "bvh" and v is not None:
             kw[f.name] = BvhTables(*(t(getattr(v, g.name)) for g in dataclasses.fields(BvhTables)))
         elif v is not None:
             kw[f.name] = t(v)
@@ -417,11 +420,17 @@ def scene_from_numpy(leaves: Dict) -> Scene:
 def compile_scene(
     desc: SceneDesc,
     options: RenderOptions = DEFAULT_OPTIONS,
+    build_accel: bool = True,
     device=None,
 ) -> Scene:
     """The compiled Scene on `device`: the CUDA card unless the caller
     names another device. Without a card and without an explicit device
-    it raises; it never falls back to the CPU."""
+    it raises; it never falls back to the CPU.
+
+    build_accel=False (the JAX package's flag) compiles no accelerator:
+    the ACCEL_FIELDS are None, so the scene renders on the plain path
+    (brute-force queries, no phantom-hit cull, as in the JAX package),
+    and an engine that needs one of them raises."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -429,4 +438,4 @@ def compile_scene(
                 "compile the scene onto the CPU"
             )
         device = "cuda"
-    return scene_from_numpy(compile_numpy(desc, options)).to(device)
+    return scene_from_numpy(compile_numpy(desc, options, build_accel)).to(device)

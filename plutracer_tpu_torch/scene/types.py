@@ -136,17 +136,19 @@ class Scene:
 
     camera: CameraParams
 
-    # the reference BVH (scene/bvh.build_bvh), and the padded row count of
-    # each type segment of prims_packed (sphere, box, triangle; host-side)
-    bvh: BvhTables
-    packed_type_rows: Tuple[int, int, int]
+    # The accelerator (ACCEL_FIELDS), None when compile_scene ran with
+    # build_accel=False. The reference BVH (scene/bvh.build_bvh), and the
+    # padded row count of each type segment of prims_packed (sphere, box,
+    # triangle; host-side)
+    bvh: Optional[BvhTables] = None
+    packed_type_rows: Optional[Tuple[int, int, int]] = None
     # the same tree laid out for the stream kernels K3/K4's walk
     # (scene/compile.walk_tables): 64-byte internal-node records holding
     # both children's padded boxes, and the packed rows in leaf order
-    walk_nodes: torch.Tensor  # (Nw, 16) i32 (cols 0:12 float32 bits)
-    walk_rows: torch.Tensor  # (P, 20) f32
+    walk_nodes: Optional[torch.Tensor] = None  # (Nw, 16) i32 (cols 0:12 float32 bits)
+    walk_rows: Optional[torch.Tensor] = None  # (P, 20) f32
 
-    # closest-hit kernel table (scene/compile.pack_prims_np), None until built
+    # closest-hit kernel table (scene/compile.pack_prims_np)
     prims_packed: Optional[torch.Tensor] = None  # (P_pad, 24)
 
     # phantom-hit culling (scene/bvh.parent_bounds_tables): per-prim parent
@@ -169,6 +171,12 @@ class Scene:
 
     def to(self, device) -> "Scene":
         return _move(self, device)
+
+
+# the Scene fields compile_scene(build_accel=False) leaves None: the BVH, the
+# walk and the packed table derived from it, and the phantom-hit cull's
+ACCEL_FIELDS = ("bvh", "packed_type_rows", "walk_nodes", "walk_rows", "prims_packed",
+                "parent_min", "parent_max", "cull_rows")
 
 
 # ---------------- host-side description ----------------

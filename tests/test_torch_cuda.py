@@ -629,7 +629,7 @@ def test_mesh_render_kernel_equals_plain_on_card(dev):
 
     s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x48"]),
                       device=dev)
-    mesh = make_mesh((2, 2), [dev] * 4)
+    mesh = make_mesh((2, 2), devices=[dev] * 4)
     before = ray_color_cuda.launches
     img = render_sharded(s, 64, 48, 2, rng.PRNGKey(3), mesh)
     assert ray_color_cuda.launches > before
@@ -876,3 +876,96 @@ def test_r1_train_step_equals_plain_draws(dev, monkeypatch):
         assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
         assert got[1].keys() == want[1].keys()
         assert all(torch.equal(got[1][f], want[1][f]) for f in got[1])
+
+
+# every launch on its tensors' card (ops/cuda/build.on_device)
+
+
+def test_launch_helper_counts_every_launch(dev):
+    """Over renders through K1 + K2, K3 and K4, the K3 query, K5 and R1,
+    the launch helper's entries equal the wrappers' launch counters: no
+    launch bypasses build.on_device."""
+    from plutracer_tpu_torch.ops.cuda import build
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+
+    counters = ((closest_hit_cuda, "launches"), (closest_hit_bvh_cuda, "launches"),
+                (ray_color_cuda, "launches"), (ray_color_cuda, "debug_launches"),
+                (ray_color_stream_cuda, "launches"), (ray_color_stream_cuda, "debug_launches"),
+                (onebounce_cuda, "launches"), (uniform_block_cuda, "launches"))
+    demo, o, d = scene_and_rays("demo-box", 32, dev)
+    mesh1 = compile_scene(load_scene_file(str(REPO / "scenes" / "mesh1.urn"), ["/res", "32x32"]),
+                          device=dev)
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    build.on_device.entries = 0
+    render(demo, 32, 32, 2, rng.PRNGKey(1))
+    render(mesh1, 32, 32, 2, rng.PRNGKey(1))
+    render(mesh1, 32, 32, 2, rng.PRNGKey(1), DEFAULT_OPTIONS.replace(stream_wavefront=True))
+    query_lite(mesh1, o, d, DEFAULT_OPTIONS.replace(intersect_backend="bvh"))
+    u = draw_uniforms(rng.PRNGKey(2), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
+    ray_color_kernel(demo, o, d, u, DEFAULT_OPTIONS, debug=True)
+    ray_color_kernel(mesh1, o, d, u, DEFAULT_OPTIONS, debug=True)
+    counts = [getattr(fn, attr) for fn, attr in counters]
+    assert all(counts) and build.on_device.entries == sum(counts), counts
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _launch_cases(dev):
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+
+    demo, o, d = scene_and_rays("demo-box", 32, dev)
+    mesh1, mo, md = scene_and_rays("mesh1", 32, dev)
+    mb = DEFAULT_OPTIONS.max_bounces
+    u = draw_uniforms(rng.PRNGKey(5), o.shape[0], mb, dev)
+    wf = DEFAULT_OPTIONS.replace(stream_wavefront=True)
+    return {
+        "K1": lambda: closest_hit(demo.prims_packed, o, d, demo.packed_type_rows),
+        "K1 split": lambda: closest_hit(mesh1.prims_packed, mo[:256], md[:256],
+                                        mesh1.packed_type_rows),
+        "K3 query": lambda: closest_hit_bvh(mesh1, mo, md),
+        "K2": lambda: ray_color_cuda(demo, o, d, u, DEFAULT_OPTIONS),
+        "K3": lambda: ray_color_stream_cuda(mesh1, mo, md, u, DEFAULT_OPTIONS),
+        "K4": lambda: ray_color_wavefront(mesh1, mo, md, u, wf),
+        "K5": lambda: ray_color_stream_cuda(mesh1, mo, md, u, DEFAULT_OPTIONS, debug=True),
+        "R1": lambda: uniform_block_cuda(rng.key_table([rng.PRNGKey(1), rng.PRNGKey(2)]),
+                                         100003, dev),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K1 split", "K3 query", "K2", "K3", "K4", "K5", "R1"])
+def test_launch_with_another_card_current(two_cards, kernel):
+    """Tensors on cuda:0, launched while cuda:1 is the current device: the
+    same bits as with cuda:0 current."""
+    cuda0, cuda1 = two_cards
+    run = _launch_cases(cuda0)[kernel]
+    want = run()
+    torch.cuda.synchronize(cuda0)
+    with torch.cuda.device(cuda1):
+        got = run()
+    torch.cuda.synchronize(cuda0)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert all(a.device == cuda0 and torch.equal(a, b) for a, b in zip(got, want)), kernel
+
+
+def test_render_elastic_two_cards(two_cards):
+    """render_elastic over [cuda:0, cuda:1] equals the same render on
+    cuda:0 alone, bit for bit, and a (2, 1) mesh over both cards in one
+    process equals two cuda:0 positions."""
+    from plutracer_tpu_torch.parallel import make_mesh, render_sharded
+    from plutracer_tpu_torch.render.elastic import render_elastic
+
+    cuda0, cuda1 = two_cards
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x48"]),
+                      device=cuda0)
+    assert np.array_equal(render_elastic(s, 64, 48, 2, 7, devices=[cuda0, cuda1]),
+                          render_elastic(s, 64, 48, 2, 7, devices=[cuda0]))
+    one = render_sharded(s, 64, 48, 2, rng.PRNGKey(7), make_mesh((2, 1), devices=[cuda0] * 2))
+    two = render_sharded(s, 64, 48, 2, rng.PRNGKey(7), make_mesh((2, 1), devices=[cuda0, cuda1]))
+    assert torch.equal(one, two.to(cuda0))

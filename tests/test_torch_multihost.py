@@ -72,7 +72,7 @@ def test_mesh_spans_every_rank(tmp_path):
     partials go through the collective, with the same image."""
     initialize_distributed(f"file://{tmp_path}/rendezvous", 1, 0, "gloo", timeout=60.0)
     try:
-        mesh = make_mesh((2, 1), [torch.device("cpu")] * 2)
+        mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
         assert mesh.distributed and mesh.world == 1
         got = mesh_jobs(SPECS[:1], [torch.device("cpu")] * 4)
     finally:

@@ -206,12 +206,12 @@ def jax_refs(tmp_path_factory, train_inputs):
 
 
 def test_mesh_shapes_and_errors(monkeypatch):
-    m = make_mesh((4, 2), [CPU] * 8)
+    m = make_mesh((4, 2), devices=[CPU] * 8)
     assert m.shape == {"tiles": 4, "spp": 2} and m.axis_names == ("tiles", "spp")
     assert make_mesh(devices=[CPU] * 8).shape == {"tiles": 8, "spp": 1}
     assert [(ti, si) for ti, si, _ in m.local()] == [(t, s) for t in range(4) for s in range(2)]
     with pytest.raises(ValueError, match="needs 9 devices"):
-        make_mesh((3, 3), [CPU] * 8)
+        make_mesh((3, 3), devices=[CPU] * 8)
     # no card: the default mesh, and a render or a step on it, raise
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -235,7 +235,7 @@ def test_mesh_shapes_estimate_the_same_image():
     noise_px = np.abs(b1 - b2).mean()
     noise_blk = np.abs(_blocks(b1) - _blocks(b2)).mean()
     for shape in ((1, 1), (4, 2), (8, 1)):
-        a = log(render_sharded(s, 32, 24, 4, rng.PRNGKey(0), make_mesh(shape, [CPU] * 8)))
+        a = log(render_sharded(s, 32, 24, 4, rng.PRNGKey(0), make_mesh(shape, devices=[CPU] * 8)))
         assert a.shape == (24, 32, 3) and np.isfinite(a).all(), shape
         assert np.abs(a - b1).mean() <= 1.75 * noise_px + 1e-3, shape
         assert np.abs(_blocks(a) - _blocks(b1)).mean() <= 1.75 * noise_blk + 1e-3, shape
@@ -245,13 +245,13 @@ def test_mesh_shapes_estimate_the_same_image():
 
 def test_render_sharded_1x1_within_golden_bounds_of_jax(jax_refs):
     img = render_sharded(scene(DEMO, 32, 24), 32, 24, 2, rng.PRNGKey(0),
-                         make_mesh((1, 1), [CPU]))
+                         make_mesh((1, 1), devices=[CPU]))
     golden_close(img.numpy(), jax_refs("renders")["demo11"])
 
 
 def test_render_sharded_within_golden_bounds_of_jax(jax_refs):
     img = render_sharded(scene(DEMO, 32, 24), 32, 24, 2, rng.PRNGKey(0),
-                         make_mesh((4, 2), [CPU] * 8))
+                         make_mesh((4, 2), devices=[CPU] * 8))
     diff = log_diff(img.numpy(), jax_refs("renders")["demo"])
     assert np.quantile(diff, 0.99) < 0.05, np.quantile(diff, 0.99)
     assert (diff.max(-1) > 0.05).mean() <= 0.03, (diff.max(-1) > 0.05).mean()
@@ -270,7 +270,8 @@ def test_every_mesh_traces_each_stratum_once(monkeypatch, shape):
 
     monkeypatch.setattr(sharded, "stratum_launches", spy)
     t, sp = shape
-    render_sharded(scene(DOF, 6, 6), 6, 6, 3, rng.PRNGKey(0), make_mesh(shape, [CPU] * (t * sp)))
+    render_sharded(scene(DOF, 6, 6), 6, 6, 3, rng.PRNGKey(0),
+                   make_mesh(shape, devices=[CPU] * (t * sp)))
     for ti in range(t):
         blocks = traced[ti * sp:(ti + 1) * sp]
         assert sorted(s for b in blocks for s in b) == list(range(9)), (shape, blocks)
@@ -282,7 +283,7 @@ def test_padding_strata_are_not_traced(jax_refs):
     the JAX package pads the second block with stratum 0 and adds it in."""
     s = scene(DOF, 8, 8)
     key = rng.PRNGKey(0)
-    img = render_sharded(s, 8, 8, 3, key, make_mesh((1, 2), [CPU] * 2))
+    img = render_sharded(s, 8, 8, 3, key, make_mesh((1, 2), devices=[CPU] * 2))
     px = pixel_centers(8, 8)
     parts = []
     for si, block in enumerate(([0, 1, 2, 3, 4], [5, 6, 7, 8])):
@@ -305,7 +306,7 @@ def test_first_step_grads_on_a_mesh_match_jax(jax_refs, train_inputs, loss_space
     """The (2, 2) step's gradients after the trainable filter and the mask,
     returned as the Probe optimiser's state (tests/test_torch_train.py)."""
     s, target, params, mask, _ = train_inputs
-    step = make_train_step(s, 16, 12, 2, make_mesh((2, 2), [CPU] * 4), optimizer=Probe(),
+    step = make_train_step(s, 16, 12, 2, make_mesh((2, 2), devices=[CPU] * 4), optimizer=Probe(),
                            loss_space=loss_space, grad_mask={"mat_color": torch.from_numpy(mask)},
                            **TRAIN_KW)
     tparams = {k: torch.from_numpy(v) for k, v in params.items()}
@@ -331,7 +332,7 @@ def test_default_mesh_step_equals_a_1x1_mesh(train_inputs):
     s, target, params, _, _ = train_inputs
     tparams = {k: torch.from_numpy(v) for k, v in params.items()}
     out = []
-    for mesh in (None, make_mesh((1, 1), [CPU])):
+    for mesh in (None, make_mesh((1, 1), devices=[CPU])):
         step = make_train_step(s, 16, 12, 2, mesh, loss_space="ab", **TRAIN_KW)
         out.append(step.many(tparams, step.init(tparams), torch.from_numpy(target),
                              rng.PRNGKey(5), 0, 2))
@@ -361,5 +362,5 @@ def test_optimize_mesh_starts_on_the_scene_device(monkeypatch):
 def test_loss_downsample_needs_one_tile():
     s = scene(DEMO, 16, 16)
     with pytest.raises(ValueError, match="1-tile mesh"):
-        make_train_step(s, 16, 16, 1, make_mesh((2, 1), [CPU] * 2), loss_downsample=2)
-    make_train_step(s, 16, 16, 1, make_mesh((1, 2), [CPU] * 2), loss_downsample=2)
+        make_train_step(s, 16, 16, 1, make_mesh((2, 1), devices=[CPU] * 2), loss_downsample=2)
+    make_train_step(s, 16, 16, 1, make_mesh((1, 2), devices=[CPU] * 2), loss_downsample=2)

@@ -138,7 +138,7 @@ def test_package_never_imports_jax(tmp_path):
         "from plutracer_tpu_torch.parallel import make_mesh, make_train_step, render_sharded\n"
         "from plutracer_tpu_torch.parallel import dryrun, sharded\n"
         "from plutracer_tpu_torch.utils import profiling\n"
-        "mesh = make_mesh((2, 2), [torch.device('cpu')] * 4)\n"
+        "mesh = make_mesh((2, 2), devices=[torch.device('cpu')] * 4)\n"
         "img = render_sharded(s, 8, 6, 1, rng.PRNGKey(0), mesh)\n"
         "st = make_train_step(s, 8, 6, 1, mesh, loss_space='linear')\n"
         "params = sharded.get_params(s)\n"

@@ -77,9 +77,43 @@ def test_render_key_schedule():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_bad_seed_rejected():
-    with pytest.raises(ValueError):
-        rng.PRNGKey(-1)
+# seeds jax.random.PRNGKey takes outside [0, 2**31): (0, seed mod 2**32)
+WIDE_SEEDS = [-1, -2**31, 2**31, 2**32 + 5, 2**63 - 1, -2**63, np.int64(-1), np.int32(-7),
+              np.uint32(2**32 - 1), True]
+
+
+@pytest.mark.parametrize("seed", WIDE_SEEDS, ids=repr)
+def test_prng_key_any_integer_seed(seed):
+    np.testing.assert_array_equal(rng.PRNGKey(seed).numpy(), as_words(jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("seed", [2**63, -2**63 - 1, 2**64, 3.0, "7"], ids=repr)
+def test_bad_seed_rejected(seed):
+    """A seed jax.random.PRNGKey refuses is refused with the same
+    exception: a Python int past int64 (OverflowError), or a seed that
+    is not an integer (TypeError)."""
+    with pytest.raises(Exception) as want:
+        jax.random.PRNGKey(seed)
+    with pytest.raises(want.type):
+        rng.PRNGKey(seed)
+
+
+@pytest.mark.parametrize("data", [-1, 2**32, 2**32 + 5, -2**31], ids=repr)
+def test_fold_in_rejects_data_outside_uint32(data):
+    """fold_in's data is a uint32 word: a Python int outside [0, 2**32)
+    raises OverflowError, as jax.random.fold_in does."""
+    with pytest.raises(OverflowError):
+        jax.random.fold_in(jax.random.PRNGKey(0), data)
+    with pytest.raises(OverflowError):
+        rng.fold_in(rng.PRNGKey(0), data)
+
+
+@pytest.mark.parametrize("data", [0, 2**31, 2**32 - 1, np.int64(-1), np.uint32(7), True],
+                         ids=repr)
+def test_fold_in_takes_what_jax_takes(data):
+    np.testing.assert_array_equal(
+        rng.fold_in(rng.PRNGKey(5), data).numpy(),
+        as_words(jax.random.fold_in(jax.random.PRNGKey(5), data)))
 
 
 # the integer key schedule, the block draw of a launch and R1's dispatch
