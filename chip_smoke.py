@@ -126,7 +126,7 @@ both main paths of the port on the card:
      1x1-mesh render_sharded through R1 bit-equal to the same with
      plain-drawn uniforms (the draws before R1), R1 launches counted.
 22.  launch devices: (a) over demo-box and mesh1 renders at 64x64, n = 2
-     (K1 + K2, K3, and K4 under stream_wavefront), a K3 query, K2's and
+     (K1 + K2, K3, and K4 under stream_wavefront; R1 and R2), a K3 query, K2's and
      K3's K5 launches and an R1 block, the launch helper
      (ops/cuda/build.on_device) entered exactly once a launch (its entries
      equal the sum of every wrapper's counters, K1's plan inside its
@@ -136,6 +136,17 @@ both main paths of the port on the card:
      (2, 1) mesh over both cards in one process, and K1's split path on
      mesh0 with cuda:1's tensors, each bit-equal to the same on cuda:0
      (with one card it prints that (b) was not run, and why).
+23.  R2, the camera-ray kernel: bit-equal to its plain version
+     (renderer.camera_rays_plain, eager torch ops on the card) on every
+     lane of a demo-box 512x512 stratum, a dof 640x480 stratum (the thin
+     lens), a 4-strata and a 16-strata mesh1 256x256 launch (cells out of
+     order) and ragged B (1, 127, B - 77); kernel-only (torch.profiler)
+     and wrapper times beside the plain version's and the bound; the
+     renders of demo-box, dof and mesh1, a demo-box train step (log and
+     ab), render_sharded on a 1x1 mesh and render_elastic through R2
+     bit-equal to the same with the plain camera rays, each with one R2
+     launch a pass-loop launch (half its R1 launches) and no eager camera
+     op.
 
 Every phase asserts and prints its seconds; any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
@@ -162,7 +173,11 @@ its launches in the CLI renders of phases 5 and 10 (two a pass-loop
 launch), and its bound is the larger of the bytes it writes over HBM's
 rate and its 32-bit integer operations (R1_WORD_OPS a word) over 128 a
 clock on each SM at the card's maximum SM clock; torch's generators are
-Philox, not threefry, so no library call computes its function.
+Philox, not threefry, so no library call computes its function. R2's
+entry counts its launches in the same CLI renders (one a pass-loop
+launch); its bound is the bytes it moves (R2_RAY_BYTES a ray, the pixel
+positions once) against its float32 operations (R2_RAY_OPS); no single
+PyTorch call computes camera rays.
 The next line is the card's name and power limit; the last line is
 {"ok": true, "device": ...}.
 """
@@ -212,6 +227,26 @@ INT32_OPS_A_CLOCK = 128
 # phase 21: the ragged batches, the blocks past 2^24 words (keys, words)
 R1_RAGGED = (1, 127, 1_000_003)
 R1_BIG = ((1, 2**24 + 3), (3, 2**24 + 1))
+R2_SOURCE = "plutracer_tpu_torch/csrc/camera.cu"
+R2_REPLACES = "plutracer_tpu/render/renderer.py:36"
+R2_KERNELS = ("camera_rays",)
+# float32 operations of one R2 ray (csrc/camera.cu, hand-counted; a
+# compare, select, division, sqrt, cos or sin counts 1): a pinhole ray's
+# sample positions 14, film point 7, direction 15, norm and division 9 and
+# the lens test 1; a lens ray adds the disk map's 20 (its products and
+# sums, compares, selects, a division, the angle, cos, sin, the radius
+# products) and the refocus's 24 (the focal division, the focal point,
+# the lens origin, the difference, its norm and division)
+R2_RAY_OPS = (46, 46 + 20 + 24)  # pinhole, lens
+# bytes of one R2 ray: its jitter (pixel and lens) 16 read, o and d 24
+# written; each pixel position (8 bytes) is read once a launch
+R2_RAY_BYTES = 16 + 24
+# phase 23: the launches held against the plain version, (scene,
+# resolution, strata, n): the main paths' (demo-box and dof one stratum a
+# launch, mesh1 4), and the most strata a launch takes
+R2_CASES = (("demo-box", (512, 512), 1, 8), ("dof", (640, 480), 1, 8),
+            ("mesh1", (256, 256), 4, 4), ("mesh1", (256, 256), 16, 4))
+R2_RENDERS = (("demo-box", 512, 512, 2), ("dof", 640, 480, 2), ("mesh1", 256, 256, 4))
 RAGGED = 77  # rays short of a whole block tile in phase 3's ragged batches
 PLAIN_CHUNK = 4096  # rays per closest_hit_plain call: it builds a (B, P) matrix
 WALK_RAYS = 16384  # rays of each set whose walks phase 7 counts (plain lockstep walks)
@@ -450,6 +485,7 @@ def ptxas_report(log: str):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = next((k for k in ("closest_hit_bvh_kernel", *K1_KERNELS, *R1_KERNELS,
+                                     *R2_KERNELS,
                                      "megakernel_stream", "megakernel_onebounce", "megakernel")
                          if k in line), re.search(r"function '([^']+)'", line).group(1))
             m = re.search(name + r"ILb([01])E", line)
@@ -498,9 +534,12 @@ def main() -> int:
         closest_hit, closest_hit_cuda, closest_hit_plain,
     )
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
     from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
     from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color
-    from plutracer_tpu_torch.render.renderer import launch_draws, pixel_centers, render
+    from plutracer_tpu_torch.render.renderer import (
+        camera_rays_plain, launch_draws, launch_rays, pixel_centers, render,
+    )
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
     dev = torch.device("cuda")
@@ -592,9 +631,10 @@ def main() -> int:
         closest_hit_cuda.launches = 0
         ray_color_cuda.launches = 0
         uniform_block_cuda.launches = 0
+        camera_rays_cuda.launches = 0
         res = cli.run([str(ROOT / "scenes" / "demo-box.urn"), "/o", str(bmp), "/seed", "7"])
         launches = {"K1": closest_hit_cuda.launches, "K2": ray_color_cuda.launches,
-                    "R1": uniform_block_cuda.launches}
+                    "R1": uniform_block_cuda.launches, "R2": camera_rays_cuda.launches}
         assert bmp.exists() and bmp.stat().st_size > 512 * 512 * 3, "BMP not written"
     assert res.integrator == "kernel", res.integrator
     assert tuple(res.linear.shape) == (512, 512, 3) and res.linear.device.type == "cuda"
@@ -603,6 +643,8 @@ def main() -> int:
     assert launches["K1"] == 64 and launches["K2"] == 64, launches
     # two R1 launches a pass-loop launch: the jitter block and the path uniforms
     assert launches["R1"] == 2 * launches["K2"], launches
+    # one R2 launch a pass-loop launch: the launch's camera rays
+    assert launches["R2"] == launches["K2"], launches
     same = torch.equal(res.linear, stratum_by_stratum(scene, W, H, 8, rng.PRNGKey(7),
                                                       DEFAULT_OPTIONS))
     print(f"main path: the CLI render bit-identical to one stratum a launch: {same}")
@@ -611,6 +653,7 @@ def main() -> int:
     # one pass of that render by stage (CUDA events), to see where the time goes
     words = rng.key_words(key)
     path_keys = [rng.fold_in_words(rng.key_words(k_path), i) for i in range(8)]
+    px0, jit1 = pixel_centers(W, H, dev), launch_draws([words], B, 0, dev)[0]
     stages = {
         "threefry uniforms (8, B, 12), R1": lambda: draw_uniforms(k_path, B, 8, dev),
         "threefry uniforms (8, B, 12), plain (eager int64, the draw before R1)": lambda: (
@@ -620,7 +663,9 @@ def main() -> int:
         "pixel + lens jitter (2 x (B, 2)), plain": lambda: rng.uniform_block_plain(
             [k_px, k_lens], 2 * B, dev),
         "launch_draws (host keys + both R1 launches)": lambda: launch_draws([words], B, 8, dev),
-        "camera rays": lambda: generate_rays(scene.camera, px, px),
+        "camera rays, R2 (launch_rays: one launch)": lambda: launch_rays(scene, px0, jit1, [0], 8),
+        "camera rays, plain (camera_rays_plain: the eager ops before R2)": lambda: (
+            camera_rays_plain(scene.camera, px0, jit1, [0], 8)),
         "K1 primary hit + K2": lambda: ray_color_cuda(scene, o, d, u, DEFAULT_OPTIONS),
     }
     for what, fn in stages.items():
@@ -646,7 +691,7 @@ def main() -> int:
     k1_bound = work_bound(B * (24 + 9) + scene.prims_packed.numel() * 4.0, B * query_ops(scene))
     print(f"bound: K1 {k1_bound[0]:.6f} ms ({k1_bound[1]}) at B={B}")
 
-    big, query_entry, mesh1_pass, r1_big = big_scene_phases(phase, dev, card)
+    big, query_entry, mesh1_pass, r1_big, r2_big = big_scene_phases(phase, dev, card)
     # K2's bound counts the vertices the pass runs: phase 12 checks them
     k5, k2_bound = telemetry_phase(phase, card, lib, (scene, o, d, u, k2_ms), mesh1_pass)
     gradient_phase(phase, dev, card)
@@ -661,6 +706,7 @@ def main() -> int:
     api_launches = api_phase(phase, dev, card)
     r1 = rng_phase(phase, dev, card, launches["R1"] + r1_big)
     launch_devices_phase(phase, card)
+    r2 = camera_phase(phase, dev, card, launches["R2"] + r2_big)
     phase()
     print(f"K1 launches by shape: demo-box primary (the 512x512 64-spp render) {launches['K1']}, "
           + ", ".join(f"{k} {v}" for k, v in train_k1.items())
@@ -680,6 +726,7 @@ def main() -> int:
         big[1],
         k5,
         r1,
+        r2,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -821,11 +868,11 @@ def step_times(scene, o, d, u, opts, step, passes):
 def big_scene_phases(phase, dev, card):
     """Phases 7-11: the stream tier (K3, its BVH query, K4). Returns K3's
     and K4's entries of the JSON line, the K3 query's entry as a function
-    of its launches (counted in phase 19) and the mesh1 launch of the main
-    path (scene, o, d, u, K3 ms): 4 strata of 256x256, 262,144 rays."""
+    of its launches (counted in phase 19), the mesh1 launch of the main
+    path (scene, o, d, u, K3 ms): 4 strata of 256x256, 262,144 rays, and
+    the R1 and R2 launches of phase 10's CLI renders."""
     from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
     from plutracer_tpu_torch import cli, rng
-    from plutracer_tpu_torch.ops.camera import generate_rays
     from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
         closest_hit, closest_hit_bvh_cuda, closest_hit_cuda,
     )
@@ -834,8 +881,11 @@ def big_scene_phases(phase, dev, card):
     )
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
     from plutracer_tpu_torch.render.integrator import draw_uniforms, kernel_tier, ray_color
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
     from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
-    from plutracer_tpu_torch.render.renderer import launch_draws, render, strata_per_launch
+    from plutracer_tpu_torch.render.renderer import (
+        camera_rays_plain, launch_draws, launch_rays, pixel_centers, render, strata_per_launch,
+    )
     from plutracer_tpu_torch.render.wavefront import SORTS, ray_color_wavefront
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
     from plutracer_tpu_torch.scene.loader import sphere_cloud
@@ -965,11 +1015,11 @@ def big_scene_phases(phase, dev, card):
     # ---- 10. the big-scene path: mesh1 and mesh2 through the CLI, 256x256, 16 spp ----
     phase("10 big-scene path")
     launches = {}
-    r1_launches = 0
+    r1_launches = r2_launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         for name, scene in (("mesh1", mesh1), ("mesh2", mesh2)):
             ray_color_stream_cuda.launches = closest_hit_bvh_cuda.launches = 0
-            uniform_block_cuda.launches = 0
+            uniform_block_cuda.launches = camera_rays_cuda.launches = 0
             res = cli.run([str(ROOT / "scenes" / f"{name}.urn"), "/o", str(pathlib.Path(tmp) / "o.bmp"),
                            "/seed", "7"])
             launches[name] = ray_color_stream_cuda.launches
@@ -977,11 +1027,15 @@ def big_scene_phases(phase, dev, card):
             # the draws of a launch of 4 strata: two R1 launches
             assert uniform_block_cuda.launches == 2 * launches[name], uniform_block_cuda.launches
             r1_launches += uniform_block_cuda.launches
+            # and one R2 launch: the launch's camera rays
+            assert camera_rays_cuda.launches == launches[name], camera_rays_cuda.launches
+            r2_launches += camera_rays_cuda.launches
             assert res.integrator == "kernel" and res.tier == "k3", (res.integrator, res.tier)
             assert tuple(res.linear.shape) == (256, 256, 3) and torch.isfinite(res.linear).all()
             assert launches[name] == 16 // per, launches  # 4 strata a launch
             print(f"main path: {name} 256x256 16 spp through the CLI, K3 launches "
-                  f"{launches[name]}, R1 launches {uniform_block_cuda.launches}, render {res.render_seconds:.3f} s, mean radiance "
+                  f"{launches[name]}, R1 launches {uniform_block_cuda.launches}, R2 launches "
+                  f"{camera_rays_cuda.launches}, render {res.render_seconds:.3f} s, mean radiance "
                   f"{res.linear.mean().item():.4f}; samples/s "
                   f"{256 * 256 * 16 / res.render_seconds:.1f} ({card})")
             before = ray_color_stream_cuda.launches
@@ -1000,6 +1054,7 @@ def big_scene_phases(phase, dev, card):
     B1 = o.shape[0]
     launch_keys = [rng.fold_in_words(rng.key_words(rng.PRNGKey(7)), s) for s in range(per)]
     path_keys = [rng.fold_in_words(rng.key_words(k_path), i) for i in range(mb)]
+    px0, jit4 = pixel_centers(256, 256, dev), launch_draws(launch_keys, B1, 0, dev)[0]
     stages = {
         f"threefry uniforms (8, B, 12), one stratum, R1": lambda: draw_uniforms(
             k_path, B1, mb, dev),
@@ -1011,7 +1066,10 @@ def big_scene_phases(phase, dev, card):
             rng.uniform_block_plain([k_px, k_lens], 2 * B1, dev)),
         f"launch_draws, {per} strata (host keys + both R1 launches)": lambda: launch_draws(
             launch_keys, B1, mb, dev),
-        "camera rays, one stratum": lambda: generate_rays(mesh1.camera, o[:, :2], o[:, :2]),
+        f"camera rays, {per} strata, R2 (launch_rays: one launch)": lambda: launch_rays(
+            mesh1, px0, jit4, list(range(per)), 4),
+        f"camera rays, {per} strata, plain (camera_rays_plain: the eager ops before R2)": lambda: (
+            camera_rays_plain(mesh1.camera, px0, jit4, list(range(per)), 4)),
         f"K3 (primary hit in the kernel), {per} strata": lambda: ray_color_stream_cuda(
             mesh1, bo, bd, bu, DEFAULT_OPTIONS),
     }
@@ -1096,7 +1154,7 @@ def big_scene_phases(phase, dev, card):
               k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound),
         entry("K4 one-bounce kernel (ms per launch)", K4_SOURCE, K4_REPLACES, k4_launches,
               k4_err, k4_launch_ms, k4_plain_ms, k4_bound),
-    ], query_entry, (mesh1, bo, bd, bu, k3_ms), r1_launches
+    ], query_entry, (mesh1, bo, bd, bu, k3_ms), r1_launches, r2_launches
 
 
 def wavefront_split(scene, o, d, u, opts, card, passes=5):
@@ -2403,7 +2461,7 @@ def checked_launches():
 
 
 def launch_devices_phase(phase, card):
-    """Phase 22: (a) over a small render (K1, K2, R1), a batched mesh1
+    """Phase 22: (a) over a small render (K1, K2, R1, R2), a batched mesh1
     launch (K3), a K4 wavefront render, the K3 query, K5 and an R1 block,
     the launch helper's entries equal the sum of the wrappers' launch
     counters (K1's plan inside its launch's entry), and in each launch
@@ -2414,6 +2472,7 @@ def launch_devices_phase(phase, card):
     current."""
     from plutracer_tpu_torch import rng
     from plutracer_tpu_torch.ops.cuda import build
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
     from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
     from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
         closest_hit, closest_hit_bvh_cuda, closest_hit_cuda, closest_hit_plain,
@@ -2439,7 +2498,8 @@ def launch_devices_phase(phase, card):
     counters = ((closest_hit_cuda, "launches"), (closest_hit_bvh_cuda, "launches"),
                 (ray_color_cuda, "launches"), (ray_color_cuda, "debug_launches"),
                 (ray_color_stream_cuda, "launches"), (ray_color_stream_cuda, "debug_launches"),
-                (onebounce_cuda, "launches"), (uniform_block_cuda, "launches"))
+                (onebounce_cuda, "launches"), (uniform_block_cuda, "launches"),
+                (camera_rays_cuda, "launches"))
     demo, mesh1 = load("demo-box", cuda0), load("mesh1", cuda0)
     o = torch.zeros((1024, 3), device=cuda0)
     g = torch.Generator().manual_seed(22)
@@ -2448,8 +2508,8 @@ def launch_devices_phase(phase, card):
         setattr(fn, attr, 0)
     build.on_device.entries = 0
     with checked_launches() as seen:
-        render(demo, res, res, n, rng.PRNGKey(3))  # K1 + K2 + R1
-        render(mesh1, res, res, n, rng.PRNGKey(3))  # K3 (the strata batched) + R1
+        render(demo, res, res, n, rng.PRNGKey(3))  # K1 + K2 + R1 + R2
+        render(mesh1, res, res, n, rng.PRNGKey(3))  # K3 (the strata batched) + R1 + R2
         render(mesh1, res, res, n, rng.PRNGKey(3), DEFAULT_OPTIONS.replace(stream_wavefront=True))
         query_lite(mesh1, o, d, DEFAULT_OPTIONS.replace(intersect_backend="bvh"))  # K3 query
         u = draw_uniforms(rng.PRNGKey(4), 1024, DEFAULT_OPTIONS.max_bounces, cuda0)  # R1
@@ -2505,6 +2565,180 @@ def launch_devices_phase(phase, card):
           f"{same_mesh}; K1 split path (mesh0, 256 rays) on cuda:1 bit-equal to cuda:0 and "
           f"to plain: {same_k1}; launches on cuda:1 {seen.count(1)} of {len(seen)}")
     assert same_elastic and same_mesh and same_k1 and seen.count(1) > 0
+
+
+@contextlib.contextmanager
+def plain_camera():
+    """renderer.launch_rays computing with camera_rays_plain on every
+    device: the pass loop's, the train step's and the sharded and elastic
+    renders' camera rays as they were before R2, for bit-equality checks."""
+    from plutracer_tpu_torch.render import renderer
+
+    real = renderer.launch_rays
+    renderer.launch_rays = lambda scene, px0, jit, strata, n: renderer.camera_rays_plain(
+        scene.camera, px0, jit, strata, n)
+    try:
+        yield
+    finally:
+        renderer.launch_rays = real
+
+
+@contextlib.contextmanager
+def no_eager_camera():
+    """Fail if the plain camera's eager ops run (renderer.generate_rays,
+    which camera_rays_plain and the per-stratum _camera_rays call)."""
+    from plutracer_tpu_torch.render import renderer
+
+    real = renderer.generate_rays
+
+    def refuse(*_args):
+        raise AssertionError("an eager camera op ran on the card")
+
+    renderer.generate_rays = refuse
+    try:
+        yield
+    finally:
+        renderer.generate_rays = real
+
+
+def r2_equal(o, d, po, pd, what):
+    """R2's rays against the plain version's, every lane bit for bit
+    (int32 views: signed zeros and NaN payloads count). Returns the
+    largest difference (0.0)."""
+    torch.cuda.synchronize()
+    differ = [int((a.view(torch.int32) != b.view(torch.int32)).any(-1).sum())
+              for a, b in ((o, po), (d, pd))]
+    print(f"R2 {what}: {o.shape[0]} rays, lanes differing o {differ[0]}, d {differ[1]} (bound: "
+          f"none); finite {bool(torch.isfinite(o).all() and torch.isfinite(d).all())}")
+    assert differ == [0, 0], f"R2 vs plain ({what}): {differ} lanes differ"
+    return max((o - po).abs().max().item(), (d - pd).abs().max().item())
+
+
+def r2_times(scene, px0, jit, strata, n, what, card, reps=50):
+    """(kernel-only ms, wrapper ms, plain ms, bound) of an R2 launch: the
+    kernel's device time a launch from torch.profiler, CUDA events around
+    calls of launch_rays (the checks, the output's allocation, the launch)
+    and of camera_rays_plain; the bound from the bytes this launch moves
+    and its rays' operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from plutracer_tpu_torch.render.renderer import camera_rays_plain, launch_rays
+
+    call = lambda: launch_rays(scene, px0, jit, strata, n)
+    wrapper = time_ms(call, reps)
+    plain = time_ms(lambda: camera_rays_plain(scene.camera, px0, jit, strata, n), reps=10)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if any(k in ev.key for k in R2_KERNELS)]
+    dev_us = sum(getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+                 for ev in evs)
+    kernel = dev_us / 1e3 / sum(ev.count for ev in evs) if dev_us > 0 else wrapper
+    how = "torch.profiler" if dev_us > 0 else "the profiler recorded none: wrapper time"
+    rays = len(strata) * px0.shape[0]
+    lens = bool(scene.camera.lens_radius.item() > 0.0)
+    bound = work_bound(rays * R2_RAY_BYTES + px0.numel() * 4 + 17 * 4, rays * R2_RAY_OPS[lens])
+    print(f"R2 time {what} ({len(strata)} strata x {px0.shape[0]} pixels, "
+          f"{'lens' if lens else 'pinhole'}): kernel-only {kernel:.4f} ms ({how}), wrapper "
+          f"{wrapper:.4f} ms a call, plain {plain:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}) "
+          f"({card})")
+    return kernel, wrapper, plain, bound
+
+
+def camera_phase(phase, dev, card, main_launches):
+    """Phase 23: R2 against camera_rays_plain on every lane at the main
+    paths' launches, the most strata a launch takes and ragged B; its
+    times; renders, train steps and the sharded and elastic renders
+    through R2 against the same with the plain camera rays, one R2 launch
+    a pass-loop launch and no eager camera op. Returns R2's kernels-line
+    entry (launches: main_launches, the CLI renders' of phases 5 and 10)."""
+    from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+    from plutracer_tpu_torch.parallel import make_mesh, render_sharded, sharded
+    from plutracer_tpu_torch.render.elastic import render_elastic
+    from plutracer_tpu_torch.render.renderer import (
+        camera_rays_plain, launch_draws, launch_rays, pixel_centers, render,
+    )
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+
+    phase("23 R2 camera rays")
+    base = rng.key_words(rng.PRNGKey(7))
+
+    def load(name, w, h):
+        return compile_scene(load_scene_file(str(ROOT / "scenes" / f"{name}.urn"),
+                                             ["/res", f"{w}x{h}"]), device=dev)
+
+    err, times = 0.0, {}
+    for name, (w, h), S, n in R2_CASES:
+        sc = load(name, w, h)
+        # the cells out of order: 5j + 3 mod n^2 (a permutation at S = n^2)
+        strata = [(5 * j + 3) % (n * n) for j in range(S)]
+        for B in (w * h, 1, 127, w * h - RAGGED):
+            px0 = pixel_centers(w, h, dev)[:B].contiguous()
+            jit, _ = launch_draws([rng.fold_in_words(base, j) for j in range(S)], B, 0, dev)
+            before = camera_rays_cuda.launches
+            o, d = launch_rays(sc, px0, jit, strata, n)
+            assert camera_rays_cuda.launches == before + 1  # one launch a call
+            err = max(err, r2_equal(o, d, *camera_rays_plain(sc.camera, px0, jit, strata, n),
+                                    f"{name} {w}x{h}, {S} strata, B={B}"))
+        px0 = pixel_centers(w, h, dev)
+        jit, _ = launch_draws([rng.fold_in_words(base, j) for j in range(S)], w * h, 0, dev)
+        times[(name, S)] = r2_times(sc, px0, jit, strata, n, f"{name} {w}x{h}", card)
+        del sc, px0, jit, o, d
+
+    def through_r2(what, run, path_launches=None):
+        """run() through R2 (counted, no eager camera op) and with the plain
+        camera rays; the outputs bit-equal; one R2 launch a pass-loop launch
+        (half the R1 launches, or path_launches where given)."""
+        camera_rays_cuda.launches = uniform_block_cuda.launches = 0
+        with no_eager_camera():
+            got = run()
+        torch.cuda.synchronize()
+        made, draws = camera_rays_cuda.launches, uniform_block_cuda.launches
+        with plain_camera():
+            want = run()
+        assert camera_rays_cuda.launches == made and made > 0, (what, made)
+        assert 2 * made == draws, (what, made, draws)
+        if path_launches is not None:
+            assert made == path_launches, (what, made, path_launches)
+        flat = lambda x: x if isinstance(x, (tuple, list)) else (x,)
+        for a, b in zip(flat(got), flat(want)):
+            if isinstance(a, dict):
+                assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a), what
+            elif isinstance(a, np.ndarray):
+                assert np.array_equal(a, b), what
+            else:
+                assert torch.equal(a, b), what
+        print(f"R2 {what}: bit-equal to the plain camera rays, R2 launches {made} (R1 {draws}), "
+              f"no eager camera op")
+
+    for name, w, h, n in R2_RENDERS:
+        sc = load(name, w, h)
+        through_r2(f"{name} {w}x{h} {n * n} spp render", lambda: render(sc, w, h, n,
+                                                                          rng.PRNGKey(7)))
+        del sc
+    sc = load("demo-box", TRAIN_RES, TRAIN_RES)
+    target = render(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(11)).reshape(-1, 3)
+    params = sharded.get_params(sc)
+    for loss_space, traced in (("log", 1), ("ab", 2)):
+        step = sharded.make_train_step(sc, TRAIN_RES, TRAIN_RES, 2, loss_space=loss_space,
+                                       trainable=("mat_color", "light_intensity"))
+        through_r2(f"demo-box {TRAIN_RES}x{TRAIN_RES} {loss_space} train step (loss, gradients)",
+                   lambda: step.loss_and_grads(params, target, rng.PRNGKey(3), 1), traced)
+    mesh = make_mesh((1, 1), devices=[dev])
+    through_r2(f"render_sharded demo-box {TRAIN_RES}x{TRAIN_RES} 4 spp on a 1x1 mesh",
+               lambda: render_sharded(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(5), mesh), 1)
+    through_r2(f"render_elastic demo-box {TRAIN_RES}x{TRAIN_RES} 4 spp on [{dev}]",
+               lambda: render_elastic(sc, TRAIN_RES, TRAIN_RES, 2, 5, devices=[dev]), 1)
+    for (name, S), (kernel, wrapper, plain, bound) in times.items():
+        print(f"R2 {name} launch of {S} strata: kernel-only / bound {kernel / bound[0]:.4f}, "
+              f"plain / wrapper {plain / wrapper:.4f} ({card})")
+    r2_ms, _, r2_plain_ms, bound = times[("demo-box", 1)]
+    return entry("R2 camera rays (ms: kernel-only, a demo-box 512x512 stratum; launches: the CLI "
+                 "renders of demo-box, mesh1 and mesh2)", R2_SOURCE, R2_REPLACES, main_launches,
+                 err, r2_ms, r2_plain_ms, bound)
 
 
 if __name__ == "__main__":

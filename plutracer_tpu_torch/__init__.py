@@ -17,3 +17,5 @@ of the JAX package: it keeps its own copies of the front end (``urn``,
 """
 
 __version__ = "0.1.0"
+
+from plutracer_tpu_torch.semantics import RenderOptions  # noqa: F401

@@ -1,0 +1,162 @@
+// R2: the pass loop's camera rays, every stratum of a launch at once.
+//
+// Replaces no Pallas kernel: the JAX package computes its primary rays
+// inside the jitted render_passes (plutracer_tpu/render/renderer.py:36-43,
+// plutracer_tpu/ops/camera.py:18-45, ops/sampling.py concentric_disk_sample),
+// where XLA fuses the jittered sample positions, the camera basis, the
+// normalisations and the thin lens into device code. This kernel is that
+// fused stage for a launch of S strata of B pixels: from the launch's
+// jitter block (renderer.launch_draws, (2, S, B, 2): pixel then lens) it
+// writes o and d of all S * B rays, stratum j at rows j*B..(j+1)*B.
+//
+// What it computes for pixel p of stratum j, cell c = strata[j], as
+// plutracer_tpu_torch.render.renderer.camera_rays_plain does on the card
+// (the same IEEE float32 operations in the same order; built without FMA
+// contraction and without fast math, so each rounds as torch's elementwise
+// kernel does):
+//   px = px0[p] + (cell + jit_px * 0.999) / n, lens = (cell + jit_lens * 0.999) / n
+//   (cell = (c % n, c / n); an IEEE division by float(n));
+//   uv = (px * inv_image_size) * 2 - 1, its y negated;
+//   d = ((w * look) + uv.x * right) + uv.y * up, divided by its norm;
+//   o = pos; with lens_radius > 0 (tested here, as torch.where selects):
+//   l = concentric_disk_sample(lens) * lens_radius, pof = o + d * (focal / d.z),
+//   o = o + (l.x, l.y, 0), d = pof - o divided by its norm.
+// The norm is torch.linalg.norm's on the card: its reduction kernel splits
+// a row of three over two lanes (x and z on one, y on the other) and adds
+// the lanes, so sqrt((x*x + z*z) + y*y). cos and sin are the CUDA math
+// library's (cosf/sinf), as torch's; never the fast intrinsics.
+//
+// What bounds it: the bytes (px0 8 once a pixel, the jitter 16 and o, d 24
+// a ray, against about 45 float operations a pinhole ray and 100 a lens
+// ray). One thread a ray; the grid's y axis walks the strata, so no thread
+// divides to find its stratum; the strata's cells arrive by value in the
+// launch's parameters (no copy to the card) and the camera from a small
+// table on the card (ops/cuda/camera_kernel.camera_table).
+#include <cuda_runtime.h>
+
+constexpr int PLU_MAX_STRATA = 16;  // renderer.MAX_STRATA: the most strata a launch
+
+// a launch's strata cells, passed by value (ops/cuda/camera_kernel.Strata);
+// outside the unnamed namespace, so the C entry point keeps its linkage
+struct PluStrata {
+  int cell[PLU_MAX_STRATA];
+};
+
+namespace {
+
+constexpr int BLOCK = 256;
+
+// the camera table's layout (ops/cuda/camera_kernel.camera_table)
+constexpr int POS = 0, LOOK = 3, RIGHT = 6, UP = 9, INV = 12, W = 14, LENS = 15, FOCAL = 16;
+
+// torch's float32 views of the Python constants 0.999 and math.pi * 0.25
+constexpr float JITTER_SCALE = (float)0.999;
+constexpr float QUARTER_PI = (float)0.7853981633974483;
+
+__device__ __forceinline__ float norm3(float x, float y, float z) {
+  return sqrtf((x * x + z * z) + y * y);
+}
+
+// ops/sampling.concentric_disk_sample of one (u.x, u.y) in [0, 1)^2
+__device__ __forceinline__ float2 concentric_disk(float ux, float uy) {
+  const float x = 2.0f * ux - 1.0f, y = 2.0f * uy - 1.0f;
+  if (x == 0.0f && y == 0.0f) return make_float2(0.0f, 0.0f);
+  const float sx = x == 0.0f ? 1.0f : x, sy = y == 0.0f ? 1.0f : y;
+  float r, phi;
+  if (x >= -y) {
+    if (x > y) {
+      r = x;
+      phi = y > 0.0f ? y / sx : 8.0f + y / sx;
+    } else {
+      r = y;
+      phi = 2.0f - x / sy;
+    }
+  } else if (x <= y) {
+    r = -x;
+    phi = 4.0f - y / sx;
+  } else {
+    r = -y;
+    phi = 6.0f - x / sy;
+  }
+  phi = phi * QUARTER_PI;
+  return make_float2(cosf(phi) * r, sinf(phi) * r);
+}
+
+// cam: the camera table; px0: (B, 2); jit: (2, S, B, 2); o, d: (S * B, 3)
+__global__ void __launch_bounds__(BLOCK) camera_rays(const float* __restrict__ cam,
+                                                     const float2* __restrict__ px0,
+                                                     const float2* __restrict__ jit,
+                                                     const PluStrata strata, int B, int n,
+                                                     float* __restrict__ o,
+                                                     float* __restrict__ d) {
+  const int p = blockIdx.x * BLOCK + threadIdx.x;
+  if (p >= B) return;
+  const int j = blockIdx.y;
+  const long long ray = (long long)j * B + p;
+  const int c = strata.cell[j];
+  const float cx = (float)(c % n), cy = (float)(c / n), nf = (float)n;
+  const float2 q = px0[p];
+  const float2 jp = jit[ray];
+  const float2 jl = jit[(long long)gridDim.y * B + ray];
+
+  // renderer._sample_positions
+  const float sx = q.x + (cx + jp.x * JITTER_SCALE) / nf;
+  const float sy = q.y + (cy + jp.y * JITTER_SCALE) / nf;
+  const float lx = (cx + jl.x * JITTER_SCALE) / nf;
+  const float ly = (cy + jl.y * JITTER_SCALE) / nf;
+
+  // ops/camera.generate_rays
+  const float ux = (sx * cam[INV]) * 2.0f - 1.0f;
+  const float uy = ((sy * cam[INV + 1]) * 2.0f - 1.0f) * -1.0f;
+  const float w = cam[W];
+  float dx = (w * cam[LOOK] + ux * cam[RIGHT]) + uy * cam[UP];
+  float dy = (w * cam[LOOK + 1] + ux * cam[RIGHT + 1]) + uy * cam[UP + 1];
+  float dz = (w * cam[LOOK + 2] + ux * cam[RIGHT + 2]) + uy * cam[UP + 2];
+  float len = norm3(dx, dy, dz);
+  dx = dx / len;
+  dy = dy / len;
+  dz = dz / len;
+  float ox = cam[POS], oy = cam[POS + 1], oz = cam[POS + 2];
+
+  const float lens_radius = cam[LENS];
+  if (lens_radius > 0.0f) {
+    const float2 disk = concentric_disk(lx, ly);
+    const float t = cam[FOCAL] / dz;
+    const float fx = ox + dx * t, fy = oy + dy * t, fz = oz + dz * t;
+    ox = ox + disk.x * lens_radius;
+    oy = oy + disk.y * lens_radius;
+    oz = oz + 0.0f;
+    dx = fx - ox;
+    dy = fy - oy;
+    dz = fz - oz;
+    len = norm3(dx, dy, dz);
+    dx = dx / len;
+    dy = dy / len;
+    dz = dz / len;
+  }
+  float* op = o + ray * 3;
+  float* dp = d + ray * 3;
+  op[0] = ox;
+  op[1] = oy;
+  op[2] = oz;
+  dp[0] = dx;
+  dp[1] = dy;
+  dp[2] = dz;
+}
+
+}  // namespace
+
+// cam: the camera table on the card; px0: B pixel positions (x, y); jit:
+// the launch's jitter (2, S, B, 2); strata: S cells by value, 1 <= S <=
+// PLU_MAX_STRATA; o, d: S * B rays each. Every pointer 8-byte aligned.
+// Returns a cudaError_t.
+extern "C" int plu_camera_rays(const void* cam, const void* px0, const void* jit, PluStrata strata,
+                               int S, int B, int n, void* o, void* d, void* stream) {
+  if (B <= 0) return 0;
+  if (S < 1 || S > PLU_MAX_STRATA || n < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((B + BLOCK - 1) / BLOCK), (unsigned)S);
+  camera_rays<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      (const float*)cam, (const float2*)px0, (const float2*)jit, strata, B, n, (float*)o,
+      (float*)d);
+  return (int)cudaGetLastError();
+}

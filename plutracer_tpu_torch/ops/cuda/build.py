@@ -26,6 +26,8 @@ import time
 
 import torch
 
+from plutracer_tpu_torch.ops.cuda.camera_kernel import Strata
+
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -65,6 +67,8 @@ _SIGNATURES = {
                                  _i, _i, _i, _i, _i, _i, _i, _vp],
     # keys (K x 2 uint32 words), K, n words a key, out (K x n float32), stream
     "plu_threefry_uniform": [_vp, _i, ctypes.c_longlong, _vp, _vp],
+    # camera table, px0, jit, the strata's cells (by value), S, B, n, o, d, stream
+    "plu_camera_rays": [_vp, _vp, _vp, Strata, _i, _i, _i, _vp, _vp, _vp],
 }
 
 

@@ -1,0 +1,96 @@
+"""R2: the pass loop's camera rays on the card, a launch's strata at once.
+
+``camera_rays_cuda(cam, px0, jit, strata, n)`` launches csrc/camera.cu:
+the (S*B, 3) float32 origins and directions of a launch of S =
+len(strata) strata of the B pixels px0, stratum j from cell strata[j] and
+the jitter jit[:, j] of a ``renderer.launch_draws`` block, bit-equal to
+``renderer.camera_rays_plain`` on the card. It replaces the camera stage
+that XLA fuses into the JAX package's render_passes
+(plutracer_tpu/render/renderer.py:36-43, plutracer_tpu/ops/camera.py:18-45):
+the pass loop makes one launch of it a pass-loop launch
+(render/renderer.launch_rays).
+
+The strata's cells go to the kernel by value; the camera is read from a
+table on the card (``camera_table``), built once a camera and kept on it.
+``camera_rays_cuda.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MAX_STRATA = 16  # the most strata a launch (csrc/camera.cu: PLU_MAX_STRATA)
+_FIELDS = ("pos", "look", "right", "up", "inv_image_size", "w", "lens_radius", "focal_distance")
+
+
+class Strata(ctypes.Structure):
+    """The strata's cells of a launch, passed by value (csrc/camera.cu)."""
+
+    _fields_ = [("cell", ctypes.c_int * MAX_STRATA)]
+
+
+def camera_table(cam) -> torch.Tensor:
+    """(17,) float32 on the camera's device: pos, look, right, up,
+    inv_image_size, w, lens_radius, focal_distance, the layout
+    csrc/camera.cu reads. Built once a camera (and again only if one of
+    its tensors is replaced or changed in place) and kept on it."""
+    parts = [getattr(cam, f) for f in _FIELDS]
+    versions = [t._version for t in parts]
+    held = cam.__dict__.get("_r2_table")
+    if (held is None or held[1] != versions
+            or any(a is not b for a, b in zip(held[0], parts))):
+        table = torch.cat([t.reshape(-1).to(torch.float32) for t in parts]).contiguous()
+        held = (parts, versions, table)
+        cam.__dict__["_r2_table"] = held
+    return held[2]
+
+
+def _check(what: str, t: torch.Tensor, shape, dev) -> None:
+    if t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != shape:
+        raise ValueError(f"camera_rays_cuda: {what} must be a contiguous float32 {shape}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.device != dev:
+        raise ValueError(f"camera_rays_cuda: {what} on {t.device}, not {dev}")
+    if t.data_ptr() % 8:
+        raise ValueError(f"camera_rays_cuda: {what} must be 8-byte aligned")
+
+
+def camera_rays_cuda(cam, px0: torch.Tensor, jit: torch.Tensor, strata, n: int):
+    """Launch R2 on px0's CUDA device and its current stream (no
+    synchronisation): (o, d), (S*B, 3) float32 each, views of one buffer.
+    One launch for 1 <= S <= MAX_STRATA; raises on anything else, a CPU
+    tensor included, and never falls back to the plain version."""
+    from plutracer_tpu_torch.ops.cuda import build
+
+    dev = px0.device
+    if dev.type != "cuda":
+        raise ValueError(f"camera_rays_cuda: needs CUDA tensors, got {dev}")
+    strata = [int(s) for s in strata]
+    S, B, n = len(strata), px0.shape[0], int(n)
+    if not 1 <= S <= MAX_STRATA:
+        raise ValueError(f"camera_rays_cuda: 1 to {MAX_STRATA} strata a launch, got {S}")
+    if n < 1 or min(strata) < 0 or max(strata) >= 2**31:
+        raise ValueError(f"camera_rays_cuda: cells {strata} of an n = {n} grid")
+    if S * B >= 2**31:
+        raise ValueError(f"camera_rays_cuda: {S} x {B} rays, at most 2**31 - 1")
+    table = camera_table(cam)
+    _check("px0", px0, (B, 2), dev)
+    _check("jit", jit, (2, S, B, 2), dev)
+    _check("the camera table", table, (17,), dev)
+    out = torch.empty((2, S * B, 3), dtype=torch.float32, device=dev)
+    o, d = out[0], out[1]
+    if B == 0:
+        return o, d
+    lib = build.load().lib
+    with build.on_device(dev) as stream:
+        rc = lib.plu_camera_rays(table.data_ptr(), px0.data_ptr(), jit.data_ptr(),
+                                 Strata((ctypes.c_int * MAX_STRATA)(*strata)), S, B, n,
+                                 o.data_ptr(), d.data_ptr(), stream)
+    build.check(rc, "plu_camera_rays")
+    camera_rays_cuda.launches += 1
+    return o, d
+
+
+camera_rays_cuda.launches = 0

@@ -15,7 +15,9 @@ what keeps the card's warps busy while a few long paths finish. Each
 stratum's rays and uniforms are drawn exactly as they are alone, the
 kernels compute every ray independently of its place in the batch, and
 the strata are accumulated in order, so the image is bit-identical to one
-stratum a launch. The plain path keeps one stratum a call.
+stratum a launch. The plain path keeps one stratum a call. A launch's
+camera rays are one launch_rays call: on the card one launch of R2
+(csrc/camera.cu), bit-equal to its plain version camera_rays_plain.
 
 ``render`` runs the strata in chunks of PASS_CHUNK (each through
 render_passes), and takes ``accum``/``start_pass`` to resume a partial
@@ -90,11 +92,40 @@ def _camera_rays(scene, px0, jit, j: int, stratum: int, n: int):
     return generate_rays(scene.camera, *_sample_positions(px0, jit[0, j], jit[1, j], stratum, n))
 
 
+def camera_rays_plain(cam, px0, jit, strata, n: int):
+    """(o, d), (S*B, 3) each: the primary rays of a launch of S =
+    len(strata) strata of the B pixels px0, stratum j from cell strata[j]
+    and the jitter jit[:, j] of a launch_draws block, at rows j*B..(j+1)*B.
+    The plain version of R2 (csrc/camera.cu), the strata computed together:
+    each ray's operations are _camera_rays', so the rays equal torch.cat of
+    _camera_rays over the launch."""
+    S, B = len(strata), px0.shape[0]
+    cell = torch.tensor([[s % n, s // n] for s in strata], dtype=torch.float32,
+                        device=px0.device)[:, None]
+    px = px0 + over(cell + jit[0] * 0.999, n)
+    lens = over(cell + jit[1] * 0.999, n)
+    return generate_rays(cam, px.reshape(S * B, 2), lens.reshape(S * B, 2))
+
+
+def launch_rays(scene, px0, jit, strata, n: int):
+    """The primary rays (o, d) of a launch (camera_rays_plain's contract):
+    one launch of R2 on a CUDA device (it raises where it cannot launch),
+    camera_rays_plain on the CPU; any other device raises."""
+    dev = px0.device
+    if dev.type == "cuda":
+        from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
+
+        return camera_rays_cuda(scene.camera, px0, jit, strata, n)
+    if dev.type != "cpu":
+        raise ValueError(f"launch_rays: no camera rays for device {dev}")
+    return camera_rays_plain(scene.camera, px0, jit, strata, n)
+
+
 def _stratum_rays(scene, px0, key, stratum: int, n: int, options: RenderOptions):
     """The primary rays o, d and the path uniforms u of one stratified
     sample per pixel from the given stratum cell."""
     jit, u = launch_draws([rng.key_words(key)], px0.shape[0], options.max_bounces, px0.device)
-    return (*_camera_rays(scene, px0, jit, 0, stratum, n), u)
+    return (*launch_rays(scene, px0, jit, [stratum], n), u)
 
 
 def _trace_stratum(scene, px0, key, stratum: int, n: int, options: RenderOptions):
@@ -127,7 +158,8 @@ def stratum_launches(scene, key, pairs, px0, n: int, options: RenderOptions = DE
     order: pair (j, s) is one sample per pixel of px0 from stratum cell s,
     keyed fold_in(key, j) (a render's pass s is the pair (s, s));
     strata_per_launch strata a launch, yielded launch by launch as lists.
-    A launch's random numbers are one launch_draws call."""
+    A launch's random numbers are one launch_draws call, its camera rays
+    one launch_rays call."""
     B = px0.shape[0]
     pairs = list(pairs)
     per = strata_per_launch(scene, options, B)
@@ -136,8 +168,8 @@ def stratum_launches(scene, key, pairs, px0, n: int, options: RenderOptions = DE
         group = pairs[i:i + per]
         jit, u = launch_draws([rng.fold_in_words(words, j) for j, _ in group], B,
                               options.max_bounces, px0.device)
-        o, d = zip(*(_camera_rays(scene, px0, jit, k, s, n) for k, (_, s) in enumerate(group)))
-        L = radiance_of_uniforms(scene, torch.cat(o), torch.cat(d), u, options)
+        o, d = launch_rays(scene, px0, jit, [s for _, s in group], n)
+        L = radiance_of_uniforms(scene, o, d, u, options)
         yield [L[j * B:(j + 1) * B] for j in range(len(group))]
 
 

@@ -1,0 +1,229 @@
+"""The pass loop's camera rays (R2's contract) on the CPU.
+
+``renderer.camera_rays_plain`` is the plain version of R2
+(csrc/camera.cu) and its oracle; ``renderer.launch_rays`` sends a CUDA
+launch to R2 and a CPU one to the plain version. The pass loop makes one
+launch_rays call a launch. R2 itself runs only on a card
+(tests/test_torch_cuda.py ``test_r2_*``); here a fake library stands in
+for it, as in tests/test_torch_launch.py.
+
+Tolerances: camera_rays_plain equals torch.cat of the per-stratum
+_camera_rays bit for bit (each ray's elementwise operations are the
+same). Against the JAX package's camera stage of _trace_stratum: o within
+tests/test_torch_ops.py's default (rtol 1e-5, atol 1e-5) and d within
+rtol 1e-5, atol 1e-6, test_generate_rays' tolerances (XLA's CPU norm and
+trigonometry round apart from torch's by an ulp).
+"""
+
+import pathlib
+import random
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from plutracer_tpu.ops.camera import generate_rays as jax_generate_rays
+from plutracer_tpu.render.renderer import pixel_centers as jax_pixel_centers
+from plutracer_tpu.scene import compile_scene as jax_compile
+from plutracer_tpu.scene import load_scene_file as jax_load
+from plutracer_tpu_torch import rng
+from plutracer_tpu_torch.ops.cuda import build, camera_kernel, intersect_kernel
+from plutracer_tpu_torch.render import renderer
+from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+from test_torch_launch import CARD, OTHER, Cards, FakeLibrary, HostAsCard
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+W, H = 13, 7  # 91 pixels: no whole vector of any width
+
+
+def scene(name, device="cpu"):
+    return compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"),
+                                         ["/res", f"{W}x{H}"]), device=device)
+
+
+def launch(S, seed=3):
+    """A launch's jitter block: S strata keyed fold_in(PRNGKey(seed), j)."""
+    words = [rng.fold_in_words(rng.key_words(rng.PRNGKey(seed)), j) for j in range(S)]
+    jit, _ = renderer.launch_draws(words, W * H, 0, "cpu")
+    return jit
+
+
+def bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["demo-box", "dof"])
+@pytest.mark.parametrize("S,order", [(1, "in order"), (4, "in order"), (16, "in order"),
+                                     (4, "shuffled"), (16, "shuffled")])
+def test_plain_equals_per_stratum_rays(name, S, order):
+    """camera_rays_plain over a launch of S strata equals torch.cat of
+    _camera_rays a stratum, bit for bit, for cells in any order (a
+    pinhole camera and a thin lens)."""
+    s, n = scene(name), 4 if S < 16 else 5
+    strata = list(range(S)) if order == "in order" else random.Random(S).sample(range(n * n), S)
+    px0, jit = renderer.pixel_centers(W, H), launch(S)
+    o, d = renderer.camera_rays_plain(s.camera, px0, jit, strata, n)
+    oo, dd = zip(*(renderer._camera_rays(s, px0, jit, j, c, n) for j, c in enumerate(strata)))
+    assert o.shape == d.shape == (S * W * H, 3)
+    assert bits_equal(o, torch.cat(oo)) and bits_equal(d, torch.cat(dd))
+    # and launch_rays on the CPU is the plain version
+    lo, ld = renderer.launch_rays(s, px0, jit, strata, n)
+    assert bits_equal(lo, o) and bits_equal(ld, d)
+
+
+@pytest.mark.parametrize("name", ["demo-box", "dof"])
+def test_launch_rays_match_jax_camera_stage(name):
+    """launch_draws + launch_rays against the JAX package's camera stage of
+    _trace_stratum (renderer.py:36-43): k_px, k_lens, _ = split(key, 3),
+    px = px0 + (cell + uniform(k_px) * 0.999) / n, the lens likewise,
+    generate_rays; keys fold_in(PRNGKey(seed), j) from numpy seeds."""
+    s = scene(name)
+    js = jax_compile(jax_load(str(REPO / "scenes" / f"{name}.urn"), ["/res", f"{W}x{H}"]))
+    n, strata = 3, [7, 0, 4]
+    px0, jpx0 = renderer.pixel_centers(W, H), jax_pixel_centers(W, H)
+    for seed in np.random.default_rng(13).integers(0, 2**31, size=2).tolist():
+        words = [rng.fold_in_words(rng.key_words(rng.PRNGKey(seed)), j) for j in range(3)]
+        jit, _ = renderer.launch_draws(words, W * H, 0, "cpu")
+        o, d = renderer.launch_rays(s, px0, jit, strata, n)
+        want = []
+        for j, c in enumerate(strata):
+            k_px, k_lens, _ = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), j), 3)
+            cell = jnp.asarray([c % n, c // n], jnp.float32)
+            px = jpx0 + (cell + jax.random.uniform(k_px, (W * H, 2)) * 0.999) / n
+            lens = (cell + jax.random.uniform(k_lens, (W * H, 2)) * 0.999) / n
+            want.append(jax_generate_rays(js.camera, px, lens))
+        jo, jd = (np.concatenate([np.asarray(w[i]) for w in want]) for i in (0, 1))
+        np.testing.assert_allclose(o.numpy(), jo, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(d.numpy(), jd, rtol=1e-5, atol=1e-6)
+
+
+def test_launch_rays_refuses_other_devices():
+    s, jit = scene("demo-box"), launch(1)
+    with pytest.raises(ValueError, match="no camera rays for device meta"):
+        renderer.launch_rays(s, renderer.pixel_centers(W, H).to("meta"), jit, [0], 2)
+
+
+class RecordingLibrary(FakeLibrary):
+    """The fake library, also keeping each R2 call's arguments."""
+
+    def __init__(self, cards):
+        super().__init__(cards)
+        self.r2_args = []
+
+    def __getattr__(self, name):
+        call = super().__getattr__(name)
+
+        def recorded(*args):
+            if name == "plu_camera_rays":
+                self.r2_args.append(args)
+            return call(*args)
+
+        return recorded
+
+
+@pytest.fixture
+def card_env(monkeypatch):
+    cards = Cards()
+    lib = RecordingLibrary(cards)
+    monkeypatch.setattr(torch.cuda, "device", cards.device)
+    monkeypatch.setattr(torch.cuda, "current_stream", cards.current_stream)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: cards.current.index)
+    monkeypatch.setattr(build, "load", lambda: type("Lib", (), {"lib": lib})())
+    monkeypatch.setattr(intersect_kernel, "_ARRIVALS", {})
+    with HostAsCard():
+        yield cards, lib
+
+
+def no_eager_camera(*_args, **_kw):
+    raise AssertionError("an eager camera op ran on a card launch")
+
+
+@pytest.mark.parametrize("pairs", [[(s, s) for s in range(20)],
+                                   [(j, s) for j, s in enumerate([5, 1, 3])]], ids=str)
+def test_stratum_launches_one_r2_call_a_launch(card_env, monkeypatch, pairs):
+    """On tensors that report a card, stratum_launches makes one R2 call
+    a launch (after its two R1 calls), inside build.on_device with the
+    tensors' card current, with the launch's cells by value, and no eager
+    camera op; the rays R2 wrote go to the path kernel."""
+    cards, lib = card_env
+    s = scene("demo-box").to(CARD)
+    px0 = renderer.pixel_centers(W, H).to(CARD)
+    for name in ("generate_rays", "camera_rays_plain", "_camera_rays", "_sample_positions"):
+        monkeypatch.setattr(renderer, name, no_eager_camera)
+    seen = []
+
+    def radiance(scene_, o, d, u, options):
+        seen.append((o, d))
+        return torch.zeros((o.shape[0], 3), device=o.device)
+
+    monkeypatch.setattr(renderer, "radiance_of_uniforms", radiance)
+    per = renderer.strata_per_launch(s, DEFAULT_OPTIONS, W * H)
+    assert per == renderer.MAX_STRATA == camera_kernel.MAX_STRATA
+    before = (camera_kernel.camera_rays_cuda.launches, build.on_device.entries)
+    out = list(renderer.stratum_launches(s, rng.PRNGKey(0), pairs, px0, 5, DEFAULT_OPTIONS))
+    launches = -(-len(pairs) // per)
+    assert len(out) == len(seen) == launches
+    assert [name for name, _, _ in lib.calls] == (
+        ["plu_threefry_uniform", "plu_threefry_uniform", "plu_camera_rays"] * launches)
+    assert all(current == CARD for _, current, _ in lib.calls) and cards.stack == [OTHER]
+    assert camera_kernel.camera_rays_cuda.launches - before[0] == launches
+    assert build.on_device.entries - before[1] == 3 * launches
+    for i, args in enumerate(lib.r2_args):
+        group = [st for _, st in pairs[i * per:(i + 1) * per]]
+        S = len(group)
+        assert list(args[3].cell)[:S] == group and args[4:7] == (S, W * H, 5)
+        o, d = seen[i]
+        assert (o.data_ptr(), d.data_ptr()) == (args[7], args[8])  # R2's rays, not copies
+        assert o.shape == d.shape == (S * W * H, 3)
+
+
+def test_stratum_rays_one_r2_call(card_env, monkeypatch):
+    """_stratum_rays (the train step's, render_pass's and term_dump's
+    rays) on a card: one R2 call of one stratum, no eager camera op."""
+    _, lib = card_env
+    s = scene("dof").to(CARD)
+    monkeypatch.setattr(renderer, "generate_rays", no_eager_camera)
+    o, d, u = renderer._stratum_rays(s, renderer.pixel_centers(W, H).to(CARD), rng.PRNGKey(1), 6,
+                                     3, DEFAULT_OPTIONS)
+    assert [name for name, _, _ in lib.calls][-1] == "plu_camera_rays"
+    args = lib.r2_args[-1]
+    assert args[3].cell[0] == 6 and args[4:7] == (1, W * H, 3)
+    assert o.shape == d.shape == (W * H, 3) and u.shape == (DEFAULT_OPTIONS.max_bounces, W * H, 12)
+
+
+def test_r2_wrapper_checks():
+    """R2's wrapper refuses CPU tensors, a launch of no or too many
+    strata, and a jitter block of another shape, before any launch."""
+    s = scene("demo-box")
+    px0, jit = renderer.pixel_centers(W, H), launch(2)
+    run = camera_kernel.camera_rays_cuda
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        run(s.camera, px0, jit, [0, 1], 2)
+    with HostAsCard():
+        cs, cpx, cjit = s.to(CARD), px0.to(CARD), jit.to(CARD)
+        with pytest.raises(ValueError, match="1 to 16 strata"):
+            run(cs.camera, cpx, cjit, [], 2)
+        with pytest.raises(ValueError, match="1 to 16 strata"):
+            run(cs.camera, cpx, cjit, list(range(17)), 5)
+        with pytest.raises(ValueError, match="jit must be a contiguous float32"):
+            run(cs.camera, cpx, cjit, [0, 1, 2], 2)
+        with pytest.raises(ValueError, match="px0 must be a contiguous float32"):
+            run(cs.camera, cpx.double(), cjit, [0, 1], 2)
+
+
+def test_camera_table_built_once_a_camera():
+    """The camera table: the layout csrc/camera.cu reads, built once a
+    camera and again when a camera tensor changes."""
+    cam = scene("dof").camera
+    table = camera_kernel.camera_table(cam)
+    want = torch.cat([cam.pos, cam.look, cam.right, cam.up, cam.inv_image_size,
+                      cam.w.reshape(1), cam.lens_radius.reshape(1), cam.focal_distance.reshape(1)])
+    assert torch.equal(table, want) and table.dtype == torch.float32
+    assert camera_kernel.camera_table(cam) is table
+    cam.lens_radius.mul_(2.0)
+    again = camera_kernel.camera_table(cam)
+    assert again is not table and again[15] == 2.0 * table[15]

@@ -878,20 +878,163 @@ def test_r1_train_step_equals_plain_draws(dev, monkeypatch):
         assert all(torch.equal(got[1][f], want[1][f]) for f in got[1])
 
 
+# R2, the camera-ray kernel: bit-equal to its plain version, and every
+# camera ray of the pass loop and the train step through it
+
+
+def r2_launch(name, w, h, S, B, dev, seed=7):
+    """A scene at w x h, the first B of its pixels and the jitter block of
+    a launch of S strata of them (keys fold_in(PRNGKey(seed), j))."""
+    from plutracer_tpu_torch.render.renderer import launch_draws
+
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"), ["/res", f"{w}x{h}"]),
+                      device=dev)
+    px0 = pixel_centers(w, h, dev)[:B].contiguous()
+    words = [rng.fold_in_words(rng.key_words(rng.PRNGKey(seed)), j) for j in range(S)]
+    return s, px0, launch_draws(words, B, 0, dev)[0]
+
+
+def int_bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("name", ["demo-box", "dof"])
+@pytest.mark.parametrize("S,order", [(1, "in order"), (4, "in order"), (16, "in order"),
+                                     (4, "shuffled"), (16, "shuffled")])
+@pytest.mark.parametrize("B", [64 * 48, 1, 127, 64 * 48 - 77])
+def test_r2_bit_equal_to_plain(dev, name, S, order, B):
+    """R2's o and d equal camera_rays_plain's on the card on every lane,
+    bit for bit (pinhole and thin lens, cells in any order, ragged B);
+    one launch a call."""
+    import random
+
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
+    from plutracer_tpu_torch.render.renderer import camera_rays_plain, launch_rays
+
+    n = 4 if S < 16 else 5
+    strata = list(range(S)) if order == "in order" else random.Random(S).sample(range(n * n), S)
+    s, px0, jit = r2_launch(name, 64, 48, S, B, dev)
+    before = camera_rays_cuda.launches
+    o, d = launch_rays(s, px0, jit, strata, n)
+    assert camera_rays_cuda.launches == before + 1
+    po, pd = camera_rays_plain(s.camera, px0, jit, strata, n)
+    assert o.shape == d.shape == po.shape == (S * B, 3)
+    assert torch.equal(int_bits(o), int_bits(po)) and torch.equal(int_bits(d), int_bits(pd))
+
+
+def test_r2_equals_cpu_plain(dev):
+    """R2 on the card against camera_rays_plain on the CPU (the version
+    the CPU tests hold against the JAX package): a pinhole camera's o (its
+    position) bit-equal; a lens camera's o within tests/test_torch_ops.py's
+    default (rtol 1e-5, atol 1e-5) and every d within test_generate_rays'
+    (rtol 1e-5, atol 1e-6): the CPU's norm, cos and sin round apart from
+    the card's by an ulp."""
+    from plutracer_tpu_torch.render.renderer import camera_rays_plain, launch_rays
+
+    for name in ("demo-box", "dof"):
+        s, px0, jit = r2_launch(name, 64, 48, 3, 64 * 48, dev)
+        o, d = launch_rays(s, px0, jit, [4, 0, 8], 3)
+        po, pd = camera_rays_plain(s.to("cpu").camera, px0.cpu(), jit.cpu(), [4, 0, 8], 3)
+        if name == "demo-box":
+            assert torch.equal(o.cpu(), po)
+        np.testing.assert_allclose(o.cpu().numpy(), po.numpy(), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(d.cpu().numpy(), pd.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def plain_camera(monkeypatch):
+    """The camera rays as they were before R2: camera_rays_plain on every
+    device."""
+    from plutracer_tpu_torch.render import renderer
+
+    monkeypatch.setattr(renderer, "launch_rays", lambda scene, px0, jit, strata, n: (
+        renderer.camera_rays_plain(scene.camera, px0, jit, strata, n)))
+
+
+def no_eager_camera(monkeypatch):
+    """Fail if an eager camera op runs (the plain version's generate_rays)."""
+    from plutracer_tpu_torch.render import renderer
+
+    def refuse(*_args):
+        raise AssertionError("an eager camera op ran on the card")
+
+    monkeypatch.setattr(renderer, "generate_rays", refuse)
+
+
+@pytest.mark.parametrize("name,res,n", [("demo-box", (64, 64), 2), ("dof", (64, 48), 3),
+                                        ("mesh1", (64, 64), 2)])
+def test_r2_render_equals_plain_camera(dev, name, res, n, tmp_path, monkeypatch):
+    """A CLI render through the kernels makes one R2 launch a pass-loop
+    launch (half its R1 launches) and no eager camera op, and is
+    bit-identical to the same render with the plain camera rays."""
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+
+    args = [str(REPO / "scenes" / f"{name}.urn"), "/res", f"{res[0]}x{res[1]}", "/smp", str(n),
+            "/seed", "7", "/o", str(tmp_path / "x.bmp")]
+    camera_rays_cuda.launches = uniform_block_cuda.launches = 0
+    with monkeypatch.context() as m:
+        no_eager_camera(m)
+        got = cli.run(args)
+    made = camera_rays_cuda.launches
+    assert got.integrator == "kernel" and made > 0 and 2 * made == uniform_block_cuda.launches
+    with monkeypatch.context() as m:
+        plain_camera(m)
+        want = cli.run(args)
+    assert camera_rays_cuda.launches == made
+    assert torch.equal(got.linear, want.linear)
+
+
+def test_r2_train_step_and_sharded_equal_plain_camera(dev, monkeypatch):
+    """A demo-box train step's loss and gradients, and render_sharded on a
+    1x1 mesh, through R2 (one launch a traced stratum, no eager camera
+    op) equal the same with the plain camera rays, bit for bit."""
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
+    from plutracer_tpu_torch.parallel import make_mesh, render_sharded, sharded
+
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x64"]),
+                      device=dev)
+    target = render(s, 64, 64, 2, rng.PRNGKey(11)).reshape(-1, 3)
+    params = sharded.get_params(s)
+    for loss_space, launches in (("log", 1), ("ab", 2)):
+        step = sharded.make_train_step(s, 64, 64, 2, loss_space=loss_space,
+                                       trainable=("mat_color", "light_intensity"))
+        camera_rays_cuda.launches = 0
+        with monkeypatch.context() as m:
+            no_eager_camera(m)
+            got = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
+        assert camera_rays_cuda.launches == launches
+        with monkeypatch.context() as m:
+            plain_camera(m)
+            want = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        assert all(torch.equal(got[1][f], want[1][f]) for f in got[1])
+    mesh = make_mesh((1, 1), devices=[dev])
+    camera_rays_cuda.launches = 0
+    with monkeypatch.context() as m:
+        no_eager_camera(m)
+        img = render_sharded(s, 64, 64, 2, rng.PRNGKey(5), mesh)
+    assert camera_rays_cuda.launches == 1  # the 4 strata in one launch
+    with monkeypatch.context() as m:
+        plain_camera(m)
+        assert torch.equal(img, render_sharded(s, 64, 64, 2, rng.PRNGKey(5), mesh))
+
+
 # every launch on its tensors' card (ops/cuda/build.on_device)
 
 
 def test_launch_helper_counts_every_launch(dev):
-    """Over renders through K1 + K2, K3 and K4, the K3 query, K5 and R1,
-    the launch helper's entries equal the wrappers' launch counters: no
-    launch bypasses build.on_device."""
+    """Over renders through K1 + K2, K3 and K4, the K3 query, K5, R1 and
+    R2, the launch helper's entries equal the wrappers' launch counters:
+    no launch bypasses build.on_device."""
     from plutracer_tpu_torch.ops.cuda import build
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
     from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
 
     counters = ((closest_hit_cuda, "launches"), (closest_hit_bvh_cuda, "launches"),
                 (ray_color_cuda, "launches"), (ray_color_cuda, "debug_launches"),
                 (ray_color_stream_cuda, "launches"), (ray_color_stream_cuda, "debug_launches"),
-                (onebounce_cuda, "launches"), (uniform_block_cuda, "launches"))
+                (onebounce_cuda, "launches"), (uniform_block_cuda, "launches"),
+                (camera_rays_cuda, "launches"))
     demo, o, d = scene_and_rays("demo-box", 32, dev)
     mesh1 = compile_scene(load_scene_file(str(REPO / "scenes" / "mesh1.urn"), ["/res", "32x32"]),
                           device=dev)
@@ -918,6 +1061,7 @@ def two_cards():
 
 def _launch_cases(dev):
     from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+    from plutracer_tpu_torch.render.renderer import launch_rays
 
     demo, o, d = scene_and_rays("demo-box", 32, dev)
     mesh1, mo, md = scene_and_rays("mesh1", 32, dev)
@@ -935,10 +1079,13 @@ def _launch_cases(dev):
         "K5": lambda: ray_color_stream_cuda(mesh1, mo, md, u, DEFAULT_OPTIONS, debug=True),
         "R1": lambda: uniform_block_cuda(rng.key_table([rng.PRNGKey(1), rng.PRNGKey(2)]),
                                          100003, dev),
+        "R2": lambda: launch_rays(demo, pixel_centers(32, 32, dev), u[:2].reshape(2, -1)[
+            :, :4 * 1024 * 2].reshape(2, 4, 1024, 2).contiguous(), [3, 0, 1, 2], 2),
     }
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K1 split", "K3 query", "K2", "K3", "K4", "K5", "R1"])
+@pytest.mark.parametrize("kernel", ["K1", "K1 split", "K3 query", "K2", "K3", "K4", "K5", "R1",
+                                    "R2"])
 def test_launch_with_another_card_current(two_cards, kernel):
     """Tensors on cuda:0, launched while cuda:1 is the current device: the
     same bits as with cuda:0 current."""

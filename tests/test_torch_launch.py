@@ -22,7 +22,8 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from plutracer_tpu_torch import rng
-from plutracer_tpu_torch.ops.cuda import build, integrator_kernel, intersect_kernel, rng_kernel
+from plutracer_tpu_torch.ops.cuda import build, camera_kernel, integrator_kernel, intersect_kernel
+from plutracer_tpu_torch.ops.cuda import rng_kernel
 from plutracer_tpu_torch.ops.cuda import stream_kernel
 from plutracer_tpu_torch.ops.tables import pack_tables
 from plutracer_tpu_torch.render.integrator import draw_uniforms, kernel_tier
@@ -170,6 +171,12 @@ def r1(_name):
     return rng_kernel.uniform_block_cuda(keys, 24, CARD)
 
 
+def r2(name):
+    s, _, _, _ = _scene(name)
+    jit = torch.zeros((2, 3, 64, 2)).to(CARD)
+    return camera_kernel.camera_rays_cuda(s.camera, pixel_centers(8, 8).to(CARD), jit, [2, 0, 1], 2)
+
+
 # (wrapper, scene, the C calls it makes in order)
 WRAPPERS = {
     "K1": (k1, "demo-box", ["plu_closest_hit_plan", "plu_closest_hit"]),
@@ -184,6 +191,7 @@ WRAPPERS = {
                       ["plu_megakernel_stream"]),
     "K4": (k4, "sphere-grid", ["plu_megakernel_onebounce"]),
     "R1": (r1, None, ["plu_threefry_uniform"]),
+    "R2": (r2, "dof", ["plu_camera_rays"]),
 }
 
 
@@ -266,5 +274,5 @@ def test_every_c_call_inside_the_launch_helper():
                 c_calls += 1
                 assert _inside_on_device(node, parents), (
                     f"{path.name}:{node.lineno}: {node.attr} called outside build.on_device")
-    # K1's plan and launch, the K3 query, K2, K3, K4, R1
-    assert c_calls == len(build._SIGNATURES) == 7
+    # K1's plan and launch, the K3 query, K2, K3, K4, R1, R2
+    assert c_calls == len(build._SIGNATURES) == 8

@@ -1,7 +1,9 @@
 """The JAX package's signatures the port keeps: any int64 seed,
 safemath.normalize(v, axis, eps), compile_scene(desc, options,
 build_accel) and make_mesh(shape, axis_names, devices), each against the
-JAX function.
+JAX function; and its import paths: every name a JAX subpackage exports
+(``__all__``) and the top level's public names are exported by the
+port's counterpart, or mapped or left out by name in README.md.
 
 Tolerances: normalize within 1 ulp-scale (rtol 1e-6) of the JAX function
 (both compute v * rsqrt(sum(v * v) + eps); XLA's CPU rsqrt and torch's may
@@ -13,13 +15,22 @@ holds the full compile.
 """
 
 import dataclasses
+import importlib
+import inspect
 import pathlib
+import pkgutil
+import re
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import plutracer_tpu
+import plutracer_tpu_torch
 
 from plutracer_tpu.ops.safemath import normalize as jax_normalize
 from plutracer_tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -191,3 +202,87 @@ def test_make_mesh_refuses_other_axes(second):
     device list in the old second place, raise ValueError."""
     with pytest.raises(ValueError, match="axis_names"):
         make_mesh((2, 2), second)
+
+
+# ---- the JAX package's import paths ----
+
+JAX_SUBPACKAGES = sorted(m.name for m in pkgutil.iter_modules(plutracer_tpu.__path__) if m.ispkg)
+
+
+def _readme_names():
+    """(the JAX names README's name table maps, the names its "Left out on
+    purpose" paragraph names), as written in backticks."""
+    text = (REPO / "README.md").read_text()
+    table = text.split("Names of the JAX package with a counterpart under another name", 1)[1]
+    rows = [row for row in table.lstrip(":\n").split("\n\n", 1)[0].splitlines()
+            if row.startswith("| `")]
+    mapped = {m for row in rows for m in re.findall(r"`([\w.]+)", row.split("|")[1])}
+    left_out = text.split("Left out on purpose", 1)[1].split("\n\n", 1)[0]
+    return mapped, set(re.findall(r"`([\w.]+)`", left_out))
+
+
+def _public(mod):
+    """A module's exported names: its __all__, else its public attributes
+    that are not modules (the top level of both packages has no __all__)."""
+    if hasattr(mod, "__all__"):
+        return list(mod.__all__)
+    return [n for n in vars(mod) if not n.startswith("_") and not inspect.ismodule(getattr(mod, n))]
+
+
+@pytest.mark.parametrize("sub", ["", *JAX_SUBPACKAGES])
+def test_jax_import_paths_have_counterparts(sub):
+    """Each name plutracer_tpu[.sub] exports is exported by
+    plutracer_tpu_torch[.sub], or README's name table maps
+    sub.<module>.<name> to another name, or README leaves it out."""
+    jmod = importlib.import_module("plutracer_tpu" + (f".{sub}" if sub else ""))
+    tmod = importlib.import_module("plutracer_tpu_torch" + (f".{sub}" if sub else ""))
+    mapped, left_out = _readme_names()
+    missing = []
+    for name in _public(jmod):
+        if hasattr(tmod, name) or name in left_out:
+            continue
+        if not any(m.split(".")[0] == sub and m.split(".")[-1] == name for m in mapped):
+            missing.append(name)
+    assert not missing, f"plutracer_tpu{'.' + sub if sub else ''}: {missing} have no counterpart"
+    for name in getattr(tmod, "__all__", []):
+        assert getattr(tmod, name) is not None, name
+
+
+def test_reexports_are_the_modules_functions():
+    """The re-exported names are the port modules' own objects."""
+    from plutracer_tpu_torch import diff, render, scene, semantics, utils
+    from plutracer_tpu_torch.diff import optimize
+    from plutracer_tpu_torch.render import integrator, renderer
+    from plutracer_tpu_torch.scene import types
+    from plutracer_tpu_torch.utils import profiling
+
+    assert plutracer_tpu_torch.RenderOptions is semantics.RenderOptions
+    assert (render.render, render.render_image, render.ray_color) == (
+        renderer.render, renderer.render_image, integrator.ray_color)
+    assert (diff.InverseRenderConfig, diff.optimize_scene) == (
+        optimize.InverseRenderConfig, optimize.optimize_scene)
+    assert (utils.PhaseTimer, utils.RenderStats, utils.profile_trace) == (
+        profiling.PhaseTimer, profiling.RenderStats, profiling.profile_trace)
+    assert scene.CameraParams is types.CameraParams
+    for name in [n for n in plutracer_tpu.scene.__all__ if n.isupper()]:
+        assert getattr(scene, name) == getattr(plutracer_tpu.scene, name), name
+
+
+def test_each_subpackage_imports_first_without_a_cycle():
+    """In a fresh process, each port subpackage imported first (the port's
+    modules dropped between them) imports cleanly: no cycle, no jax, and
+    no CUDA initialisation."""
+    subs = [m.name for m in pkgutil.iter_modules(plutracer_tpu_torch.__path__) if m.ispkg]
+    code = f"""
+import importlib, sys, torch
+for sub in {["", *subs]!r}:
+    for m in [m for m in sys.modules if m.startswith("plutracer_tpu_torch")]:
+        del sys.modules[m]
+    importlib.import_module("plutracer_tpu_torch" + ("." + sub if sub else ""))
+assert not [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "plutracer_tpu."))]
+assert not torch.cuda.is_initialized()
+print("ok", len({subs!r}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.startswith("ok"), out.stderr[-2000:]
