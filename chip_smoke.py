@@ -136,8 +136,10 @@ both main paths of the port on the card:
      (2, 1) mesh over both cards in one process, and K1's split path on
      mesh0 with cuda:1's tensors, each bit-equal to the same on cuda:0
      (with one card it prints that (b) was not run, and why).
-23.  R2, the camera-ray kernel: bit-equal to its plain version
-     (renderer.camera_rays_plain, eager torch ops on the card) on every
+23.  R2, the camera-stage kernel (the pixel and lens jitter drawn inside
+     from keys passed by value, then the rays): bit-equal to its plain
+     version (renderer.camera_rays_plain: the jitter by
+     rng.uniform_block_plain, then eager torch ops, on the card) on every
      lane of a demo-box 512x512 stratum, a dof 640x480 stratum (the thin
      lens), a 4-strata and a 16-strata mesh1 256x256 launch (cells out of
      order) and ragged B (1, 127, B - 77); kernel-only (torch.profiler)
@@ -145,8 +147,11 @@ both main paths of the port on the card:
      renders of demo-box, dof and mesh1, a demo-box train step (log and
      ab), render_sharded on a 1x1 mesh and render_elastic through R2
      bit-equal to the same with the plain camera rays, each with one R2
-     launch a pass-loop launch (half its R1 launches) and no eager camera
-     op.
+     launch a pass-loop launch (as many as its R1 launches) and no eager
+     camera op. With an earlier checkout unpacked in _checkout/parent,
+     the camera stage (launch_draws + launch_rays at R2's cases) and the
+     CLI renders of phases 5 and 10 timed in both trees, each in its own
+     process, in turns (parent, this tree, this tree, parent).
 
 Every phase asserts and prints its seconds; any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
@@ -169,15 +174,17 @@ launch answers the plain path's queries under intersect_backend="bvh",
 and its entry reports those launches in one mesh1 train step's
 loss_and_grads (phase 19 (b)) and in phase 20's API calls; K1's entry
 adds phase 20's launches to the demo-box render's. R1's entry counts
-its launches in the CLI renders of phases 5 and 10 (two a pass-loop
-launch), and its bound is the larger of the bytes it writes over HBM's
-rate and its 32-bit integer operations (R1_WORD_OPS a word) over 128 a
-clock on each SM at the card's maximum SM clock; torch's generators are
-Philox, not threefry, so no library call computes its function. R2's
-entry counts its launches in the same CLI renders (one a pass-loop
-launch); its bound is the bytes it moves (R2_RAY_BYTES a ray, the pixel
-positions once) against its float32 operations (R2_RAY_OPS); no single
-PyTorch call computes camera rays.
+its launches in the CLI renders of phases 5 and 10 (one a pass-loop
+launch: the path uniforms), and its bound is the larger of the bytes it
+writes over HBM's rate and its 32-bit integer operations (R1_WORD_OPS a
+word) over 128 a clock on each SM at the card's maximum SM clock;
+torch's generators are Philox, not threefry, so no library call computes
+its function. R2's entry counts its launches in the same CLI renders
+(one a pass-loop launch); its bound is the largest of the bytes it moves
+(R2_RAY_BYTES a ray, the pixel positions and the camera table once), its
+jitter's integer operations (R1_WORD_OPS a word, two words a ray and two
+more with a lens) at R1's rate, and its float32 operations (R2_RAY_OPS);
+no single PyTorch call computes camera rays.
 The next line is the card's name and power limit; the last line is
 {"ok": true, "device": ...}.
 """
@@ -230,6 +237,9 @@ R1_BIG = ((1, 2**24 + 3), (3, 2**24 + 1))
 R2_SOURCE = "plutracer_tpu_torch/csrc/camera.cu"
 R2_REPLACES = "plutracer_tpu/render/renderer.py:36"
 R2_KERNELS = ("camera_rays",)
+# the threefry words R2 draws a ray: the pixel jitter's two, and the lens
+# jitter's two more where the camera has a lens (a pinhole never reads them)
+R2_RAY_WORDS = (2, 4)  # pinhole, lens
 # float32 operations of one R2 ray (csrc/camera.cu, hand-counted; a
 # compare, select, division, sqrt, cos or sin counts 1): a pinhole ray's
 # sample positions 14, film point 7, direction 15, norm and division 9 and
@@ -238,9 +248,10 @@ R2_KERNELS = ("camera_rays",)
 # products) and the refocus's 24 (the focal division, the focal point,
 # the lens origin, the difference, its norm and division)
 R2_RAY_OPS = (46, 46 + 20 + 24)  # pinhole, lens
-# bytes of one R2 ray: its jitter (pixel and lens) 16 read, o and d 24
-# written; each pixel position (8 bytes) is read once a launch
-R2_RAY_BYTES = 16 + 24
+# bytes of one R2 ray: o and d, 24 written (the jitter is drawn in
+# registers); each pixel position (8 bytes) and the camera table (68
+# bytes) are read once a launch
+R2_RAY_BYTES = 24
 # phase 23: the launches held against the plain version, (scene,
 # resolution, strata, n): the main paths' (demo-box and dof one stratum a
 # launch, mesh1 4), and the most strata a launch takes
@@ -641,9 +652,9 @@ def main() -> int:
     assert torch.isfinite(res.linear).all(), "non-finite radiance in the main-path render"
     # 262,144 rays a stratum: one stratum a launch
     assert launches["K1"] == 64 and launches["K2"] == 64, launches
-    # two R1 launches a pass-loop launch: the jitter block and the path uniforms
-    assert launches["R1"] == 2 * launches["K2"], launches
-    # one R2 launch a pass-loop launch: the launch's camera rays
+    # one R1 launch a pass-loop launch: the path uniforms
+    assert launches["R1"] == launches["K2"], launches
+    # one R2 launch a pass-loop launch: the launch's jitter and camera rays
     assert launches["R2"] == launches["K2"], launches
     same = torch.equal(res.linear, stratum_by_stratum(scene, W, H, 8, rng.PRNGKey(7),
                                                       DEFAULT_OPTIONS))
@@ -653,19 +664,16 @@ def main() -> int:
     # one pass of that render by stage (CUDA events), to see where the time goes
     words = rng.key_words(key)
     path_keys = [rng.fold_in_words(rng.key_words(k_path), i) for i in range(8)]
-    px0, jit1 = pixel_centers(W, H, dev), launch_draws([words], B, 0, dev)[0]
+    px0, keys1 = pixel_centers(W, H, dev), launch_draws([words], B, 0, dev)[0]
     stages = {
         "threefry uniforms (8, B, 12), R1": lambda: draw_uniforms(k_path, B, 8, dev),
         "threefry uniforms (8, B, 12), plain (eager int64, the draw before R1)": lambda: (
             rng.uniform_block_plain(path_keys, 12 * B, dev)),
-        "pixel + lens jitter (2 x (B, 2)), R1": lambda: rng.uniform_block(
-            [k_px, k_lens], 2 * B, dev),
-        "pixel + lens jitter (2 x (B, 2)), plain": lambda: rng.uniform_block_plain(
-            [k_px, k_lens], 2 * B, dev),
-        "launch_draws (host keys + both R1 launches)": lambda: launch_draws([words], B, 8, dev),
-        "camera rays, R2 (launch_rays: one launch)": lambda: launch_rays(scene, px0, jit1, [0], 8),
-        "camera rays, plain (camera_rays_plain: the eager ops before R2)": lambda: (
-            camera_rays_plain(scene.camera, px0, jit1, [0], 8)),
+        "launch_draws (host keys + the R1 launch)": lambda: launch_draws([words], B, 8, dev),
+        "camera stage, R2 (launch_rays: jitter and rays, one launch)": lambda: launch_rays(
+            scene, px0, keys1, [0], 8),
+        "camera stage, plain (camera_rays_plain: the plain jitter draw, then the eager ops)": (
+            lambda: camera_rays_plain(scene.camera, px0, keys1, [0], 8)),
         "K1 primary hit + K2": lambda: ray_color_cuda(scene, o, d, u, DEFAULT_OPTIONS),
     }
     for what, fn in stages.items():
@@ -1024,10 +1032,10 @@ def big_scene_phases(phase, dev, card):
                            "/seed", "7"])
             launches[name] = ray_color_stream_cuda.launches
             assert closest_hit_bvh_cuda.launches == 0  # the walk runs inside K3
-            # the draws of a launch of 4 strata: two R1 launches
-            assert uniform_block_cuda.launches == 2 * launches[name], uniform_block_cuda.launches
+            # the path uniforms of a launch of 4 strata: one R1 launch
+            assert uniform_block_cuda.launches == launches[name], uniform_block_cuda.launches
             r1_launches += uniform_block_cuda.launches
-            # and one R2 launch: the launch's camera rays
+            # and one R2 launch: the launch's jitter and camera rays
             assert camera_rays_cuda.launches == launches[name], camera_rays_cuda.launches
             r2_launches += camera_rays_cuda.launches
             assert res.integrator == "kernel" and res.tier == "k3", (res.integrator, res.tier)
@@ -1050,26 +1058,23 @@ def big_scene_phases(phase, dev, card):
                               ("demo-box", load("demo-box", 512, 512), 512, 8)):
         render_turns(scene, w, w, n, name, card)
     # one launch of the mesh1 render by stage (CUDA events)
-    k_px, k_lens, k_path = rng.split(rng.fold_in(rng.PRNGKey(7), 0), 3)
+    k_path = rng.split(rng.fold_in(rng.PRNGKey(7), 0), 3)[2]
     B1 = o.shape[0]
     launch_keys = [rng.fold_in_words(rng.key_words(rng.PRNGKey(7)), s) for s in range(per)]
     path_keys = [rng.fold_in_words(rng.key_words(k_path), i) for i in range(mb)]
-    px0, jit4 = pixel_centers(256, 256, dev), launch_draws(launch_keys, B1, 0, dev)[0]
+    px0, keys4 = pixel_centers(256, 256, dev), launch_draws(launch_keys, B1, 0, dev)[0]
     stages = {
         f"threefry uniforms (8, B, 12), one stratum, R1": lambda: draw_uniforms(
             k_path, B1, mb, dev),
         f"threefry uniforms (8, B, 12), one stratum, plain (the draw before R1)": lambda: (
             rng.uniform_block_plain(path_keys, 12 * B1, dev)),
-        "pixel + lens jitter (2 x (B, 2)), one stratum, R1": lambda: rng.uniform_block(
-            [k_px, k_lens], 2 * B1, dev),
-        "pixel + lens jitter (2 x (B, 2)), one stratum, plain": lambda: (
-            rng.uniform_block_plain([k_px, k_lens], 2 * B1, dev)),
-        f"launch_draws, {per} strata (host keys + both R1 launches)": lambda: launch_draws(
+        f"launch_draws, {per} strata (host keys + the R1 launch)": lambda: launch_draws(
             launch_keys, B1, mb, dev),
-        f"camera rays, {per} strata, R2 (launch_rays: one launch)": lambda: launch_rays(
-            mesh1, px0, jit4, list(range(per)), 4),
-        f"camera rays, {per} strata, plain (camera_rays_plain: the eager ops before R2)": lambda: (
-            camera_rays_plain(mesh1.camera, px0, jit4, list(range(per)), 4)),
+        f"camera stage, {per} strata, R2 (launch_rays: jitter and rays, one launch)": lambda: (
+            launch_rays(mesh1, px0, keys4, list(range(per)), 4)),
+        f"camera stage, {per} strata, plain (camera_rays_plain: the plain jitter draw, then "
+        "the eager ops)": lambda: camera_rays_plain(mesh1.camera, px0, keys4, list(range(per)),
+                                                    4),
         f"K3 (primary hit in the kernel), {per} strata": lambda: ray_color_stream_cuda(
             mesh1, bo, bd, bu, DEFAULT_OPTIONS),
     }
@@ -2275,18 +2280,39 @@ def plain_draws():
         rng.uniform_block = real
 
 
-def r1_bound(K: int, n: int):
-    """(bound ms, "bytes" or "operations") of an R1 block of K keys and n
-    words a key: the output written once and the keys read once, against
-    R1_WORD_OPS INT32 operations a word at INT32_OPS_A_CLOCK an SM a clock
-    at the card's maximum SM clock (nvidia-smi)."""
+def int32_rate():
+    """(32-bit integer operations a second, max SM MHz, SMs):
+    INT32_OPS_A_CLOCK an SM a clock at the card's maximum SM clock
+    (nvidia-smi)."""
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_OPS_A_CLOCK * sms * mhz * 1e6, mhz, sms
+
+
+def r1_bound(K: int, n: int):
+    """(bound ms, "bytes" or "operations") of an R1 block of K keys and n
+    words a key: the output written once and the keys read once, against
+    R1_WORD_OPS INT32 operations a word at int32_rate()."""
+    rate, mhz, sms = int32_rate()
     t_bytes = (K * n * 4 + K * 8) / HBM_BYTES_PER_S * 1e3
-    t_ops = K * n * R1_WORD_OPS / (INT32_OPS_A_CLOCK * sms * mhz * 1e6) * 1e3
+    t_ops = K * n * R1_WORD_OPS / rate * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), mhz, sms
+
+
+def r2_bound(rays: int, pixels: int, lens: bool):
+    """(bound ms, "bytes" or "operations") of an R2 launch of `rays` rays
+    over `pixels` pixel positions: the largest of its bytes (o and d
+    written, the positions and the camera table read once) over HBM's
+    rate, its jitter's integer operations (R2_RAY_WORDS threefry words a
+    ray of R1_WORD_OPS each) at int32_rate(), and its float32 operations
+    (R2_RAY_OPS a ray) over FP32_OPS_PER_S."""
+    t_bytes = (rays * R2_RAY_BYTES + pixels * 8 + 17 * 4) / HBM_BYTES_PER_S * 1e3
+    t_int = rays * R2_RAY_WORDS[lens] * R1_WORD_OPS / int32_rate()[0] * 1e3
+    t_fp = rays * R2_RAY_OPS[lens] / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= max(t_int, t_fp) else (max(t_int, t_fp),
+                                                                   "operations")
 
 
 def r1_times(keys, n, what, card, reps=20):
@@ -2575,8 +2601,8 @@ def plain_camera():
     from plutracer_tpu_torch.render import renderer
 
     real = renderer.launch_rays
-    renderer.launch_rays = lambda scene, px0, jit, strata, n: renderer.camera_rays_plain(
-        scene.camera, px0, jit, strata, n)
+    renderer.launch_rays = lambda scene, px0, keys, strata, n: renderer.camera_rays_plain(
+        scene.camera, px0, keys, strata, n)
     try:
         yield
     finally:
@@ -2585,20 +2611,21 @@ def plain_camera():
 
 @contextlib.contextmanager
 def no_eager_camera():
-    """Fail if the plain camera's eager ops run (renderer.generate_rays,
+    """Fail if the plain camera stage runs: its jitter draw
+    (renderer.jitter_plain) or its eager ops (renderer.generate_rays,
     which camera_rays_plain and the per-stratum _camera_rays call)."""
     from plutracer_tpu_torch.render import renderer
 
-    real = renderer.generate_rays
+    real = renderer.generate_rays, renderer.jitter_plain
 
     def refuse(*_args):
         raise AssertionError("an eager camera op ran on the card")
 
-    renderer.generate_rays = refuse
+    renderer.generate_rays = renderer.jitter_plain = refuse
     try:
         yield
     finally:
-        renderer.generate_rays = real
+        renderer.generate_rays, renderer.jitter_plain = real
 
 
 def r2_equal(o, d, po, pd, what):
@@ -2614,19 +2641,20 @@ def r2_equal(o, d, po, pd, what):
     return max((o - po).abs().max().item(), (d - pd).abs().max().item())
 
 
-def r2_times(scene, px0, jit, strata, n, what, card, reps=50):
+def r2_times(scene, px0, keys, strata, n, what, card, reps=50):
     """(kernel-only ms, wrapper ms, plain ms, bound) of an R2 launch: the
     kernel's device time a launch from torch.profiler, CUDA events around
     calls of launch_rays (the checks, the output's allocation, the launch)
-    and of camera_rays_plain; the bound from the bytes this launch moves
-    and its rays' operations."""
+    and of camera_rays_plain (the plain jitter draw and the eager ops);
+    the bound from the bytes this launch moves and its rays' integer and
+    float operations."""
     from torch.profiler import ProfilerActivity, profile
 
     from plutracer_tpu_torch.render.renderer import camera_rays_plain, launch_rays
 
-    call = lambda: launch_rays(scene, px0, jit, strata, n)
+    call = lambda: launch_rays(scene, px0, keys, strata, n)
     wrapper = time_ms(call, reps)
-    plain = time_ms(lambda: camera_rays_plain(scene.camera, px0, jit, strata, n), reps=10)
+    plain = time_ms(lambda: camera_rays_plain(scene.camera, px0, keys, strata, n), reps=10)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             call()
@@ -2638,7 +2666,7 @@ def r2_times(scene, px0, jit, strata, n, what, card, reps=50):
     how = "torch.profiler" if dev_us > 0 else "the profiler recorded none: wrapper time"
     rays = len(strata) * px0.shape[0]
     lens = bool(scene.camera.lens_radius.item() > 0.0)
-    bound = work_bound(rays * R2_RAY_BYTES + px0.numel() * 4 + 17 * 4, rays * R2_RAY_OPS[lens])
+    bound = r2_bound(rays, px0.shape[0], lens)
     print(f"R2 time {what} ({len(strata)} strata x {px0.shape[0]} pixels, "
           f"{'lens' if lens else 'pinhole'}): kernel-only {kernel:.4f} ms ({how}), wrapper "
           f"{wrapper:.4f} ms a call, plain {plain:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}) "
@@ -2647,12 +2675,15 @@ def r2_times(scene, px0, jit, strata, n, what, card, reps=50):
 
 
 def camera_phase(phase, dev, card, main_launches):
-    """Phase 23: R2 against camera_rays_plain on every lane at the main
-    paths' launches, the most strata a launch takes and ragged B; its
-    times; renders, train steps and the sharded and elastic renders
-    through R2 against the same with the plain camera rays, one R2 launch
-    a pass-loop launch and no eager camera op. Returns R2's kernels-line
-    entry (launches: main_launches, the CLI renders' of phases 5 and 10)."""
+    """Phase 23: R2 (keys to rays) against camera_rays_plain (the plain
+    jitter draw, then the eager ops) on every lane at the main paths'
+    launches, the most strata a launch takes and ragged B; its times;
+    renders, train steps and the sharded and elastic renders through R2
+    against the same with the plain camera rays, one R2 launch a
+    pass-loop launch (as many as R1's) and no eager camera op; with
+    _checkout/parent, the camera stage and the CLI renders in both trees,
+    in turns (camera_stage_turns). Returns R2's kernels-line entry
+    (launches: main_launches, the CLI renders' of phases 5 and 10)."""
     from plutracer_tpu_torch import rng
     from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
     from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
@@ -2677,21 +2708,21 @@ def camera_phase(phase, dev, card, main_launches):
         strata = [(5 * j + 3) % (n * n) for j in range(S)]
         for B in (w * h, 1, 127, w * h - RAGGED):
             px0 = pixel_centers(w, h, dev)[:B].contiguous()
-            jit, _ = launch_draws([rng.fold_in_words(base, j) for j in range(S)], B, 0, dev)
+            keys, _ = launch_draws([rng.fold_in_words(base, j) for j in range(S)], B, 0, dev)
             before = camera_rays_cuda.launches
-            o, d = launch_rays(sc, px0, jit, strata, n)
+            o, d = launch_rays(sc, px0, keys, strata, n)
             assert camera_rays_cuda.launches == before + 1  # one launch a call
-            err = max(err, r2_equal(o, d, *camera_rays_plain(sc.camera, px0, jit, strata, n),
+            err = max(err, r2_equal(o, d, *camera_rays_plain(sc.camera, px0, keys, strata, n),
                                     f"{name} {w}x{h}, {S} strata, B={B}"))
         px0 = pixel_centers(w, h, dev)
-        jit, _ = launch_draws([rng.fold_in_words(base, j) for j in range(S)], w * h, 0, dev)
-        times[(name, S)] = r2_times(sc, px0, jit, strata, n, f"{name} {w}x{h}", card)
-        del sc, px0, jit, o, d
+        keys, _ = launch_draws([rng.fold_in_words(base, j) for j in range(S)], w * h, 0, dev)
+        times[(name, S)] = r2_times(sc, px0, keys, strata, n, f"{name} {w}x{h}", card)
+        del sc, px0, o, d
 
     def through_r2(what, run, path_launches=None):
         """run() through R2 (counted, no eager camera op) and with the plain
         camera rays; the outputs bit-equal; one R2 launch a pass-loop launch
-        (half the R1 launches, or path_launches where given)."""
+        (as many as the R1 launches, and path_launches where given)."""
         camera_rays_cuda.launches = uniform_block_cuda.launches = 0
         with no_eager_camera():
             got = run()
@@ -2700,7 +2731,7 @@ def camera_phase(phase, dev, card, main_launches):
         with plain_camera():
             want = run()
         assert camera_rays_cuda.launches == made and made > 0, (what, made)
-        assert 2 * made == draws, (what, made, draws)
+        assert made == draws, (what, made, draws)
         if path_launches is not None:
             assert made == path_launches, (what, made, path_launches)
         flat = lambda x: x if isinstance(x, (tuple, list)) else (x,)
@@ -2735,11 +2766,115 @@ def camera_phase(phase, dev, card, main_launches):
     for (name, S), (kernel, wrapper, plain, bound) in times.items():
         print(f"R2 {name} launch of {S} strata: kernel-only / bound {kernel / bound[0]:.4f}, "
               f"plain / wrapper {plain / wrapper:.4f} ({card})")
+    parent = ROOT / "_checkout" / "parent"
+    if (parent / "plutracer_tpu_torch").is_dir():
+        camera_stage_turns(parent, card)
+    else:
+        print("R2 against an earlier tree: not run (no _checkout/parent)")
     r2_ms, _, r2_plain_ms, bound = times[("demo-box", 1)]
-    return entry("R2 camera rays (ms: kernel-only, a demo-box 512x512 stratum; launches: the CLI "
-                 "renders of demo-box, mesh1 and mesh2)", R2_SOURCE, R2_REPLACES, main_launches,
-                 err, r2_ms, r2_plain_ms, bound)
+    return entry("R2 camera stage, jitter and rays (ms: kernel-only, a demo-box 512x512 stratum; "
+                 "launches: the CLI renders of demo-box, mesh1 and mesh2)", R2_SOURCE,
+                 R2_REPLACES, main_launches, err, r2_ms, r2_plain_ms, bound)
+
+
+STAGE_REPS = 50  # calls of the camera stage timed a case (camera_stage_figures)
+STAGE_RENDERS = (("demo-box", 512 * 512 * 64), ("mesh1", 256 * 256 * 16),
+                 ("mesh2", 256 * 256 * 16))  # the CLI renders of phases 5 and 10, samples
+STAGE_RENDER_REPS = 3
+
+
+def camera_stage_figures(tree: pathlib.Path) -> int:
+    """``chip_smoke.py --camera-stage TREE``: the pass loop's camera stage
+    of the package at TREE (an earlier one, or this one), measured in this
+    process through the entry points every version has. For each of
+    R2_CASES: launch_draws(keys, B, 0) + launch_rays (the jitter and the
+    rays, whatever kernels the tree splits them into), CUDA events around
+    STAGE_REPS calls; the device time of its R1 and R2 kernels a call
+    (torch.profiler); the same stage with rng.uniform_block and
+    launch_rays on their plain versions. Then the CLI renders of phases 5
+    and 10 (their own settings, seed 7), median samples/s of
+    STAGE_RENDER_REPS. Prints one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(tree))
+    from torch.profiler import ProfilerActivity, profile
+
+    from plutracer_tpu_torch import cli, rng
+    from plutracer_tpu_torch.render import renderer
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+
+    assert pathlib.Path(renderer.__file__).resolve().is_relative_to(tree.resolve())
+    dev = torch.device("cuda")
+    base = rng.key_words(rng.PRNGKey(7))
+    out = {"tree": str(tree), "stage": {}, "samples_per_s": {}}
+    for name, (w, h), S, n in R2_CASES:
+        sc = compile_scene(load_scene_file(str(ROOT / "scenes" / f"{name}.urn"),
+                                           ["/res", f"{w}x{h}"]), device=dev)
+        strata = [(5 * j + 3) % (n * n) for j in range(S)]
+        px0, words = renderer.pixel_centers(w, h, dev), [rng.fold_in_words(base, j)
+                                                          for j in range(S)]
+
+        def stage():
+            return renderer.launch_rays(sc, px0, renderer.launch_draws(words, w * h, 0, dev)[0],
+                                        strata, n)
+
+        wrapper = time_ms(stage, STAGE_REPS)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(STAGE_REPS):
+                stage()
+            torch.cuda.synchronize()
+        kernel = sum(getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+                     for ev in prof.key_averages()
+                     if any(k in ev.key for k in R1_KERNELS + R2_KERNELS)) / 1e3 / STAGE_REPS
+        real = rng.uniform_block, renderer.launch_rays
+        rng.uniform_block = lambda keys, n_, device="cpu": rng.uniform_block_plain(keys, n_, device)
+        renderer.launch_rays = lambda scene, p0, x, st, n_: renderer.camera_rays_plain(
+            scene.camera, p0, x, st, n_)
+        try:
+            plain = time_ms(stage, reps=10)
+        finally:
+            rng.uniform_block, renderer.launch_rays = real
+        out["stage"][f"{name} {w}x{h}, {S} strata"] = {"ms": wrapper, "kernel_ms": kernel,
+                                                        "plain_ms": plain}
+        del sc, px0
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, samples in STAGE_RENDERS:
+            secs = [cli.run([str(ROOT / "scenes" / f"{name}.urn"), "/o", f"{tmp}/o.bmp",
+                             "/seed", "7"]).render_seconds for _ in range(STAGE_RENDER_REPS)]
+            out["samples_per_s"][name] = samples / statistics.median(secs)
+    print(json.dumps(out))
+    return 0
+
+
+def camera_stage_turns(parent: pathlib.Path, card: str):
+    """The camera stage and the CLI renders of the package in `parent`
+    and of this tree, each in its own process (camera_stage_figures), in
+    turns: parent, this tree, this tree, parent. Prints both trees'
+    figures side by side; the readings of each tree's two turns."""
+    runs = []
+    for tree in (parent, ROOT, ROOT, parent):
+        done = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--camera-stage",
+                               str(tree)], capture_output=True, text=True, timeout=600)
+        assert done.returncode == 0, f"--camera-stage {tree}:\n{done.stdout}\n{done.stderr}"
+        runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
+    turns = {"parent": (runs[0], runs[3]), "this tree": (runs[1], runs[2])}
+    fmt = lambda xs: " / ".join(f"{x:.4f}" for x in xs)
+    for case in runs[0]["stage"]:
+        for who, (a, b) in turns.items():
+            got = [(r["stage"][case]["ms"], r["stage"][case]["kernel_ms"],
+                    r["stage"][case]["plain_ms"]) for r in (a, b)]
+            print(f"camera stage {case}, {who} (launch_draws + launch_rays, turns 1 / 2): "
+                  f"wrapper {fmt(g[0] for g in got)} ms, kernels {fmt(g[1] for g in got)} ms a "
+                  f"call (torch.profiler), plain {fmt(g[2] for g in got)} ms ({card})")
+    for name in runs[0]["samples_per_s"]:
+        for who, (a, b) in turns.items():
+            print(f"CLI render {name}, {who}: samples/s "
+                  f"{a['samples_per_s'][name]:.1f} / {b['samples_per_s'][name]:.1f} "
+                  f"(turns 1 / 2, medians of {STAGE_RENDER_REPS}) ({card})")
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--camera-stage"]:
+        sys.exit(camera_stage_figures(pathlib.Path(sys.argv[2])))
     sys.exit(main())

@@ -1,19 +1,23 @@
-// R2: the pass loop's camera rays, every stratum of a launch at once.
+// R2: the pass loop's camera stage, every stratum of a launch at once:
+// the pixel and lens jitter drawn in registers, then the primary rays.
 //
 // Replaces no Pallas kernel: the JAX package computes its primary rays
 // inside the jitted render_passes (plutracer_tpu/render/renderer.py:36-43,
 // plutracer_tpu/ops/camera.py:18-45, ops/sampling.py concentric_disk_sample),
-// where XLA fuses the jittered sample positions, the camera basis, the
-// normalisations and the thin lens into device code. This kernel is that
-// fused stage for a launch of S strata of B pixels: from the launch's
-// jitter block (renderer.launch_draws, (2, S, B, 2): pixel then lens) it
-// writes o and d of all S * B rays, stratum j at rows j*B..(j+1)*B.
+// where XLA fuses the jitter draw (jax.random.uniform of k_px and k_lens),
+// the jittered sample positions, the camera basis, the normalisations and
+// the thin lens into device code. This kernel is that fusion whole for a
+// launch of S strata of B pixels: from each stratum's cell and its k_px
+// and k_lens keys, all passed by value, it writes o and d of all S * B
+// rays, stratum j at rows j*B..(j+1)*B.
 //
-// What it computes for pixel p of stratum j, cell c = strata[j], as
+// What it computes for pixel p of stratum j, cell c = strata.cell[j], as
 // plutracer_tpu_torch.render.renderer.camera_rays_plain does on the card
-// (the same IEEE float32 operations in the same order; built without FMA
-// contraction and without fast math, so each rounds as torch's elementwise
-// kernel does):
+// (the same words and the same IEEE float32 operations in the same order;
+// built without FMA contraction and without fast math, so each rounds as
+// torch's elementwise kernel does):
+//   jit_px = (words 2p and 2p+1 of k_px's stream), jit_lens likewise of
+//   k_lens: plu_uniform_word (threefry.cuh), so uniform(k, (B, 2))[p];
 //   px = px0[p] + (cell + jit_px * 0.999) / n, lens = (cell + jit_lens * 0.999) / n
 //   (cell = (c % n, c / n); an IEEE division by float(n));
 //   uv = (px * inv_image_size) * 2 - 1, its y negated;
@@ -21,25 +25,40 @@
 //   o = pos; with lens_radius > 0 (tested here, as torch.where selects):
 //   l = concentric_disk_sample(lens) * lens_radius, pof = o + d * (focal / d.z),
 //   o = o + (l.x, l.y, 0), d = pof - o divided by its norm.
-// The norm is torch.linalg.norm's on the card: its reduction kernel splits
-// a row of three over two lanes (x and z on one, y on the other) and adds
-// the lanes, so sqrt((x*x + z*z) + y*y). cos and sin are the CUDA math
-// library's (cosf/sinf), as torch's; never the fast intrinsics.
+// A pinhole camera (lens_radius <= 0) never reads the lens jitter, so its
+// two words are not drawn. The norm is torch.linalg.norm's on the card:
+// its reduction kernel splits a row of three over two lanes (x and z on
+// one, y on the other) and adds the lanes, so sqrt((x*x + z*z) + y*y).
+// cos and sin are the CUDA math library's (cosf/sinf), as torch's; never
+// the fast intrinsics.
 //
-// What bounds it: the bytes (px0 8 once a pixel, the jitter 16 and o, d 24
-// a ray, against about 45 float operations a pinhole ray and 100 a lens
-// ray). One thread a ray; the grid's y axis walks the strata, so no thread
-// divides to find its stratum; the strata's cells arrive by value in the
-// launch's parameters (no copy to the card) and the camera from a small
-// table on the card (ops/cuda/camera_kernel.camera_table).
+// What bounds it: the bytes, barely. A ray writes 24 bytes (o and d) and
+// reads its pixel's 8 (from HBM once a launch: later strata find them in
+// L2); its jitter costs 2 hashes (pinhole) or 4 (lens) of 75 integer
+// operations, and the ray about 45 float operations (90 with the lens).
+// The design: one thread a ray, its hashes independent (instruction-level
+// parallelism, as R1's 4 words a thread); no jitter in device memory and
+// no key table: a stratum's cell and key words arrive in the launch's
+// parameters (__grid_constant__: indexed there by the stratum, never
+// copied to local memory); the camera from a small table on the card
+// (ops/cuda/camera_kernel.camera_table); the grid's y axis walks the
+// strata, so no thread divides to find its stratum; three scalar stores
+// a ray and array (a warp's cover 384 contiguous bytes, which L2 merges):
+// staging a block's rays in shared memory for 16-byte vector stores took
+// 1.2-1.4x as long on an H100 (more registers, a barrier;
+// tools/experiments/r2_stores.py).
 #include <cuda_runtime.h>
+
+#include "threefry.cuh"
 
 constexpr int PLU_MAX_STRATA = 16;  // renderer.MAX_STRATA: the most strata a launch
 
-// a launch's strata cells, passed by value (ops/cuda/camera_kernel.Strata);
+// a launch's strata, passed by value (ops/cuda/camera_kernel.Strata): each
+// stratum's cell and its jitter keys' words (k_px's two, then k_lens's);
 // outside the unnamed namespace, so the C entry point keeps its linkage
 struct PluStrata {
   int cell[PLU_MAX_STRATA];
+  uint32_t key[PLU_MAX_STRATA][4];
 };
 
 namespace {
@@ -82,23 +101,18 @@ __device__ __forceinline__ float2 concentric_disk(float ux, float uy) {
   return make_float2(cosf(phi) * r, sinf(phi) * r);
 }
 
-// cam: the camera table; px0: (B, 2); jit: (2, S, B, 2); o, d: (S * B, 3)
-__global__ void __launch_bounds__(BLOCK) camera_rays(const float* __restrict__ cam,
-                                                     const float2* __restrict__ px0,
-                                                     const float2* __restrict__ jit,
-                                                     const PluStrata strata, int B, int n,
-                                                     float* __restrict__ o,
-                                                     float* __restrict__ d) {
-  const int p = blockIdx.x * BLOCK + threadIdx.x;
-  if (p >= B) return;
-  const int j = blockIdx.y;
-  const long long ray = (long long)j * B + p;
-  const int c = strata.cell[j];
-  const float cx = (float)(c % n), cy = (float)(c / n), nf = (float)n;
-  const float2 q = px0[p];
-  const float2 jp = jit[ray];
-  const float2 jl = jit[(long long)gridDim.y * B + ray];
+// words 2p and 2p+1 of the stream of key (k0, k1): uniform(key, (B, 2))[p]
+__device__ __forceinline__ float2 jitter(uint32_t k0, uint32_t k1, uint32_t p) {
+  const uint32_t k2 = k0 ^ k1 ^ PLU_THREEFRY_PARITY;
+  return make_float2(plu_uniform_word(k0, k1, k2, 2u * p),
+                     plu_uniform_word(k0, k1, k2, 2u * p + 1u));
+}
 
+// The camera ray (o, d) of the sample at pixel q of cell (cx, cy) of an n
+// grid (nf = float(n)), jittered by jp (pixel) and jl (lens).
+__device__ __forceinline__ void camera_ray(const float* __restrict__ cam, float2 q, float cx,
+                                           float cy, float nf, float2 jp, float2 jl, float* ro,
+                                           float* rd) {
   // renderer._sample_positions
   const float sx = q.x + (cx + jp.x * JITTER_SCALE) / nf;
   const float sy = q.y + (cy + jp.y * JITTER_SCALE) / nf;
@@ -134,29 +148,57 @@ __global__ void __launch_bounds__(BLOCK) camera_rays(const float* __restrict__ c
     dy = dy / len;
     dz = dz / len;
   }
-  float* op = o + ray * 3;
-  float* dp = d + ray * 3;
-  op[0] = ox;
-  op[1] = oy;
-  op[2] = oz;
-  dp[0] = dx;
-  dp[1] = dy;
-  dp[2] = dz;
+  ro[0] = ox;
+  ro[1] = oy;
+  ro[2] = oz;
+  rd[0] = dx;
+  rd[1] = dy;
+  rd[2] = dz;
+}
+
+// cam: the camera table; px0: (B, 2); o, d: (S * B, 3)
+__global__ void __launch_bounds__(BLOCK) camera_rays(const float* __restrict__ cam,
+                                                     const float2* __restrict__ px0,
+                                                     const __grid_constant__ PluStrata strata,
+                                                     int B, int n,
+                                                     float* __restrict__ o,
+                                                     float* __restrict__ d) {
+  const int p = blockIdx.x * BLOCK + threadIdx.x;
+  if (p >= B) return;
+  const int j = blockIdx.y;
+  const int c = strata.cell[j];
+  const uint32_t* key = strata.key[j];
+  // the hashes first, independent of each other; a pinhole camera never
+  // reads the lens jitter
+  float2 jp, jl = make_float2(0.0f, 0.0f);
+  if (cam[LENS] > 0.0f) {
+    jp = jitter(key[0], key[1], (uint32_t)p);
+    jl = jitter(key[2], key[3], (uint32_t)p);
+  } else {
+    jp = jitter(key[0], key[1], (uint32_t)p);
+  }
+  float ro[3], rd[3];
+  camera_ray(cam, px0[p], (float)(c % n), (float)(c / n), (float)n, jp, jl, ro, rd);
+  const long long ray = (long long)j * B + p;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[ray * 3 + k] = ro[k];
+    d[ray * 3 + k] = rd[k];
+  }
 }
 
 }  // namespace
 
-// cam: the camera table on the card; px0: B pixel positions (x, y); jit:
-// the launch's jitter (2, S, B, 2); strata: S cells by value, 1 <= S <=
-// PLU_MAX_STRATA; o, d: S * B rays each. Every pointer 8-byte aligned.
+// cam: the camera table on the card; px0: B pixel positions (x, y);
+// strata: S cells and jitter keys by value, 1 <= S <= PLU_MAX_STRATA;
+// o, d: S * B rays each. cam and px0 8-byte aligned, o and d 4-byte.
 // Returns a cudaError_t.
-extern "C" int plu_camera_rays(const void* cam, const void* px0, const void* jit, PluStrata strata,
-                               int S, int B, int n, void* o, void* d, void* stream) {
+extern "C" int plu_camera_rays(const void* cam, const void* px0, PluStrata strata, int S, int B,
+                               int n, void* o, void* d, void* stream) {
   if (B <= 0) return 0;
   if (S < 1 || S > PLU_MAX_STRATA || n < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((B + BLOCK - 1) / BLOCK), (unsigned)S);
-  camera_rays<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float*)cam, (const float2*)px0, (const float2*)jit, strata, B, n, (float*)o,
-      (float*)d);
+  camera_rays<<<grid, BLOCK, 0, (cudaStream_t)stream>>>((const float*)cam, (const float2*)px0,
+                                                        strata, B, n, (float*)o, (float*)d);
   return (int)cudaGetLastError();
 }

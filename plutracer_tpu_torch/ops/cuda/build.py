@@ -67,8 +67,8 @@ _SIGNATURES = {
                                  _i, _i, _i, _i, _i, _i, _i, _vp],
     # keys (K x 2 uint32 words), K, n words a key, out (K x n float32), stream
     "plu_threefry_uniform": [_vp, _i, ctypes.c_longlong, _vp, _vp],
-    # camera table, px0, jit, the strata's cells (by value), S, B, n, o, d, stream
-    "plu_camera_rays": [_vp, _vp, _vp, Strata, _i, _i, _i, _vp, _vp, _vp],
+    # camera table, px0, the strata's cells and jitter keys (by value), S, B, n, o, d, stream
+    "plu_camera_rays": [_vp, _vp, Strata, _i, _i, _i, _vp, _vp, _vp],
 }
 
 

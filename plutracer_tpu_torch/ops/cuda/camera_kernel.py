@@ -1,17 +1,20 @@
-"""R2: the pass loop's camera rays on the card, a launch's strata at once.
+"""R2: the pass loop's camera stage on the card, a launch's strata at once.
 
-``camera_rays_cuda(cam, px0, jit, strata, n)`` launches csrc/camera.cu:
+``camera_rays_cuda(cam, px0, keys, strata, n)`` launches csrc/camera.cu:
 the (S*B, 3) float32 origins and directions of a launch of S =
-len(strata) strata of the B pixels px0, stratum j from cell strata[j] and
-the jitter jit[:, j] of a ``renderer.launch_draws`` block, bit-equal to
+len(strata) strata of the B pixels px0, stratum j from cell strata[j]
+and the pixel and lens jitter uniform(k_px, (B, 2)) and uniform(k_lens,
+(B, 2)) of its keys keys[j] = (k_px, k_lens) (``renderer.launch_draws``
+hands them back), drawn inside the kernel; bit-equal to
 ``renderer.camera_rays_plain`` on the card. It replaces the camera stage
-that XLA fuses into the JAX package's render_passes
+that XLA fuses into the JAX package's render_passes, jitter draw included
 (plutracer_tpu/render/renderer.py:36-43, plutracer_tpu/ops/camera.py:18-45):
 the pass loop makes one launch of it a pass-loop launch
 (render/renderer.launch_rays).
 
-The strata's cells go to the kernel by value; the camera is read from a
-table on the card (``camera_table``), built once a camera and kept on it.
+The strata's cells and key words go to the kernel by value (no table, no
+copy to the card); the camera is read from a table on the card
+(``camera_table``), built once a camera and kept on it.
 ``camera_rays_cuda.launches`` counts kernel launches.
 """
 
@@ -26,9 +29,27 @@ _FIELDS = ("pos", "look", "right", "up", "inv_image_size", "w", "lens_radius", "
 
 
 class Strata(ctypes.Structure):
-    """The strata's cells of a launch, passed by value (csrc/camera.cu)."""
+    """A launch's strata, passed by value (csrc/camera.cu PluStrata): each
+    stratum's cell and its jitter keys' four words, k_px's then k_lens's."""
 
-    _fields_ = [("cell", ctypes.c_int * MAX_STRATA)]
+    _fields_ = [("cell", ctypes.c_int * MAX_STRATA), ("key", ctypes.c_uint32 * (4 * MAX_STRATA))]
+
+
+def jitter_words(keys, S: int):
+    """The 4 * S uint32 words of S (k_px, k_lens) pairs of (k1, k2) ints,
+    in launch order; raises on anything else."""
+    if len(keys) != S:
+        raise ValueError(f"camera_rays_cuda: {len(keys)} jitter key pairs for {S} strata")
+    words = []
+    for pair in keys:
+        if len(pair) != 2 or any(len(k) != 2 for k in pair):
+            raise ValueError(f"camera_rays_cuda: a stratum's jitter keys are (k_px, k_lens) "
+                             f"pairs of two words, got {pair}")
+        words += [w for k in pair for w in k]
+    if not all(isinstance(w, int) and 0 <= w <= 0xFFFFFFFF for w in words):
+        raise ValueError(f"camera_rays_cuda: jitter key words must be ints in [0, 2**32), got "
+                         f"{words}")
+    return words
 
 
 def camera_table(cam) -> torch.Tensor:
@@ -57,7 +78,7 @@ def _check(what: str, t: torch.Tensor, shape, dev) -> None:
         raise ValueError(f"camera_rays_cuda: {what} must be 8-byte aligned")
 
 
-def camera_rays_cuda(cam, px0: torch.Tensor, jit: torch.Tensor, strata, n: int):
+def camera_rays_cuda(cam, px0: torch.Tensor, keys, strata, n: int):
     """Launch R2 on px0's CUDA device and its current stream (no
     synchronisation): (o, d), (S*B, 3) float32 each, views of one buffer.
     One launch for 1 <= S <= MAX_STRATA; raises on anything else, a CPU
@@ -75,9 +96,9 @@ def camera_rays_cuda(cam, px0: torch.Tensor, jit: torch.Tensor, strata, n: int):
         raise ValueError(f"camera_rays_cuda: cells {strata} of an n = {n} grid")
     if S * B >= 2**31:
         raise ValueError(f"camera_rays_cuda: {S} x {B} rays, at most 2**31 - 1")
+    words = jitter_words(keys, S)
     table = camera_table(cam)
     _check("px0", px0, (B, 2), dev)
-    _check("jit", jit, (2, S, B, 2), dev)
     _check("the camera table", table, (17,), dev)
     out = torch.empty((2, S * B, 3), dtype=torch.float32, device=dev)
     o, d = out[0], out[1]
@@ -85,9 +106,10 @@ def camera_rays_cuda(cam, px0: torch.Tensor, jit: torch.Tensor, strata, n: int):
         return o, d
     lib = build.load().lib
     with build.on_device(dev) as stream:
-        rc = lib.plu_camera_rays(table.data_ptr(), px0.data_ptr(), jit.data_ptr(),
-                                 Strata((ctypes.c_int * MAX_STRATA)(*strata)), S, B, n,
-                                 o.data_ptr(), d.data_ptr(), stream)
+        rc = lib.plu_camera_rays(table.data_ptr(), px0.data_ptr(),
+                                 Strata((ctypes.c_int * MAX_STRATA)(*strata),
+                                        (ctypes.c_uint32 * (4 * MAX_STRATA))(*words)),
+                                 S, B, n, o.data_ptr(), d.data_ptr(), stream)
     build.check(rc, "plu_camera_rays")
     camera_rays_cuda.launches += 1
     return o, d

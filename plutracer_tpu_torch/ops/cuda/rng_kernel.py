@@ -4,9 +4,10 @@
 of its (K, n) float32 output is ``uniform(keys[k], (n,))``, bit-equal to
 ``rng.uniform_block_plain`` (and to jax.random.uniform). It replaces the
 threefry that XLA fuses into the JAX package's render_passes
-(plutracer_tpu/render/integrator.py:283-284, renderer.py:39-40): the pass
-loop draws all the path uniforms of a launch in one call and its pixel
-and lens jitter in another (render/renderer.launch_draws).
+(plutracer_tpu/render/integrator.py:283-284): the pass loop draws all the
+path uniforms of a launch in one call (render/renderer.launch_draws). The
+pixel and lens jitter (renderer.py:39-40) are drawn by R2 from the same
+hash (csrc/threefry.cuh), inside the camera-ray kernel.
 
 The keys arrive as a (K, 2) int64 CPU table of uint32 words, derived on
 the host (rng.fold_in_words, rng.split_words) and copied to the card once

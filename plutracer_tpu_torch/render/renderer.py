@@ -16,8 +16,10 @@ stratum's rays and uniforms are drawn exactly as they are alone, the
 kernels compute every ray independently of its place in the batch, and
 the strata are accumulated in order, so the image is bit-identical to one
 stratum a launch. The plain path keeps one stratum a call. A launch's
-camera rays are one launch_rays call: on the card one launch of R2
-(csrc/camera.cu), bit-equal to its plain version camera_rays_plain.
+path uniforms are one launch_draws call (one R1 launch on the card), its
+camera rays, pixel and lens jitter included, one launch_rays call: on the
+card one launch of R2 (csrc/camera.cu), bit-equal to its plain version
+camera_rays_plain.
 
 ``render`` runs the strata in chunks of PASS_CHUNK (each through
 render_passes), and takes ``accum``/``start_pass`` to resume a partial
@@ -64,19 +66,26 @@ def pixel_centers(width: int, height: int, device="cpu") -> torch.Tensor:
 
 def launch_draws(keys, B: int, max_bounces: int, device):
     """The random numbers of a launch of S = len(keys) strata of B rays,
-    stratum j keyed keys[j] ((k1, k2) ints): with (k_px, k_lens, k_path) =
-    split(keys[j], 3) (renderer.py:36-41 of the JAX package), its pixel
-    and lens jitter uniform(k_px, (B, 2)) and uniform(k_lens, (B, 2)), and
-    bounce i's path uniforms uniform(fold_in(k_path, i), (B, 12))
-    (integrator.py:283-284). Returns (jit (2, S, B, 2): pixel then lens,
-    u (max_bounces, S*B, 12): stratum j's rays at rows j*B..(j+1)*B), two
-    rng.uniform_block calls: two R1 launches on the card, whatever S."""
-    S = len(keys)
+    stratum j keyed keys[j] ((k1, k2) ints), with (k_px, k_lens, k_path) =
+    split(keys[j], 3) (renderer.py:36-41 of the JAX package): bounce i's
+    path uniforms uniform(fold_in(k_path, i), (B, 12)) (integrator.py:
+    283-284), drawn here, and the jitter keys (k_px, k_lens) of each
+    stratum, handed back as ints for launch_rays to draw the pixel and lens
+    jitter from. Returns (jitter keys [(k_px, k_lens)] * S, u (max_bounces,
+    S*B, 12): stratum j's rays at rows j*B..(j+1)*B), one rng.uniform_block
+    call: one R1 launch on the card, whatever S."""
     trip = [rng.split_words(k, 3) for k in keys]
-    jit = rng.uniform_block([t[0] for t in trip] + [t[1] for t in trip], 2 * B, device)
     u = rng.uniform_block([rng.fold_in_words(t[2], i) for i in range(max_bounces) for t in trip],
                           12 * B, device)
-    return jit.reshape(2, S, B, 2), u.reshape(max_bounces, S * B, 12)
+    return [(t[0], t[1]) for t in trip], u.reshape(max_bounces, len(keys) * B, 12)
+
+
+def jitter_plain(keys, B: int, device):
+    """(2, S, B, 2) float32 on `device`: [0, j] = uniform(k_px_j, (B, 2))
+    and [1, j] = uniform(k_lens_j, (B, 2)) of the jitter keys keys[j] =
+    (k_px_j, k_lens_j), drawn by rng.uniform_block_plain."""
+    block = rng.uniform_block_plain([k[0] for k in keys] + [k[1] for k in keys], 2 * B, device)
+    return block.reshape(2, len(keys), B, 2)
 
 
 def _sample_positions(px0, jit_px, jit_lens, stratum: int, n: int):
@@ -88,17 +97,16 @@ def _sample_positions(px0, jit_px, jit_lens, stratum: int, n: int):
 
 
 def _camera_rays(scene, px0, jit, j: int, stratum: int, n: int):
-    """o, d of stratum j of a launch_draws jitter block, from cell `stratum`."""
+    """o, d of stratum j of a jitter_plain block, from cell `stratum`."""
     return generate_rays(scene.camera, *_sample_positions(px0, jit[0, j], jit[1, j], stratum, n))
 
 
-def camera_rays_plain(cam, px0, jit, strata, n: int):
+def jittered_rays(cam, px0, jit, strata, n: int):
     """(o, d), (S*B, 3) each: the primary rays of a launch of S =
     len(strata) strata of the B pixels px0, stratum j from cell strata[j]
-    and the jitter jit[:, j] of a launch_draws block, at rows j*B..(j+1)*B.
-    The plain version of R2 (csrc/camera.cu), the strata computed together:
-    each ray's operations are _camera_rays', so the rays equal torch.cat of
-    _camera_rays over the launch."""
+    and the jitter jit[:, j] of a jitter_plain block, at rows j*B..(j+1)*B;
+    the strata computed together. Each ray's operations are _camera_rays',
+    so the rays equal torch.cat of _camera_rays over the launch."""
     S, B = len(strata), px0.shape[0]
     cell = torch.tensor([[s % n, s // n] for s in strata], dtype=torch.float32,
                         device=px0.device)[:, None]
@@ -107,7 +115,16 @@ def camera_rays_plain(cam, px0, jit, strata, n: int):
     return generate_rays(cam, px.reshape(S * B, 2), lens.reshape(S * B, 2))
 
 
-def launch_rays(scene, px0, jit, strata, n: int):
+def camera_rays_plain(cam, px0, keys, strata, n: int):
+    """(o, d), (S*B, 3) each: the primary rays of a launch of S =
+    len(strata) strata of the B pixels px0, stratum j from cell strata[j]
+    and the jitter keys keys[j] = (k_px, k_lens) of launch_draws, at rows
+    j*B..(j+1)*B. The plain version of R2 (csrc/camera.cu): jitter_plain,
+    then jittered_rays."""
+    return jittered_rays(cam, px0, jitter_plain(keys, px0.shape[0], px0.device), strata, n)
+
+
+def launch_rays(scene, px0, keys, strata, n: int):
     """The primary rays (o, d) of a launch (camera_rays_plain's contract):
     one launch of R2 on a CUDA device (it raises where it cannot launch),
     camera_rays_plain on the CPU; any other device raises."""
@@ -115,17 +132,17 @@ def launch_rays(scene, px0, jit, strata, n: int):
     if dev.type == "cuda":
         from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
 
-        return camera_rays_cuda(scene.camera, px0, jit, strata, n)
+        return camera_rays_cuda(scene.camera, px0, keys, strata, n)
     if dev.type != "cpu":
         raise ValueError(f"launch_rays: no camera rays for device {dev}")
-    return camera_rays_plain(scene.camera, px0, jit, strata, n)
+    return camera_rays_plain(scene.camera, px0, keys, strata, n)
 
 
 def _stratum_rays(scene, px0, key, stratum: int, n: int, options: RenderOptions):
     """The primary rays o, d and the path uniforms u of one stratified
     sample per pixel from the given stratum cell."""
-    jit, u = launch_draws([rng.key_words(key)], px0.shape[0], options.max_bounces, px0.device)
-    return (*launch_rays(scene, px0, jit, [stratum], n), u)
+    keys, u = launch_draws([rng.key_words(key)], px0.shape[0], options.max_bounces, px0.device)
+    return (*launch_rays(scene, px0, keys, [stratum], n), u)
 
 
 def _trace_stratum(scene, px0, key, stratum: int, n: int, options: RenderOptions):
@@ -158,7 +175,7 @@ def stratum_launches(scene, key, pairs, px0, n: int, options: RenderOptions = DE
     order: pair (j, s) is one sample per pixel of px0 from stratum cell s,
     keyed fold_in(key, j) (a render's pass s is the pair (s, s));
     strata_per_launch strata a launch, yielded launch by launch as lists.
-    A launch's random numbers are one launch_draws call, its camera rays
+    A launch's path uniforms are one launch_draws call, its camera rays
     one launch_rays call."""
     B = px0.shape[0]
     pairs = list(pairs)
@@ -166,9 +183,9 @@ def stratum_launches(scene, key, pairs, px0, n: int, options: RenderOptions = DE
     words = rng.key_words(key)
     for i in range(0, len(pairs), per):
         group = pairs[i:i + per]
-        jit, u = launch_draws([rng.fold_in_words(words, j) for j, _ in group], B,
-                              options.max_bounces, px0.device)
-        o, d = launch_rays(scene, px0, jit, [s for _, s in group], n)
+        keys, u = launch_draws([rng.fold_in_words(words, j) for j, _ in group], B,
+                               options.max_bounces, px0.device)
+        o, d = launch_rays(scene, px0, keys, [s for _, s in group], n)
         L = radiance_of_uniforms(scene, o, d, u, options)
         yield [L[j * B:(j + 1) * B] for j in range(len(group))]
 

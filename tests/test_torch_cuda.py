@@ -835,18 +835,19 @@ def plain_drawn(monkeypatch):
 
 @pytest.mark.parametrize("name", ["demo-box", "mesh1"])
 def test_r1_cli_render_equals_plain_draws(dev, name, tmp_path, monkeypatch):
-    """A CLI render through the kernels, its draws by R1 (two launches a
-    pass-loop launch, counted), is bit-identical to the same render with
-    plain-drawn uniforms."""
+    """A CLI render through the kernels, its path uniforms by R1 (one
+    launch a pass-loop launch, as many as R2's, counted), is bit-identical
+    to the same render with plain-drawn uniforms."""
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
     from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
 
     args = [str(REPO / "scenes" / f"{name}.urn"), "/smp", "2", "/seed", "7",
             "/o", str(tmp_path / "x.bmp")]
-    uniform_block_cuda.launches = 0
+    uniform_block_cuda.launches = camera_rays_cuda.launches = 0
     got = cli.run(args)
     torch.cuda.synchronize()
     made = uniform_block_cuda.launches
-    assert got.integrator == "kernel" and made > 0 and made % 2 == 0
+    assert got.integrator == "kernel" and made > 0 and made == camera_rays_cuda.launches
     with monkeypatch.context() as m:
         plain_drawn(m)
         want = cli.run(args)
@@ -869,7 +870,7 @@ def test_r1_train_step_equals_plain_draws(dev, monkeypatch):
                                        trainable=("mat_color", "light_intensity"))
         uniform_block_cuda.launches = 0
         got = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
-        assert uniform_block_cuda.launches == (4 if loss_space == "ab" else 2)
+        assert uniform_block_cuda.launches == (2 if loss_space == "ab" else 1)
         with monkeypatch.context() as m:
             plain_drawn(m)
             want = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
@@ -878,13 +879,14 @@ def test_r1_train_step_equals_plain_draws(dev, monkeypatch):
         assert all(torch.equal(got[1][f], want[1][f]) for f in got[1])
 
 
-# R2, the camera-ray kernel: bit-equal to its plain version, and every
-# camera ray of the pass loop and the train step through it
+# R2, the camera-stage kernel (jitter drawn inside): bit-equal to its plain
+# version, and every camera ray of the pass loop and the train step through it
 
 
 def r2_launch(name, w, h, S, B, dev, seed=7):
-    """A scene at w x h, the first B of its pixels and the jitter block of
-    a launch of S strata of them (keys fold_in(PRNGKey(seed), j))."""
+    """A scene at w x h, the first B of its pixels and the jitter keys
+    (k_px, k_lens) of a launch of S strata of them, as launch_draws hands
+    them back (stratum keys fold_in(PRNGKey(seed), j))."""
     from plutracer_tpu_torch.render.renderer import launch_draws
 
     s = compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"), ["/res", f"{w}x{h}"]),
@@ -892,6 +894,16 @@ def r2_launch(name, w, h, S, B, dev, seed=7):
     px0 = pixel_centers(w, h, dev)[:B].contiguous()
     words = [rng.fold_in_words(rng.key_words(rng.PRNGKey(seed)), j) for j in range(S)]
     return s, px0, launch_draws(words, B, 0, dev)[0]
+
+
+def r1_drawn_rays(s, px0, keys, strata, n):
+    """The oracle: the jitter drawn by R1 (one block of the launch's k_px
+    then k_lens keys), then the plain version's jitter-taking stage."""
+    from plutracer_tpu_torch.render.renderer import jittered_rays
+
+    B = px0.shape[0]
+    jit = rng.uniform_block([k[0] for k in keys] + [k[1] for k in keys], 2 * B, px0.device)
+    return jittered_rays(s.camera, px0, jit.reshape(2, len(keys), B, 2), strata, n)
 
 
 def int_bits(x):
@@ -903,9 +915,11 @@ def int_bits(x):
                                      (4, "shuffled"), (16, "shuffled")])
 @pytest.mark.parametrize("B", [64 * 48, 1, 127, 64 * 48 - 77])
 def test_r2_bit_equal_to_plain(dev, name, S, order, B):
-    """R2's o and d equal camera_rays_plain's on the card on every lane,
-    bit for bit (pinhole and thin lens, cells in any order, ragged B);
-    one launch a call."""
+    """R2's o and d (keys to rays, the jitter drawn inside) equal, on the
+    card and on every lane, bit for bit, the R1-drawn jitter through the
+    plain version's jitter-taking stage and camera_rays_plain itself
+    (pinhole and thin lens, cells in any order, ragged B); one launch a
+    call."""
     import random
 
     from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
@@ -913,13 +927,14 @@ def test_r2_bit_equal_to_plain(dev, name, S, order, B):
 
     n = 4 if S < 16 else 5
     strata = list(range(S)) if order == "in order" else random.Random(S).sample(range(n * n), S)
-    s, px0, jit = r2_launch(name, 64, 48, S, B, dev)
+    s, px0, keys = r2_launch(name, 64, 48, S, B, dev)
     before = camera_rays_cuda.launches
-    o, d = launch_rays(s, px0, jit, strata, n)
+    o, d = launch_rays(s, px0, keys, strata, n)
     assert camera_rays_cuda.launches == before + 1
-    po, pd = camera_rays_plain(s.camera, px0, jit, strata, n)
-    assert o.shape == d.shape == po.shape == (S * B, 3)
-    assert torch.equal(int_bits(o), int_bits(po)) and torch.equal(int_bits(d), int_bits(pd))
+    for po, pd in (r1_drawn_rays(s, px0, keys, strata, n),
+                   camera_rays_plain(s.camera, px0, keys, strata, n)):
+        assert o.shape == d.shape == po.shape == (S * B, 3)
+        assert torch.equal(int_bits(o), int_bits(po)) and torch.equal(int_bits(d), int_bits(pd))
 
 
 def test_r2_equals_cpu_plain(dev):
@@ -932,9 +947,9 @@ def test_r2_equals_cpu_plain(dev):
     from plutracer_tpu_torch.render.renderer import camera_rays_plain, launch_rays
 
     for name in ("demo-box", "dof"):
-        s, px0, jit = r2_launch(name, 64, 48, 3, 64 * 48, dev)
-        o, d = launch_rays(s, px0, jit, [4, 0, 8], 3)
-        po, pd = camera_rays_plain(s.to("cpu").camera, px0.cpu(), jit.cpu(), [4, 0, 8], 3)
+        s, px0, keys = r2_launch(name, 64, 48, 3, 64 * 48, dev)
+        o, d = launch_rays(s, px0, keys, [4, 0, 8], 3)
+        po, pd = camera_rays_plain(s.to("cpu").camera, px0.cpu(), keys, [4, 0, 8], 3)
         if name == "demo-box":
             assert torch.equal(o.cpu(), po)
         np.testing.assert_allclose(o.cpu().numpy(), po.numpy(), rtol=1e-5, atol=1e-5)
@@ -946,8 +961,8 @@ def plain_camera(monkeypatch):
     device."""
     from plutracer_tpu_torch.render import renderer
 
-    monkeypatch.setattr(renderer, "launch_rays", lambda scene, px0, jit, strata, n: (
-        renderer.camera_rays_plain(scene.camera, px0, jit, strata, n)))
+    monkeypatch.setattr(renderer, "launch_rays", lambda scene, px0, keys, strata, n: (
+        renderer.camera_rays_plain(scene.camera, px0, keys, strata, n)))
 
 
 def no_eager_camera(monkeypatch):
@@ -964,7 +979,7 @@ def no_eager_camera(monkeypatch):
                                         ("mesh1", (64, 64), 2)])
 def test_r2_render_equals_plain_camera(dev, name, res, n, tmp_path, monkeypatch):
     """A CLI render through the kernels makes one R2 launch a pass-loop
-    launch (half its R1 launches) and no eager camera op, and is
+    launch (as many as its R1 launches) and no eager camera op, and is
     bit-identical to the same render with the plain camera rays."""
     from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
     from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
@@ -976,7 +991,7 @@ def test_r2_render_equals_plain_camera(dev, name, res, n, tmp_path, monkeypatch)
         no_eager_camera(m)
         got = cli.run(args)
     made = camera_rays_cuda.launches
-    assert got.integrator == "kernel" and made > 0 and 2 * made == uniform_block_cuda.launches
+    assert got.integrator == "kernel" and made > 0 and made == uniform_block_cuda.launches
     with monkeypatch.context() as m:
         plain_camera(m)
         want = cli.run(args)
@@ -1017,6 +1032,45 @@ def test_r2_train_step_and_sharded_equal_plain_camera(dev, monkeypatch):
     with monkeypatch.context() as m:
         plain_camera(m)
         assert torch.equal(img, render_sharded(s, 64, 64, 2, rng.PRNGKey(5), mesh))
+
+
+def test_one_r1_and_one_r2_launch_a_pass_loop_launch(dev, tmp_path, monkeypatch):
+    """Each pass-loop launch on the card makes one R1 launch (the path
+    uniforms) and one R2 launch (the camera stage, jitter drawn inside):
+    as many R1 as R2 launches, one of each a path-kernel launch, in a CLI
+    render and in a train step's traced strata, and no jitter block drawn
+    (every R1 block is max_bounces keys a stratum of 12 words a ray)."""
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+    from plutracer_tpu_torch.parallel import sharded
+
+    real, blocks = rng.uniform_block, []
+
+    def recorded(keys, n, device="cpu"):
+        blocks.append((rng.key_table(keys).shape[0], n))
+        return real(keys, n, device)
+
+    monkeypatch.setattr(rng, "uniform_block", recorded)
+    mb = DEFAULT_OPTIONS.max_bounces
+    # 25 strata: chunks of 16 and 9, one launch each
+    uniform_block_cuda.launches = camera_rays_cuda.launches = ray_color_cuda.launches = 0
+    res = cli.run([str(REPO / "scenes" / "demo-box.urn"), "/res", "64x64", "/smp", "5",
+                   "/seed", "7", "/o", str(tmp_path / "x.bmp")])
+    torch.cuda.synchronize()
+    made = uniform_block_cuda.launches
+    assert res.integrator == "kernel"
+    assert made == camera_rays_cuda.launches == ray_color_cuda.launches == len(blocks) == 2
+    assert blocks == [(mb * 16, 12 * 64 * 64), (mb * 9, 12 * 64 * 64)], blocks
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x64"]),
+                      device=dev)
+    target = render(s, 64, 64, 2, rng.PRNGKey(11)).reshape(-1, 3)
+    step = sharded.make_train_step(s, 64, 64, 2, loss_space="ab", trainable=("mat_color",))
+    uniform_block_cuda.launches = camera_rays_cuda.launches = 0
+    blocks.clear()
+    step.loss_and_grads(sharded.get_params(s), target, rng.PRNGKey(3), 1)
+    torch.cuda.synchronize()
+    assert uniform_block_cuda.launches == camera_rays_cuda.launches == len(blocks) == 2
+    assert blocks == [(mb, 12 * 64 * 64)] * 2, blocks
 
 
 # every launch on its tensors' card (ops/cuda/build.on_device)
@@ -1079,8 +1133,9 @@ def _launch_cases(dev):
         "K5": lambda: ray_color_stream_cuda(mesh1, mo, md, u, DEFAULT_OPTIONS, debug=True),
         "R1": lambda: uniform_block_cuda(rng.key_table([rng.PRNGKey(1), rng.PRNGKey(2)]),
                                          100003, dev),
-        "R2": lambda: launch_rays(demo, pixel_centers(32, 32, dev), u[:2].reshape(2, -1)[
-            :, :4 * 1024 * 2].reshape(2, 4, 1024, 2).contiguous(), [3, 0, 1, 2], 2),
+        "R2": lambda: launch_rays(demo, pixel_centers(32, 32, dev),
+                                  [tuple(rng.split_words((5, j), 3)[:2]) for j in range(4)],
+                                  [3, 0, 1, 2], 2),
     }
 
 

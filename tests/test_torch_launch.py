@@ -173,8 +173,9 @@ def r1(_name):
 
 def r2(name):
     s, _, _, _ = _scene(name)
-    jit = torch.zeros((2, 3, 64, 2)).to(CARD)
-    return camera_kernel.camera_rays_cuda(s.camera, pixel_centers(8, 8).to(CARD), jit, [2, 0, 1], 2)
+    keys = [tuple(rng.split_words((0, j), 3)[:2]) for j in range(3)]
+    return camera_kernel.camera_rays_cuda(s.camera, pixel_centers(8, 8).to(CARD), keys, [2, 0, 1],
+                                          2)
 
 
 # (wrapper, scene, the C calls it makes in order)

@@ -173,7 +173,7 @@ def test_launch_block_equals_per_stratum_draws_and_jax(B):
 
     mb = 8
     words, jkeys = launch_keys()
-    jit, u = launch_draws(words, B, mb, "cpu")
+    _, u = launch_draws(words, B, mb, "cpu")
     assert u.dtype == torch.float32 and tuple(u.shape) == (mb, 3 * B, 12) and u.is_contiguous()
     per = [draw_uniforms(rng.split(torch.tensor(w), 3)[2], B, mb, "cpu") for w in words]
     assert torch.equal(u, torch.cat(per, 1))
@@ -185,12 +185,14 @@ def test_launch_block_equals_per_stratum_draws_and_jax(B):
 
 
 def test_launch_jitter_equals_sample_position_draws():
-    """The jitter block of a launch: row (0, j) is uniform(k_px_j, (B, 2))
-    and row (1, j) uniform(k_lens_j, (B, 2)), as JAX draws them, and
-    _sample_positions turns them into (cell + u*0.999)/n exactly as the
+    """The jitter of a launch, drawn from the keys launch_draws hands back
+    (the plain version's jitter_plain block): row (0, j) is uniform(k_px_j,
+    (B, 2)) and row (1, j) uniform(k_lens_j, (B, 2)), as JAX draws them,
+    and _sample_positions turns them into (cell + u*0.999)/n exactly as the
     per-stratum draw did."""
     from plutracer_tpu_torch.render.renderer import (
         _sample_positions,
+        jitter_plain,
         launch_draws,
         over,
         pixel_centers,
@@ -198,7 +200,9 @@ def test_launch_jitter_equals_sample_position_draws():
 
     B, n = 48, 3
     words, jkeys = launch_keys()
-    jit, _ = launch_draws(words, B, 0, "cpu")
+    keys, _ = launch_draws(words, B, 0, "cpu")
+    assert keys == [tuple(rng.split_words(w, 3)[:2]) for w in words]
+    jit = jitter_plain(keys, B, "cpu")
     assert tuple(jit.shape) == (2, 3, B, 2)
     px0 = pixel_centers(8, 6)
     for j, (w, jk) in enumerate(zip(words, jkeys)):
