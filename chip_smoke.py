@@ -14,10 +14,11 @@ both main paths of the port on the card:
      across blocks for few rays, and on ragged batches; one launch a call; its
      kernel-only time (torch.profiler) and its wrapper's at every shape a
      path gives it (demo-box here, mesh1 and mesh2 in phase 7). K2 (path
-     megakernel) bit-equal to the plain ray_color on every lane;
+     megakernel) bit-equal to ray_color_plain on every lane;
 5.   the small-scene path: demo-box through the CLI at its own 512x512
      and 64 samples per pixel, through K1 and K2, bit-identical to the
-     same render one stratum a launch;
+     same render one stratum a launch; a CLI render with /profile DIR,
+     whose trace in DIR holds K1, K2, R1 and R2 records;
 6.   the demo-box, dof and textured0 goldens on the card;
 7.   the K3 query (BVH closest hit) and K1 each against K1's plain
      version, and the query against K1: mesh1 camera and extension rays
@@ -25,7 +26,7 @@ both main paths of the port on the card:
      4,096 random spheres with 262,144 random rays; the mean node records
      and leaves a walk of the walk layout visits (its plain version) on
      mesh1 and mesh2;
-8.   K3 (stream kernel) against the plain ray_color fed the same uniforms,
+8.   K3 (stream kernel) against ray_color_plain fed the same uniforms,
      bit-equal on every lane: mesh1 at the main path's 4 strata of 256x256
      a launch, mesh2 at 256x256, sphere-grid at its own 640x480;
 9.   K4 (one-bounce kernel under the wavefront loop) bit-equal to K3 for
@@ -43,7 +44,7 @@ both main paths of the port on the card:
      (each at its golden's size: 64x48, mesh2 24x18);
 12.  K5, the telemetry of K2 and K3: the debug launches on a demo-box
      512x512 pass and a mesh1 256x256 pass against the plain
-     ray_color(debug=True), radiance with debug on against off, times with
+     ray_color_plain(debug=True), radiance with debug on against off, times with
      and without, ptxas registers of both instantiations;
 13.  gradients: the kernel path's autograd Function against plain autograd
      (demo-box 256x256 through K2, mesh1 128x128 through K3), finite, one
@@ -86,7 +87,7 @@ both main paths of the port on the card:
 18.  tools: term_dump on demo-box 64x64, n = 2, on the card (its terms
      summed against its radiance, its linear image against render's at
      the same key), render_image against postprocess_image(render);
-19.  routing: (a) the plain ray_color under intersect_backend "pallas"
+19.  routing: (a) ray_color_plain under intersect_backend "pallas"
      (K1), "bvh" (the K3 query) and "xla" (intersect_lite in ray chunks)
      on a mesh1 256x256 and a demo-box 512x512 stratum with the same
      uniforms: every query's winners equal, radiance bit-equal, each query
@@ -96,13 +97,13 @@ both main paths of the port on the card:
      launches; (c) the scenes past the JAX package's TPU caps: textured256
      (a 65,536-texel atlas) and tables (20 materials, 10 textures, 12
      lights) through the CLI at their own settings (the kernel it routes
-     to, samples/s), each kernel bit-equal to the plain ray_color on a
+     to, samples/s), each kernel bit-equal to ray_color_plain on a
      stratum beside the plain stratum's time, K5 on textured256; demo-box
      with its tables filled to K2's 48 KB of shared memory (K2) and one
      material past it (K3); a cloud of 1,100,000 spheres with an area
      light: compile seconds and one K3 launch bit-equal to plain; on both
      K3-tier scenes K4 (stream_wavefront) bit-equal to the plain
-     ray_color and K5 (K3's debug launch) to ray_color(debug=True);
+     ray_color_plain and K5 (K3's debug launch) to ray_color_plain(debug=True);
 20.  the scene-level API: (a) ops/intersect.query_closest under "pallas"
      (K1), "bvh" (the K3 query) and "xla" on one stratum's camera rays
      and one bounce's extension rays of demo-box 512x512 (262,144 rays),
@@ -114,7 +115,13 @@ both main paths of the port on the card:
      against K1 and the K3 query (winners, t on hits), its steps and
      time; (c) render/integrator.estimate_direct at demo-box's and
      tables' 512x512 primary hits, one light drawn a ray, under the three
-     engines with shading_normal_le_gate on and off: bit-equal, timed.
+     engines with shading_normal_le_gate on and off: bit-equal, timed;
+     (d) render.ray_color(scene, o, d, key), the JAX package's call, on a
+     demo-box 512x512 stratum (K1 + K2) and a mesh1 256x256 stratum (K3):
+     one kernel launch, bit-equal to ray_color_plain on
+     draw_uniforms(key)'s uniforms; (e) render.elastic.pass_stack on a
+     (1, 1) mesh of the card: its rows bit-equal to render_passes and,
+     summed in stratum order, to render_elastic's image.
 21.  R1, the threefry draw kernel: bit-equal to its plain version
      (rng.uniform_block_plain, int64 tensor ops on the card) at a
      demo-box 512x512 stratum's path uniforms (8, 262,144, 12), a 4-strata
@@ -164,7 +171,7 @@ time the card could take for the work at these inputs, the larger of the
 bytes it must move over HBM's 3.35 TB/s and the float32 operations its
 code does on these inputs over 67 TFLOP/s (NVIDIA's H100 SXM peaks; see
 ``work_bound``). The path kernels' bounds count the work this run's data
-needs: the plain ray_color replays the timed launch and yields the
+needs: ray_color_plain replays the timed launch and yields the
 vertices that run and the queries each issues (``issued_queries``), the
 walks' node records and rows are counted by the walk's plain version
 (``walk_work``), and each vertex outside its queries is counted at its
@@ -237,6 +244,10 @@ R1_BIG = ((1, 2**24 + 3), (3, 2**24 + 1))
 R2_SOURCE = "plutracer_tpu_torch/csrc/camera.cu"
 R2_REPLACES = "plutracer_tpu/render/renderer.py:36"
 R2_KERNELS = ("camera_rays",)
+# the kernel records of a demo-box CLI render's trace, by name (words, and
+# words that rule a name out): K1, K2, R1, R2
+PROFILE_KERNELS = {"K1": (K1_KERNELS, ()), "K2": (("megakernel",), ("stream", "onebounce")),
+                   "R1": (R1_KERNELS, ()), "R2": (R2_KERNELS, ())}
 # the threefry words R2 draws a ray: the pixel jitter's two, and the lens
 # jitter's two more where the camera has a lens (a pinhole never reads them)
 R2_RAY_WORDS = (2, 4)  # pinhole, lens
@@ -306,7 +317,7 @@ TERMS_RES = 64  # phase 18: term_dump and render_image, demo-box, n = 2
 # (f): dryrun_multichip(4) in its own process, on the card's positions
 DRYRUN = [sys.executable, "-m", "plutracer_tpu_torch.parallel.dryrun", "4"]
 # phase 19: (a) one stratum of each scene at its resolution through the
-# plain ray_color under each intersect_backend; (b) the mesh1 train step's
+# ray_color_plain under each intersect_backend; (b) the mesh1 train step's
 # size (log loss, n = 2); (c) the scenes past the JAX package's TPU caps
 # (CLI renders at their own settings) and the sphere cloud past 2^20
 ROUTE_QUERY = (("mesh1", 256), ("demo-box", 512))
@@ -324,6 +335,8 @@ API_QUERY = (("demo-box", 512, INTERSECT_BACKENDS), ("mesh2", 256, ("pallas", "b
 API_BVH_RES = 256  # mesh1, 65,536 camera rays
 API_DIRECT = ("demo-box", "tables")
 API_DIRECT_RES = 512
+API_RAY_COLOR = (("demo-box", 512, "K2"), ("mesh1", 256, "K3"))  # one stratum's rays
+API_PASS_STACK = (256, 4)  # demo-box, res and n
 
 
 def work_bound(nbytes: float, ops: float):
@@ -374,7 +387,7 @@ def walk_work(scene, o, d, any_hit=False):
 
 def issued_queries(scene, o, d, u, options):
     """What the kernels' default instantiation runs on a launch (csrc
-    path_common.cuh path_vertex), replayed by the plain ray_color on the
+    path_common.cuh path_vertex), replayed by ray_color_plain on the
     same uniforms: the running vertices (cur) of each bounce, and the rays
     of the queries they issue. A shadow ray where cur and gate_l's
     query-free factors hold (an any-hit walk for a point light), a
@@ -410,7 +423,7 @@ def issued_queries(scene, o, d, u, options):
     integrator.plain_bounce, integrator._nee_contributions = bounce, contributions
     try:
         with torch.no_grad():
-            integrator.ray_color(scene, o, d, u, options)
+            integrator.ray_color_plain(scene, o, d, u, options)
     finally:
         integrator.plain_bounce, integrator._nee_contributions = plain_bounce, nee
     cat = lambda rays: tuple(torch.cat(x) for x in zip(*rays))
@@ -547,7 +560,7 @@ def main() -> int:
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
     from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
     from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
-    from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color
+    from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color_plain
     from plutracer_tpu_torch.render.renderer import (
         camera_rays_plain, launch_draws, launch_rays, pixel_centers, render,
     )
@@ -622,18 +635,18 @@ def main() -> int:
     k1_plain_ms = time_ms(lambda: closest_hit_plain(scene.prims_packed, hit_p, ext_d), reps=10)
     print(f"K1 plain at B={B}, P_pad={scene.prims_packed.shape[0]}: {k1_plain_ms:.4f} ms ({card})")
 
-    # ---- 4. K2 against the plain ray_color, same uniforms ----
+    # ---- 4. K2 against ray_color_plain, same uniforms ----
     phase("4 K2")
     u = draw_uniforms(k_path, B, DEFAULT_OPTIONS.max_bounces, dev)
     out = ray_color_kernel(scene, o, d, u, DEFAULT_OPTIONS)
-    ref = ray_color(scene, o, d, u, DEFAULT_OPTIONS)
+    ref = ray_color_plain(scene, o, d, u, DEFAULT_OPTIONS)
     torch.cuda.synchronize()
-    k2_err = lanes_equal(out, ref, f"K2 vs plain ray_color, demo-box 512x512 pass")
+    k2_err = lanes_equal(out, ref, f"K2 vs ray_color_plain, demo-box 512x512 pass")
     k2_ms = time_ms(lambda: ray_color_cuda(scene, o, d, u, DEFAULT_OPTIONS), reps=20)
-    k2_plain_ms = time_ms(lambda: ray_color(scene, o, d, u, DEFAULT_OPTIONS), reps=3, warmup=1)
+    k2_plain_ms = time_ms(lambda: ray_color_plain(scene, o, d, u, DEFAULT_OPTIONS), reps=3, warmup=1)
     k1_primary_ms = time_ms(lambda: closest_hit(scene.prims_packed, o, d, rows), reps=50)
     print(f"K2 time at B={B}, 8 bounces: ray_color_cuda {k2_ms:.4f} ms (of which the K1 "
-          f"primary hit {k1_primary_ms:.4f} ms), plain ray_color {k2_plain_ms:.4f} ms ({card})")
+          f"primary hit {k1_primary_ms:.4f} ms), ray_color_plain {k2_plain_ms:.4f} ms ({card})")
 
     # ---- 5. the small-scene path: the CLI at the scene's 512x512, 64 spp ----
     phase("5 small-scene path")
@@ -681,6 +694,22 @@ def main() -> int:
     print(f"main path: demo-box 512x512 64 spp through the CLI, launches {launches}, "
           f"render {res.render_seconds:.3f} s, mean radiance {res.linear.mean().item():.4f}")
     print(f"samples/s: {samples / res.render_seconds:.1f} ({card})")
+    # /profile DIR: profile_trace(DIR) around the render, a trace inside DIR
+    # holding the path's kernels (CUDA recorded without being asked: the
+    # card is in use)
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = pathlib.Path(tmp) / "prof"
+        cli.run([str(ROOT / "scenes" / "demo-box.urn"), "/res", "128x128", "/smp", "2",
+                 "/o", str(pathlib.Path(tmp) / "p.bmp"), "/profile", str(prof)])
+        (trace,) = prof.glob("*.pt.trace.json")
+        names = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    found = {k: sum(any(w in x for w in words) and not any(w in x for w in unless)
+                    for x in names)
+             for k, (words, unless) in PROFILE_KERNELS.items()}
+    print(f"/profile: {trace.name} in the directory, {len(names)} kernel records, of the path's "
+          f"kernels {found}")
+    assert all(found.values()), found
 
     # ---- 6. goldens on the card (tests/test_golden.py bounds) ----
     phase("6 goldens K1/K2")
@@ -888,7 +917,7 @@ def big_scene_phases(phase, dev, card):
         onebounce_cuda, onebounce_plain, ray_color_stream_cuda,
     )
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
-    from plutracer_tpu_torch.render.integrator import draw_uniforms, kernel_tier, ray_color
+    from plutracer_tpu_torch.render.integrator import draw_uniforms, kernel_tier, ray_color_plain
     from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
     from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
     from plutracer_tpu_torch.render.renderer import (
@@ -934,7 +963,7 @@ def big_scene_phases(phase, dev, card):
     k1_times(mesh2, m2o, m2d, "mesh2 camera", card, reps=5)
     del mo4, md4
 
-    # ---- 8. K3 against the plain ray_color, same uniforms ----
+    # ---- 8. K3 against ray_color_plain, same uniforms ----
     phase("8 K3")
     per = strata_per_launch(mesh1, DEFAULT_OPTIONS, 256 * 256)
     assert per == 4, per
@@ -942,37 +971,37 @@ def big_scene_phases(phase, dev, card):
     bo, bd, bu = main_path_rays(mesh1, 256, 256, 4, rng.PRNGKey(7), per, DEFAULT_OPTIONS)
     B = bo.shape[0]
     k3_out = ray_color_stream_cuda(mesh1, bo, bd, bu, DEFAULT_OPTIONS)
-    k3_err = lanes_equal(k3_out, ray_color(mesh1, bo, bd, bu, DEFAULT_OPTIONS),
-                         f"K3 vs plain ray_color, mesh1 256x256 x {per} strata (one launch)")
+    k3_err = lanes_equal(k3_out, ray_color_plain(mesh1, bo, bd, bu, DEFAULT_OPTIONS),
+                         f"K3 vs ray_color_plain, mesh1 256x256 x {per} strata (one launch)")
     k3_ms = time_ms(lambda: ray_color_stream_cuda(mesh1, bo, bd, bu, DEFAULT_OPTIONS), reps=10)
     k3_one_ms = time_ms(lambda: ray_color_stream_cuda(mesh1, o, d, u, DEFAULT_OPTIONS), reps=10)
-    k3_plain_ms = time_ms(lambda: ray_color(mesh1, bo, bd, bu, DEFAULT_OPTIONS), reps=2, warmup=1)
+    k3_plain_ms = time_ms(lambda: ray_color_plain(mesh1, bo, bd, bu, DEFAULT_OPTIONS), reps=2, warmup=1)
     print(f"K3 time mesh1 B={B} ({per} strata), 8 bounces: kernel {k3_ms:.4f} ms "
           f"({k3_ms / per:.4f} ms a stratum; one stratum alone, B={o.shape[0]}: "
-          f"{k3_one_ms:.4f} ms), plain ray_color {k3_plain_ms:.4f} ms ({card})")
+          f"{k3_one_ms:.4f} ms), ray_color_plain {k3_plain_ms:.4f} ms ({card})")
     # mesh2, the largest scene: K3's biggest tables (P = 102,403), the
     # plain version's queries through K1
     k3_err = max(k3_err, lanes_equal(
         ray_color_stream_cuda(mesh2, m2o, m2d, m2u, DEFAULT_OPTIONS),
-        ray_color(mesh2, m2o, m2d, m2u, DEFAULT_OPTIONS), "K3 vs plain ray_color, mesh2 256x256 pass"))
+        ray_color_plain(mesh2, m2o, m2d, m2u, DEFAULT_OPTIONS), "K3 vs ray_color_plain, mesh2 256x256 pass"))
     m2bo, m2bd, m2bu = main_path_rays(mesh2, 256, 256, 4, rng.PRNGKey(7), per, DEFAULT_OPTIONS)
     m2_ms = time_ms(lambda: ray_color_stream_cuda(mesh2, m2bo, m2bd, m2bu, DEFAULT_OPTIONS), reps=10)
     print(f"K3 time mesh2 B={m2bo.shape[0]} ({per} strata), P={mesh2.num_prims}: kernel "
           f"{m2_ms:.4f} ms ({m2_ms / per:.4f} ms a stratum; one stratum alone "
           f"{time_ms(lambda: ray_color_stream_cuda(mesh2, m2o, m2d, m2u, DEFAULT_OPTIONS), 10):.4f}"
-          f" ms), plain ray_color (one stratum) "
-          f"{time_ms(lambda: ray_color(mesh2, m2o, m2d, m2u, DEFAULT_OPTIONS), reps=2, warmup=1):.4f}"
+          f" ms), ray_color_plain (one stratum) "
+          f"{time_ms(lambda: ray_color_plain(mesh2, m2o, m2d, m2u, DEFAULT_OPTIONS), reps=2, warmup=1):.4f}"
           f" ms ({card})")
     del m2bo, m2bd, m2bu
     grid = load("sphere-grid", 640, 480)
     go, gd, gu = main_path_rays(grid, 640, 480, 4, rng.PRNGKey(7), 1, DEFAULT_OPTIONS)
     k3_err = max(k3_err, lanes_equal(
         ray_color_stream_cuda(grid, go, gd, gu, DEFAULT_OPTIONS),
-        ray_color(grid, go, gd, gu, DEFAULT_OPTIONS), "K3 vs plain ray_color, sphere-grid 640x480"))
+        ray_color_plain(grid, go, gd, gu, DEFAULT_OPTIONS), "K3 vs ray_color_plain, sphere-grid 640x480"))
     print(f"K3 time sphere-grid B={go.shape[0]}: kernel "
           f"{time_ms(lambda: ray_color_stream_cuda(grid, go, gd, gu, DEFAULT_OPTIONS), reps=10):.4f}"
-          f" ms, plain ray_color "
-          f"{time_ms(lambda: ray_color(grid, go, gd, gu, DEFAULT_OPTIONS), reps=2, warmup=1):.4f}"
+          f" ms, ray_color_plain "
+          f"{time_ms(lambda: ray_color_plain(grid, go, gd, gu, DEFAULT_OPTIONS), reps=2, warmup=1):.4f}"
           f" ms ({card})")
 
     # ---- 9. K4 bit-equal to K3 for each reorder, on the main path's launches ----
@@ -1112,7 +1141,7 @@ def big_scene_phases(phase, dev, card):
             structural_check(img, golden, name)
 
     # bounds at the timed shapes. K3's and K4's work depends on the data:
-    # the plain ray_color replays the timed launch for the vertices that
+    # ray_color_plain replays the timed launch for the vertices that
     # run and the queries they issue (the running vertices checked against
     # K5's cur channel), and the plain walk counts every walk's records and
     # rows: the primary walks (K3 only), the closest-hit and any-hit walks
@@ -1270,7 +1299,7 @@ def walk_visits(scene, what, *rays):
 
 
 def channel_report(dbg, ref, what, stream=False):
-    """K5 against the plain ray_color(debug=True): per channel the largest
+    """K5 against ray_color_plain(debug=True): per channel the largest
     difference and the fraction of lanes equal at every vertex. Asserts
     every channel equal on every lane and vertex (K2 and K3 run the plain
     version's IEEE operations, so their state is bit-equal). K3's xt is
@@ -1303,7 +1332,7 @@ def telemetry_phase(phase, card, lib, demo_pass, mesh1_pass):
     from plutracer_tpu_torch.ops.cuda import DBG_C, DBG_CHANNELS
     from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
     from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
-    from plutracer_tpu_torch.render.integrator import ray_color
+    from plutracer_tpu_torch.render.integrator import ray_color_plain
     from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS as OPTS
 
     phase("12 K5 telemetry")
@@ -1326,26 +1355,26 @@ def telemetry_phase(phase, card, lib, demo_pass, mesh1_pass):
         eq = torch.equal(L, plain_L)
         print(f"K5 {what}: radiance with debug on bit-equal to debug off: {eq}")
         assert eq, what
-    ref_L2, ref2 = ray_color(scene, o, d, u, OPTS, debug=True)
-    ref_L3, ref3 = ray_color(mesh1, mo, md, mu, OPTS, debug=True)
-    lanes_equal(L2, ref_L2, "K5 (K2) radiance vs plain ray_color(debug=True)")
-    lanes_equal(L3, ref_L3, "K5 (K3) radiance vs plain ray_color(debug=True)")
+    ref_L2, ref2 = ray_color_plain(scene, o, d, u, OPTS, debug=True)
+    ref_L3, ref3 = ray_color_plain(mesh1, mo, md, mu, OPTS, debug=True)
+    lanes_equal(L2, ref_L2, "K5 (K2) radiance vs ray_color_plain(debug=True)")
+    lanes_equal(L3, ref_L3, "K5 (K3) radiance vs ray_color_plain(debug=True)")
     err = max(channel_report(dbg2, ref2, "K2 demo-box 512x512"),
               channel_report(dbg3, ref3, "K3 mesh1 4 strata of 256x256", stream=True))
     k5_k2_ms = time_ms(lambda: ray_color_cuda(scene, o, d, u, OPTS, debug=True), reps=20)
     k2_again = time_ms(lambda: ray_color_cuda(scene, o, d, u, OPTS), reps=20)
     k5_k3_ms = time_ms(lambda: ray_color_stream_cuda(mesh1, mo, md, mu, OPTS, debug=True), reps=10)
     k3_again = time_ms(lambda: ray_color_stream_cuda(mesh1, mo, md, mu, OPTS), reps=10)
-    plain_ms = time_ms(lambda: ray_color(scene, o, d, u, OPTS, debug=True), reps=3, warmup=1)
+    plain_ms = time_ms(lambda: ray_color_plain(scene, o, d, u, OPTS, debug=True), reps=3, warmup=1)
     print(f"K5 time: K2 demo-box B={B} debug {k5_k2_ms:.4f} ms vs plain instantiation "
           f"{k2_again:.4f} ms (phase 4: {k2_ms:.4f}); K3 mesh1 B={mo.shape[0]} debug "
           f"{k5_k3_ms:.4f} ms vs {k3_again:.4f} ms (phase 8: {k3_ms:.4f}); plain "
-          f"ray_color(debug=True) demo-box {plain_ms:.4f} ms ({card})")
+          f"ray_color_plain(debug=True) demo-box {plain_ms:.4f} ms ({card})")
     for kernel, lines in ptxas_report(lib.compiler_log).items():
         if kernel.startswith(("megakernel<", "megakernel_stream<")):
             print(f"K5 ptxas {kernel}: {' | '.join(lines)}")
     # K2's work on the pass: the vertices that run and the queries they
-    # issue, replayed by the plain ray_color (the running vertices checked
+    # issue, replayed by ray_color_plain (the running vertices checked
     # against K5's cur channel); each query a pass over the packed table.
     # K1's primary hit is part of K2's time.
     live, closest_rays, any_rays = issued_queries(scene, o, d, u, OPTS)
@@ -1715,7 +1744,8 @@ def multi_device_phase(phase, dev, card):
     # (a) a 1x1 mesh in an NCCL world of 1: the path's K1 + K2 launches; the
     # first render also creates the NCCL communicator, the second is warm
     with tempfile.TemporaryDirectory() as tmp:
-        initialize_distributed(f"file://{tmp}/rendezvous", 1, 0, "nccl", timeout=300.0)
+        initialize_distributed(f"file://{tmp}/rendezvous", num_processes=1, process_id=0,
+                               backend="nccl", timeout=300.0)
         try:
             mesh = make_mesh((1, 1), devices=[dev])
             assert mesh.distributed
@@ -1830,12 +1860,12 @@ def tools_phase(phase, dev, card):
 
 
 def traced_ray_color(scene, o, d, u, options):
-    """The plain ray_color with CUDA events around every closest-hit query
+    """The ray_color_plain with CUDA events around every closest-hit query
     (intersect.query_lite: the primary hit, then one batched query a
     bounce) and around the whole. Returns (radiance, [(found, prim, t)] by
     query, [ms] by query, whole ms)."""
     from plutracer_tpu_torch.ops import intersect
-    from plutracer_tpu_torch.render.integrator import ray_color
+    from plutracer_tpu_torch.render.integrator import ray_color_plain
 
     calls, query = [], intersect.query_lite
     event = lambda: torch.cuda.Event(enable_timing=True)
@@ -1852,7 +1882,7 @@ def traced_ray_color(scene, o, d, u, options):
     intersect.query_lite = timed
     try:
         start.record()
-        L = ray_color(scene, o, d, u, options)
+        L = ray_color_plain(scene, o, d, u, options)
         end.record()
     finally:
         intersect.query_lite = query
@@ -1907,18 +1937,18 @@ def tree_leaves(x):
 
 
 def routing_phase(phase, dev, card):
-    """Phase 19: the routing layer. (a) the plain ray_color under each
+    """Phase 19: the routing layer. (a) ray_color_plain under each
     intersect_backend on a mesh1 and a demo-box stratum: every query's
     winners equal across the backends, radiance bit-equal, each query site
     and the whole timed; (b) a mesh1 128x128 train step (log loss, n = 2)
     under "pallas" and "bvh": loss, gradients, parameters and Adam's leaves
     bit-equal, times and launches; (c) the scenes past the JAX package's
     TPU caps: the CLI's route and samples/s, the kernel bit-equal to the
-    plain ray_color on a stratum and the plain stratum's time, K5 on the
+    ray_color_plain on a stratum and the plain stratum's time, K5 on the
     atlas scene; K2 at its 48 KB of shared memory and a scene one row
     past it (K3); the sphere cloud past 2^20 primitives: compile seconds
     and one K3 launch bit-equal to plain; K4 and K5 on both K3-tier
-    scenes against the plain ray_color and ray_color(debug=True). Returns
+    scenes against ray_color_plain and ray_color_plain(debug=True). Returns
     the K3 query's launches in (b)'s "bvh" loss_and_grads."""
     from plutracer_tpu_torch import cli, rng
     from plutracer_tpu_torch.diff.optim import Adam
@@ -1927,7 +1957,7 @@ def routing_phase(phase, dev, card):
     from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda, ray_color_stream_cuda
     from plutracer_tpu_torch.parallel import sharded
     from plutracer_tpu_torch.render.integrator import (
-        k2_smem_bytes, kernel_tier, ray_color, resolve_integrator_backend,
+        k2_smem_bytes, kernel_tier, ray_color_plain, resolve_integrator_backend,
     )
     from plutracer_tpu_torch.render.renderer import render
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
@@ -1946,7 +1976,7 @@ def routing_phase(phase, dev, card):
         runs = {}
         for b in INTERSECT_BACKENDS:
             if b != "xla":  # warm: the kernels are built; "xla" runs once (seconds)
-                ray_color(scene, o, d, u, by(b))
+                ray_color_plain(scene, o, d, u, by(b))
             runs[b] = traced_ray_color(scene, o, d, u, by(b))
         L0, q0, _, _ = runs["pallas"]
         for b, (L, q, ms, whole) in runs.items():
@@ -1960,7 +1990,7 @@ def routing_phase(phase, dev, card):
             print(f"routing (a) {name} {res}x{res} stratum (B={o.shape[0]}, P={scene.num_prims}) "
                   f"intersect_backend={b}: every query's winners (found, prim) and t on hits "
                   f"equal to pallas's; radiance bit-equal {same} (largest difference "
-                  f"{(L - L0).abs().max().item():.3e}); ray_color {whole:.4f} ms, queries "
+                  f"{(L - L0).abs().max().item():.3e}); ray_color_plain {whole:.4f} ms, queries "
                   f"{sum(ms):.4f} ms: primary {ms[0]:.4f}, by bounce (3 x B rays) "
                   f"{[round(x, 4) for x in ms[1:]]} ({card})")
             assert same, f"{name} {b}: radiance differs"
@@ -2025,12 +2055,12 @@ def routing_phase(phase, dev, card):
         before = counter.launches
         out = ray_color_kernel(scene, o, d, u, OPTS)
         assert counter.launches == before + 1, what
-        lanes_equal(out, ray_color(scene, o, d, u, OPTS), f"routing (c) {what} {tier} vs plain "
-                                                          f"ray_color, one stratum")
+        lanes_equal(out, ray_color_plain(scene, o, d, u, OPTS), f"routing (c) {what} {tier} vs "
+                                                          f"ray_color_plain, one stratum")
         k_ms = time_ms(lambda: ray_color_kernel(scene, o, d, u, OPTS), reps=5)
-        p_ms = time_ms(lambda: ray_color(scene, o, d, u, OPTS), reps=1, warmup=0)
+        p_ms = time_ms(lambda: ray_color_plain(scene, o, d, u, OPTS), reps=1, warmup=0)
         print(f"routing (c) {what}: one stratum (B={o.shape[0]}) {tier} {k_ms:.4f} ms, plain "
-              f"ray_color {p_ms:.4f} ms ({p_ms / k_ms:.1f}x) ({card})")
+              f"ray_color_plain {p_ms:.4f} ms ({p_ms / k_ms:.1f}x) ({card})")
         return tier
 
     def k4_k5_vs_plain(scene, o, d, u, what):
@@ -2045,9 +2075,9 @@ def routing_phase(phase, dev, card):
         torch.cuda.synchronize()
         got = {"K4": onebounce_cuda.launches, "K5": ray_color_stream_cuda.debug_launches}
         assert got == {"K4": OPTS.max_bounces, "K5": 1}, (what, got)
-        ref_L, ref = ray_color(scene, o, d, u, OPTS, debug=True)
-        lanes_equal(L4, ref_L, f"routing (c) {what} K4 (stream_wavefront) vs plain ray_color")
-        lanes_equal(L5, ref_L, f"routing (c) {what} K5 radiance vs ray_color(debug=True)")
+        ref_L, ref = ray_color_plain(scene, o, d, u, OPTS, debug=True)
+        lanes_equal(L4, ref_L, f"routing (c) {what} K4 (stream_wavefront) vs ray_color_plain")
+        lanes_equal(L5, ref_L, f"routing (c) {what} K5 radiance vs ray_color_plain(debug=True)")
         channel_report(dbg, ref, f"{what} (K3)", stream=True)
         k4_ms = time_ms(lambda: ray_color_kernel(scene, o, d, u, wf), reps=3)
         print(f"routing (c) {what}: launches {got}; K4 wavefront loop (B={o.shape[0]}) "
@@ -2076,8 +2106,8 @@ def routing_phase(phase, dev, card):
             kernel_vs_plain(scene, o, d, u, name)
             if name == "textured256":  # K5 on the 65,536-texel atlas
                 L5, dbg = ray_color_kernel(scene, o, d, u, OPTS, debug=True)
-                ref_L, ref = ray_color(scene, o, d, u, OPTS, debug=True)
-                lanes_equal(L5, ref_L, "routing (c) K5 textured256 radiance vs ray_color(debug=True)")
+                ref_L, ref = ray_color_plain(scene, o, d, u, OPTS, debug=True)
+                lanes_equal(L5, ref_L, "routing (c) K5 textured256 radiance vs ray_color_plain(debug=True)")
                 channel_report(dbg, ref, "textured256 (K2)")
     for extra, what in ((0, "K2 with 48 KB of tables"),
                         (1, "one material past K2's shared memory (K3)")):
@@ -2117,7 +2147,14 @@ def api_phase(phase, dev, card):
     torch) on mesh1's 65,536 camera rays against K1 and the K3 query:
     winners equal, t equal on hits, its steps and time; (c) estimate_direct
     at demo-box's and tables' 512x512 primary hits, one light drawn a ray,
-    under each engine with shading_normal_le_gate on and off: bit-equal.
+    under each engine with shading_normal_le_gate on and off: bit-equal;
+    (d) render.ray_color(scene, o, d, key), the JAX package's call, on
+    demo-box 512x512 (K1 + K2) and mesh1 256x256 (K3) strata: one kernel
+    launch, bit-equal to ray_color_plain on draw_uniforms(key)'s uniforms;
+    (e) render.elastic.pass_stack(scene, key, strata, w, h, n, options,
+    mesh) on a (1, 1) mesh of the card (demo-box 256x256, 16 strata): each
+    row bit-equal to that stratum's render_passes, and the rows summed in
+    stratum order over spp bit-equal to render_elastic's image.
     Returns the K1 and K3-query launches of (a) and (c)'s API calls (the
     counts set to 0 just before each, read just after)."""
     from plutracer_tpu_torch import rng
@@ -2238,6 +2275,55 @@ def api_phase(phase, dev, card):
         del scene
     print(f"api: launches of the API calls {made}")
     assert made["K1"] > 0 and made["K3 query"] > 0, made
+
+    # (d) render.ray_color(scene, o, d, key): the kernel tier, bit-equal to
+    # the plain integrator on the key's uniforms
+    from plutracer_tpu_torch import render as render_pkg
+    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda
+    from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
+    from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color_plain
+
+    key = rng.PRNGKey(11)
+    for name, res, kernel in API_RAY_COLOR:
+        kernel = {"K2": ray_color_cuda, "K3": ray_color_stream_cuda}[kernel]
+        scene = load(name, res)
+        o, d, _ = main_path_rays(scene, res, res, 2, rng.PRNGKey(7), 1, OPTS)
+        before = kernel.launches
+        got = render_pkg.ray_color(scene, o, d, key)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, (name, kernel.launches - before)
+        u = draw_uniforms(key, o.shape[0], OPTS.max_bounces, dev)
+        lanes_equal(got, ray_color_plain(scene, o, d, u, OPTS),
+                    f"api (d) render.ray_color(scene, o, d, key) {name} {res}x{res} vs "
+                    "ray_color_plain on draw_uniforms(key)")
+        ms = time_ms(lambda: render_pkg.ray_color(scene, o, d, key), reps=3, warmup=1)
+        print(f"api (d) render.ray_color {name} {res}x{res} (B={o.shape[0]}): {ms:.4f} ms, "
+              f"uniforms and the kernel ({card})")
+        del scene, o, d, u, got
+
+    # (e) pass_stack on a (1, 1) mesh of the card against render_passes and
+    # render_elastic
+    from plutracer_tpu_torch.parallel.mesh import make_mesh
+    from plutracer_tpu_torch.render.elastic import pass_stack, render_elastic
+    from plutracer_tpu_torch.render.renderer import render_passes
+
+    res, n = API_PASS_STACK
+    scene = load("demo-box", res)
+    key = rng.PRNGKey(7)
+    rows = pass_stack(scene, key, range(n * n), res, res, n, OPTS,
+                      make_mesh((1, 1), devices=[dev]))
+    assert rows.shape == (n * n, res * res, 3) and rows.dtype == np.float32, rows.shape
+    for s in range(n * n):
+        want = render_passes(scene, key, s, res, res, n, 1).cpu().numpy()
+        assert np.array_equal(rows[s], want), f"api (e) pass_stack row {s} differs"
+    acc = np.zeros((res * res, 3), np.float32)
+    for r in rows:
+        acc = acc + r
+    img = (acc / np.float32(n * n)).reshape(res, res, 3)
+    assert np.array_equal(img, render_elastic(scene, res, res, n, 7, devices=[dev]))
+    print(f"api (e) pass_stack demo-box {res}x{res} {n * n} strata on a (1, 1) mesh of {dev}: "
+          f"each row bit-equal to its stratum's render_passes, the stratum-order sum over "
+          f"spp bit-equal to render_elastic")
     return made
 
 

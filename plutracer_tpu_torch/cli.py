@@ -23,8 +23,9 @@
   supervisor's work DIRECTORY (heartbeat, checkpoint and result live
   there); without it, a per-(scene, resolution, seed) directory is made in
   the working directory;
-- ``/profile DIR`` write a torch.profiler trace of the render phase to
-  DIR (a Chrome trace, ``render.trace.json``); ignored under /supervise,
+- ``/profile DIR`` write a torch.profiler trace of the render phase into
+  DIR (utils/profiling.profile_trace: a Chrome trace
+  ``<host>_<pid>.<ns>.pt.trace.json``); ignored under /supervise,
   where the render runs in another process.
 """
 
@@ -161,16 +162,15 @@ def run(args: List[str]) -> RenderResult:
               f"{f' ({tier})' if tier else ''}... ")
         from plutracer_tpu_torch.utils.profiling import profile_trace
 
-        trace = os.path.join(profile_dir, "render.trace.json") if profile_dir else None
-        with profile_trace(trace, device) if trace else contextlib.nullcontext():
+        with profile_trace(profile_dir) if profile_dir else contextlib.nullcontext():
             render_start = time.perf_counter()
             linear = render_with_checkpoint(scene, width, height, desc.samples, seed=seed,
                                             checkpoint_path=checkpoint)
             if device.type == "cuda":
                 torch.cuda.synchronize()
             render_end = time.perf_counter()
-        if trace:
-            print(f"profile: {trace}")
+        if profile_dir:
+            print(f"profile: a trace in {profile_dir}")
 
     print("postprocessing... ")
     from plutracer_tpu_torch.ops.tonemap import postprocess_image

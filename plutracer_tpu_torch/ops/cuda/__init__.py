@@ -3,7 +3,7 @@
 DBG_CHANNELS is part of the path kernels' C ABI: the per-bounce telemetry
 channels K2 and K3 write in their K5 instantiation (csrc/path_common.cuh,
 DBG_C), in the JAX megakernel's order (integrator_kernel.py:1231-1238).
-The plain ray_color(..., debug=True) writes the same channels.
+ray_color_plain(..., debug=True) writes the same channels.
 """
 
 DBG_CHANNELS = (

@@ -7,7 +7,7 @@ integrator.kernel_tier: "k2" runs ``ray_color_cuda`` (K1 finds the
 primary hit, then the CUDA kernel csrc/megakernel.cu), "k3" the stream
 kernel (stream_kernel.ray_color_stream_cuda), "k4" the wavefront loop of
 render/wavefront.py over the one-bounce kernel. On CPU tensors each takes
-its plain version fed the same uniforms: render/integrator.ray_color, or
+its plain version fed the same uniforms: render/integrator.ray_color_plain, or
 the wavefront loop over integrator.plain_bounce. K2 replaces the JAX
 package's unrolled Pallas megakernel
 (plutracer_tpu/ops/pallas/integrator_kernel.py: _build_kernel /
@@ -18,7 +18,7 @@ debug mode (integrator_kernel.py:1229-1240, :1856-1867): the same launch
 of K2 or K3 in its DEBUG instantiation, which also writes (max_bounces,
 DBG_C, B) channels (ops/cuda.DBG_CHANNELS); K4 has none, so a
 debug request under stream_wavefront takes K3, as the JAX package does.
-The plain version is ray_color(..., debug=True).
+The plain version is ray_color_plain(..., debug=True).
 
 ``ray_color_cuda.launches`` counts K2's launches, ``.debug_launches`` its
 K5 launches (likewise on stream_kernel.ray_color_stream_cuda for K3).
@@ -39,7 +39,7 @@ def _check_inputs(scene, o, d, u, options, tables):
     if any(x.requires_grad for x in (o, d, u, *tables)):
         raise NotImplementedError(
             "ray_color_cuda: the megakernel has no backward; differentiate through "
-            "render.integrator.radiance (its KernelRadiance Function) or ray_color"
+            "render.integrator.ray_color (its KernelRadiance Function) or ray_color_plain"
         )
     if not o.is_cuda:
         raise ValueError(f"ray_color_cuda: rays must be on a CUDA device, got {o.device}")
@@ -64,7 +64,7 @@ def ray_color_kernel(scene, o, d, u, options, debug: bool = False):
     (max_bounces, B, 12), by kernel_tier: K2, K3, or the wavefront loop
     over K4; with debug=True, (radiance, telemetry (max_bounces, DBG_C,
     B)) from K2 or K3. CPU tensors: the plain versions."""
-    from plutracer_tpu_torch.render.integrator import kernel_tier, ray_color
+    from plutracer_tpu_torch.render.integrator import kernel_tier, ray_color_plain
 
     tier = kernel_tier(scene, options)
     if tier == "k4" and not debug:
@@ -72,7 +72,7 @@ def ray_color_kernel(scene, o, d, u, options, debug: bool = False):
 
         return ray_color_wavefront(scene, o, d, u, options)
     if not o.is_cuda:
-        return ray_color(scene, o, d, u, options, debug=debug)
+        return ray_color_plain(scene, o, d, u, options, debug=debug)
     if tier != "k2":
         from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
 

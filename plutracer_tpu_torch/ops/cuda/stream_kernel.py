@@ -7,7 +7,7 @@ bounce of every ray in one launch, the primary hit found in the kernel,
 every closest-hit query a walk of the scene's traversal layout
 (scene.walk_nodes / walk_rows). It replaces the JAX
 package's _megakernel_call_stream, and its plain version is
-render/integrator.ray_color fed the same uniforms.
+render/integrator.ray_color_plain fed the same uniforms.
 
 ``onebounce_cuda`` launches K4 (csrc/megakernel_onebounce.cu): one bounce
 of the wavefront loop of render/wavefront.py over its Wave (the
@@ -36,7 +36,7 @@ def _check(name, scene, tables, tensors, options):
     if any(x.requires_grad for x in (*tensors.values(), *tables)):
         raise NotImplementedError(
             f"{name}: the stream kernels have no backward; differentiate through "
-            "render.integrator.radiance (its KernelRadiance Function) or ray_color"
+            "render.integrator.ray_color (its KernelRadiance Function) or ray_color_plain"
         )
     dev = next(iter(tensors.values())).device
     if dev.type != "cuda":

@@ -195,7 +195,8 @@ def _worker(argv) -> None:
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
-    initialize_distributed(args.init, args.world, args.rank, "gloo", args.timeout)
+    initialize_distributed(args.init, num_processes=args.world, process_id=args.rank,
+                           backend="gloo", timeout=args.timeout)
     try:
         out = mesh_jobs(json.loads(args.worker), [torch.device(d) for d in args.devices.split(",")])
     finally:

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import os
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -76,7 +77,14 @@ def visible_devices(caller: str) -> List[torch.device]:
 
 def single(device) -> Mesh:
     """The 1x1 mesh of one device in this process, with no collective."""
-    return Mesh(((Position(0, _device(device)),),))
+    return spp_row([device])
+
+
+def spp_row(devices: Sequence) -> Mesh:
+    """The (1, len(devices)) mesh of this process's devices, with no
+    collective: the JAX package's ("spp",) mesh of local devices that
+    render_elastic spreads its passes over."""
+    return Mesh((tuple(Position(0, _device(d)) for d in devices),))
 
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None,
@@ -119,18 +127,49 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
     return Mesh(grid, rank, world, distributed)
 
 
-def initialize_distributed(init_method: str, world_size: int, rank: int,
-                           backend: str = "gloo", timeout: float = 120.0) -> None:
-    """torch.distributed.init_process_group with a timeout (seconds) on the
-    rendezvous and on every collective, so a lost peer fails the job
-    instead of hanging it. init_method: "file://<path>" or
-    "tcp://host:port". backend: "nccl" (one rank a card; the rank's card
-    becomes its current device) or "gloo" (the CPU, or ranks sharing a
-    card)."""
+# torch.distributed's own environment (env:// rendezvous, as torchrun sets it)
+DIST_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+
+
+def initialize_distributed(coordinator: Optional[str] = None, **kw) -> None:
+    """Join a torch.distributed job: the JAX package's
+    initialize_distributed(coordinator=None, **kw), call once a process.
+
+    `coordinator`: "host:port" (a TCP rendezvous, tcp://host:port) or a
+    URL that torch.distributed takes ("file://<path>", "tcp://host:port").
+    Keywords: `num_processes` and `process_id` (jax.distributed's names)
+    are the world size and this process's rank, taken from WORLD_SIZE and
+    RANK when not given; the port's own `backend` ("gloo", the default:
+    the CPU, or ranks sharing a card; "nccl": one rank a card, the rank's
+    card becomes its current device) and `timeout` (seconds, default 120)
+    on the rendezvous and on every collective, so a lost peer fails the
+    job instead of hanging it. Any other keyword raises TypeError.
+
+    Without a coordinator the rendezvous is torch.distributed's
+    environment (env://) when MASTER_ADDR, MASTER_PORT, WORLD_SIZE and
+    RANK are all set; otherwise the call does nothing, as the JAX
+    package's does on one host with no cluster."""
+    unknown = set(kw) - {"num_processes", "process_id", "backend", "timeout"}
+    if unknown:
+        raise TypeError(f"initialize_distributed: unexpected keyword(s) {sorted(unknown)}")
+    if coordinator is None:
+        if not all(os.environ.get(v) for v in DIST_ENV):
+            return
+        init_method = "env://"
+    else:
+        init_method = coordinator if "://" in coordinator else f"tcp://{coordinator}"
+    world, rank = kw.get("num_processes"), kw.get("process_id")
+    world = os.environ.get("WORLD_SIZE") if world is None else world
+    rank = os.environ.get("RANK") if rank is None else rank
+    if world is None or rank is None:
+        raise ValueError("initialize_distributed: a coordinator needs num_processes and "
+                         "process_id (or WORLD_SIZE and RANK in the environment)")
+    world, rank = int(world), int(rank)
+    backend = kw.get("backend", "gloo")
     if backend == "nccl":
         torch.cuda.set_device(rank % torch.cuda.device_count())
-    dist.init_process_group(backend, init_method=init_method, world_size=world_size,
-                            rank=rank, timeout=datetime.timedelta(seconds=timeout))
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=kw.get("timeout", 120.0)))
 
 
 def scene_replicas(scene, devices: Sequence) -> list:

@@ -1,7 +1,9 @@
 """Elastic, fault-tolerant progressive rendering.
 
-The port of plutracer_tpu/render/elastic.py over a list of torch devices
-in place of a jax Mesh. The stratified PASS is the unit of migration:
+The port of plutracer_tpu/render/elastic.py over torch devices: a
+``parallel.mesh.Mesh`` of them in place of a jax Mesh (``pass_stack``),
+a list of them for ``render_elastic``. The stratified PASS is the unit of
+migration:
 
 - Pass ``s`` is a full-image program keyed by ``fold_in(key, s)``, the
   per-pass sample stream of ``renderer.render_passes``, so a pass gives
@@ -29,7 +31,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 from plutracer_tpu_torch import rng
-from plutracer_tpu_torch.parallel.mesh import scene_replicas, visible_devices
+from plutracer_tpu_torch.parallel.mesh import Mesh, scene_replicas, spp_row, visible_devices
 from plutracer_tpu_torch.render.progressive import load_state, save_state
 from plutracer_tpu_torch.render.renderer import pixel_centers, stratum_launches
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
@@ -38,21 +40,32 @@ __all__ = ["render_elastic", "pass_stack"]
 
 
 def pass_stack(
-    scenes: Sequence,
+    scene,
     key,
     strata: Sequence[int],
     width: int,
     height: int,
     n: int,
     options: RenderOptions,
+    mesh: Mesh,
+    *,
     on_pass: Optional[Callable[[int], None]] = None,
 ) -> np.ndarray:
     """The given strata rendered as a stacked (len(strata), H*W, 3) float32
-    array. ``scenes`` holds the scene once a device
-    (``parallel.mesh.scene_replicas``); the strata go to them in contiguous
-    blocks. The devices launch in turns, so their work overlaps; each
-    pass's radiance is copied back as its launch ends, and
-    ``on_pass(stratum)`` fires for it."""
+    array: the JAX package's pass_stack(scene, key, strata, width, height,
+    n, options, mesh). The strata go in contiguous blocks over the mesh's
+    ``spp`` positions (its first tile row, which must be this process's);
+    the scene is copied once to each distinct device of them
+    (``parallel.mesh.scene_replicas``). Row i is pass strata[i] of
+    ``renderer.render_passes``, bit for bit, whatever the mesh. Unlike
+    JAX's, no padding rows are returned: exactly len(strata) rows. The
+    devices launch in turns, so their work overlaps; each pass's radiance
+    is copied back as its launch ends, and ``on_pass(stratum)`` fires for
+    it."""
+    row = mesh.grid[0]
+    if any(pos.rank != mesh.rank for pos in row):
+        raise ValueError("pass_stack: the mesh's spp positions must all be this process's")
+    scenes = scene_replicas(scene, [pos.device for pos in row])
     strata = [int(s) for s in strata]
     size = -(-len(strata) // len(scenes))
     blocks = [strata[i * size:(i + 1) * size] for i in range(len(scenes))]
@@ -110,7 +123,10 @@ def render_elastic(
     stream, the same stratum-order float32 sum and division by spp), with
     the passes spread over ``devices`` (default: every visible CUDA device)
     and the accumulator on the host, so the checkpoint is valid for any
-    later device list. The scene is copied to each device once.
+    later device list. The passes go through ``pass_stack`` over the
+    (1, len(devices)) mesh of the list (``parallel.mesh.spp_row``), one
+    chunk a call, each call copying the scene to the devices it does not
+    live on.
     ``on_pass(stratum)`` fires as each pass comes back and
     ``on_chunk(next_pass)`` after each checkpointed chunk: the supervisor's
     worker beats its heartbeat on both.
@@ -118,7 +134,7 @@ def render_elastic(
     Returns the linear (H, W, 3) image as a numpy array.
     """
     devs = visible_devices("render_elastic") if devices is None else devices
-    scenes = scene_replicas(scene, devs)
+    mesh = spp_row(devs)
     spp = n * n
     checkpoint_every = max(1, checkpoint_every)
     key = rng.PRNGKey(seed)
@@ -135,7 +151,8 @@ def render_elastic(
         # chunk boundaries are absolute multiples of checkpoint_every, so a
         # resumed run issues the same chunks
         k = min(checkpoint_every - s % checkpoint_every, spp - s)
-        stack = pass_stack(scenes, key, range(s, s + k), width, height, n, options, on_pass)
+        stack = pass_stack(scene, key, range(s, s + k), width, height, n, options, mesh,
+                           on_pass=on_pass)
         for i in range(k):  # stratum-order float32 adds
             accum = accum + stack[i]
         s += k

@@ -8,30 +8,32 @@ emission only at the first vertex or after a specular bounce, one
 uniformly chosen light per vertex, the reference's MIS and pdf quirks
 behind RenderOptions switches, escaped rays contribute nothing.
 
-``ray_color`` is the plain PyTorch integrator: a Python loop of
-``plain_bounce`` (one shading vertex for every ray) on batched tensors,
-taking the uniforms ``u`` (max_bounces, B, 12) as an input. ``radiance``
-draws those uniforms from a threefry key, exactly as the JAX package does
-(uniform(fold_in(key, bounce), (B, 12))), and ``radiance_of_uniforms``
-sends the batch either to
-the CUDA kernels (ops/cuda/integrator_kernel.ray_color_kernel: the
-megakernel K2, the stream kernel K3 or the one-bounce kernel K4, as
-``kernel_tier`` says) or to ``ray_color``. All take the same uniforms, so
-they make the same sampling decisions.
+``ray_color(scene, o, d, key, options, terms)`` is the JAX package's
+entry point (integrator.py:240), with its parameters: it draws the
+uniforms from a threefry key exactly as the JAX package does
+(uniform(fold_in(key, bounce), (B, 12)); ``draw_uniforms``, one R1 launch
+on the card), and ``radiance_of_uniforms`` sends the batch either to the
+CUDA kernels (ops/cuda/integrator_kernel.ray_color_kernel: the megakernel
+K2, the stream kernel K3 or the one-bounce kernel K4, as ``kernel_tier``
+says) or to ``ray_color_plain``, the plain PyTorch integrator: a Python
+loop of ``plain_bounce`` (one shading vertex for every ray) on batched
+tensors, taking the uniforms ``u`` (max_bounces, B, 12) as an input. All
+take the same uniforms, so they make the same sampling decisions.
 
-Gradients. ``ray_color`` is differentiable as written (the guarded ops of
-ops/safemath.py keep its backward finite). The kernels are not: on the
-kernel path ``radiance`` goes through ``KernelRadiance``, an autograd
-Function whose forward runs the kernel on detached inputs and whose
-backward re-runs ``ray_color`` with the same uniforms and differentiates
-it (the JAX package's _ray_color_pallas_ad, integrator.py:191-237).
+Gradients. ``ray_color_plain`` is differentiable as written (the guarded
+ops of ops/safemath.py keep its backward finite). The kernels are not: on
+the kernel path ``ray_color`` goes through ``KernelRadiance``, an
+autograd Function whose forward runs the kernel on detached inputs and
+whose backward re-runs ``ray_color_plain`` with the same uniforms and
+differentiates it (the JAX package's _ray_color_pallas_ad,
+integrator.py:191-237).
 
-Telemetry. ``ray_color(..., debug=True)`` also returns the JAX
+Telemetry. ``ray_color_plain(..., debug=True)`` also returns the JAX
 megakernel's per-bounce debug output (integrator_kernel.py:1229-1240):
 (max_bounces, DBG_C, B) float32, channels in the order of
 ops/cuda.DBG_CHANNELS (part of the kernels' C ABI); K2 and K3
 write the same channels (K5, ``ray_color_kernel(..., debug=True)``).
-``ray_color(..., terms=True)`` (the plain path only; the kernel path
+``ray_color_plain(..., terms=True)`` (the plain path only; the kernel path
 refuses it) also returns the radiance split by bounce and contribution
 site, (max_bounces, 3, B, 3): emitted at the vertex, the NEE light
 strategy, the NEE BSDF strategy (the JAX integrator's terms=True,
@@ -163,7 +165,7 @@ def estimate_direct(scene, hit, frame, mtype, albedo, wwo, li, u,
     shading point, their two closest-hit queries by
     options.intersect_backend (query_lite: K1 or the K3 query on the
     card), and the two strategies' MIS-weighted sum. `u`: (B, 8)
-    uniforms. ray_color uses the batched-query path of plain_bounce."""
+    uniforms. ray_color_plain uses the batched-query path of plain_bounce."""
     tables = pack_tables(scene)
     lrows = gather_light(tables, li)
     carrier = gather_prim(tables, torch.clamp(lrows.prim, min=0))
@@ -266,9 +268,13 @@ def draw_uniforms(key, B: int, max_bounces: int, device) -> torch.Tensor:
     return rng.uniform_block(keys, 12 * B, device).reshape(max_bounces, B, 12)
 
 
-def radiance(scene, o, d, key, options: RenderOptions = DEFAULT_OPTIONS, terms: bool = False):
-    """Radiance for a batch of primary rays o, d (B,3) with the per-bounce
-    uniforms drawn from `key`: radiance_of_uniforms."""
+def ray_color(scene, o, d, key, options: RenderOptions = DEFAULT_OPTIONS, terms: bool = False):
+    """Radiance for a batch of primary rays o, d (B,3), the JAX package's
+    ray_color(scene, o, d, key, options, terms): the per-bounce uniforms
+    drawn from `key` (draw_uniforms), then radiance_of_uniforms: the
+    kernels on a CUDA device (through KernelRadiance under grad), the
+    plain integrator on the CPU. terms=True (the plain path only) also
+    returns the per-bounce split of ray_color_plain."""
     u = draw_uniforms(key, o.shape[0], options.max_bounces, o.device)
     return radiance_of_uniforms(scene, o, d, u, options, terms)
 
@@ -280,7 +286,7 @@ def radiance_of_uniforms(scene, o, d, u, options: RenderOptions = DEFAULT_OPTION
     integrator (resolve_integrator_backend); on the kernel path with
     gradients wanted (grad enabled and o, d or a DIFF_LEAVES field
     requiring grad), through KernelRadiance. terms=True (the plain path
-    only) also returns ray_color's per-bounce split."""
+    only) also returns ray_color_plain's per-bounce split."""
     if resolve_integrator_backend(scene, options, o.device) == "kernel":
         if terms:
             raise ValueError("the terms split is the plain path's only; pass "
@@ -291,7 +297,7 @@ def radiance_of_uniforms(scene, o, d, u, options: RenderOptions = DEFAULT_OPTION
         from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_kernel
 
         return ray_color_kernel(scene, o, d, u, options)
-    return ray_color(scene, o, d, u, options, terms=terms)
+    return ray_color_plain(scene, o, d, u, options, terms=terms)
 
 
 class KernelRadiance(torch.autograd.Function):
@@ -299,9 +305,9 @@ class KernelRadiance(torch.autograd.Function):
     _ray_color_pallas_ad). apply(scene, options, o, d, u, mat_color,
     light_intensity, tex_c0, tex_c1): the DIFF_LEAVES fields are explicit
     inputs that replace the scene's own. Forward: ray_color_kernel (K2, K3
-    or K4 by kernel_tier) on detached inputs. Backward: ray_color with the
-    same uniforms, differentiated by torch.autograd.grad, so the gradients
-    are exactly the plain path's. u gets no gradient."""
+    or K4 by kernel_tier) on detached inputs. Backward: ray_color_plain
+    with the same uniforms, differentiated by torch.autograd.grad, so the
+    gradients are exactly the plain path's. u gets no gradient."""
 
     @staticmethod
     def forward(ctx, scene, options, o, d, u, *leaves):
@@ -320,7 +326,7 @@ class KernelRadiance(torch.autograd.Function):
             xs = [x.detach().requires_grad_(n)
                   for x, n in zip((o, d, *leaves), (need[2], need[3], *need[5:]))]
             sc = dataclasses.replace(ctx.scene, **dict(zip(DIFF_LEAVES, xs[2:])))
-            L = ray_color(sc, xs[0], xs[1], u.detach(), ctx.options)
+            L = ray_color_plain(sc, xs[0], xs[1], u.detach(), ctx.options)
             wrt = [x for x in xs if x.requires_grad]
             got = iter(torch.autograd.grad(L, wrt, g, allow_unused=True, materialize_grads=True)
                        if wrt else ())
@@ -328,8 +334,8 @@ class KernelRadiance(torch.autograd.Function):
         return (None, None, grads[0], grads[1], None, *grads[2:])
 
 
-def ray_color(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS, debug: bool = False,
-              terms: bool = False):
+def ray_color_plain(scene, o, d, u, options: RenderOptions = DEFAULT_OPTIONS,
+                    debug: bool = False, terms: bool = False):
     """Plain integrator. o, d: (B,3); u: (max_bounces, B, 12) uniforms.
     Returns (B,3) radiance, then with debug=True the per-bounce telemetry
     (max_bounces, DBG_C, B), then with terms=True the per-bounce split

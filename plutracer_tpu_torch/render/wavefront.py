@@ -33,8 +33,8 @@ previous launch wrote; everything else happens in the launch
 Each step is ``stream_kernel.onebounce``: the one-bounce kernel K4 on
 CUDA tensors, ``onebounce_plain`` (the same contract in torch around
 ``integrator.plain_bounce``) on CPU tensors. The per-ray math is that of
-``ray_color`` and only the lane order differs, so on the CPU the
-wavefront result is bit-equal to ``ray_color``.
+``ray_color_plain`` and only the lane order differs, so on the CPU the
+wavefront result is bit-equal to ``ray_color_plain``.
 """
 
 from __future__ import annotations

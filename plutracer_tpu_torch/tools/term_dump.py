@@ -25,7 +25,7 @@ import torch
 
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.cli import resolve_device
-from plutracer_tpu_torch.render.integrator import ray_color
+from plutracer_tpu_torch.render.integrator import ray_color_plain
 from plutracer_tpu_torch.render.renderer import _stratum_rays, pixel_centers
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
@@ -43,7 +43,7 @@ def term_passes(scene, width: int, height: int, n: int, seed: int, options=DEFAU
     acc_t = torch.zeros((nb, 3, height * width, 3), dtype=torch.float64, device=scene.device)
     for s in range(spp):
         o, d, u = _stratum_rays(scene, px0, rng.fold_in(key, s), s, n, options)
-        L, ys = ray_color(scene, o, d, u, options, terms=True)  # ys: (nb, 3, B, 3)
+        L, ys = ray_color_plain(scene, o, d, u, options, terms=True)  # ys: (nb, 3, B, 3)
         acc_l += L.double()
         acc_t += ys.double()
         if (s + 1) % 32 == 0:

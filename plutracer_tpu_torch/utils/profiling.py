@@ -6,8 +6,9 @@ The port of plutracer_tpu/utils/profiling.py:
   postprocess prints, src/main.cpp:146-204) with a structured report.
 - ``RenderStats``: samples/s and issued rays/s derived from the image
   shape and the integrator's worst-case query count.
-- ``profile_trace``: a torch.profiler trace (the host, and CUDA on a card)
-  of the enclosed block, written as a Chrome trace (the CLI's /profile).
+- ``profile_trace``: a torch.profiler trace (the host, and CUDA once a
+  card is in use) of the enclosed block, written into a directory as a
+  Chrome trace (the CLI's /profile).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -78,16 +79,20 @@ class RenderStats:
 
 
 @contextlib.contextmanager
-def profile_trace(path: str, device: Optional[torch.device] = None):
-    """A torch.profiler trace of the enclosed block (the host, and CUDA
-    when `device` is a card), written to `path` as a Chrome trace (its
-    directory is made)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_trace(log_dir: str):
+    """A torch.profiler trace of the enclosed block, written into the
+    directory `log_dir` (made if missing), as the JAX package's
+    profile_trace(log_dir) writes its device trace there.
+    torch.profiler.tensorboard_trace_handler names the file
+    ``<host>_<pid>.<ns>.pt.trace.json``, so traces of one directory
+    accumulate (a Chrome trace, which TensorBoard's profiler plugin also
+    reads). The host is always recorded; CUDA too whenever a card is
+    initialised in this process."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
-    if device is not None and torch.device(device).type == "cuda":
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
-    prof.export_chrome_trace(path)

@@ -9,7 +9,7 @@ without the suite's conftest:
 Tolerances: K1 exact (winners and t bit for bit: the kernel and its plain
 version perform the same IEEE float32 operations, built without FMA
 contraction), and the K3 query exact against K1 (the same row tests, the
-same tie rule). K2 and K3 against the plain ray_color with the same
+same tie rule). K2 and K3 against ray_color_plain with the same
 uniforms: tests/test_megakernel.py's knife-edge bound (at most 2% of
 lanes with |log1p(a) - log1p(b)| > 1e-3, log1p means within 0.02). K4
 against K3: tests/test_megakernel.py's wavefront bound (at most 0.5% of
@@ -18,14 +18,14 @@ tests/test_golden.py's bounds, with the p99 allowance for mesh0 stated at
 that test, and the mesh scenes under tests/test_torch_stream.py's
 structural bound (repeated here: this file imports no jax).
 
-K2 and K3 are also held bit-equal to the plain ray_color on every lane
+K2 and K3 are also held bit-equal to ray_color_plain on every lane
 (the kernels run the plain version's IEEE operations, and the queries a
 vertex skips cannot reach the result), on scenes that cross every branch
 of the skipped queries: area and point lights, diffuse, mirror and glass
 vertices. A batched kernel-path render is bit-identical to one stratum a
 launch (each ray is computed alone, and the strata are summed in order).
 
-K5 (the telemetry of K2 and K3) against the plain ray_color(debug=True):
+K5 (the telemetry of K2 and K3) against ray_color_plain(debug=True):
 radiance with debug on bit-equal to radiance with it off, and every
 channel equal on every lane and vertex (the kernels run the plain
 version's IEEE operations). K3's xt is compared where either query hit (on a miss the BVH
@@ -68,7 +68,7 @@ from plutracer_tpu_torch.render.integrator import (
     draw_uniforms,
     k2_smem_bytes,
     kernel_tier,
-    ray_color,
+    ray_color_plain,
     resolve_integrator_backend,
 )
 from plutracer_tpu_torch.render.renderer import _finalize, pixel_centers, render, render_passes
@@ -170,7 +170,7 @@ def test_k2_matches_plain(dev, name, options):
     before = ray_color_cuda.launches
     out = ray_color_kernel(s, o, d, u, options)
     assert ray_color_cuda.launches == before + 1
-    ref = ray_color(s, o, d, u, options)
+    ref = ray_color_plain(s, o, d, u, options)
     knife_edge_close(out, ref)
 
 
@@ -198,7 +198,7 @@ def test_k3_query_bit_equal_to_k1(dev, name):
 def test_intersect_backends_on_card(dev, name):
     """chip_smoke phase 19 (a) small: query_lite under "pallas" (one K1
     launch), "bvh" (one K3 query launch) and "xla" (no kernel) give equal
-    winners and t on hits; plain ray_color under the three is bit-equal
+    winners and t on hits; ray_color_plain under the three is bit-equal
     on every lane."""
     s, o, d = scene_and_rays(name, 48, dev)
     counters = {"pallas": closest_hit_cuda, "bvh": closest_hit_bvh_cuda}
@@ -213,7 +213,7 @@ def test_intersect_backends_on_card(dev, name):
         assert torch.equal(got[b][0], f) and torch.equal(got[b][1], got["xla"][1]), b
         assert torch.equal(got[b][2][f], got["xla"][2][f]), b
     u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
-    out = {b: ray_color(s, o, d, u, DEFAULT_OPTIONS.replace(intersect_backend=b))
+    out = {b: ray_color_plain(s, o, d, u, DEFAULT_OPTIONS.replace(intersect_backend=b))
            for b in ("pallas", "bvh", "xla")}
     assert out["pallas"].abs().max() > 0
     for b in ("bvh", "xla"):
@@ -228,7 +228,7 @@ def test_k3_matches_plain(dev, name):
     before = ray_color_stream_cuda.launches
     out = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS)
     assert ray_color_stream_cuda.launches == before + 1
-    knife_edge_close(out, ray_color(s, o, d, u, DEFAULT_OPTIONS))
+    knife_edge_close(out, ray_color_plain(s, o, d, u, DEFAULT_OPTIONS))
 
 
 @pytest.mark.parametrize("sort", ["none", "compact", "morton", "morton5"])
@@ -344,7 +344,7 @@ def test_k5_k2_matches_plain(dev, name):
     L, dbg = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS, debug=True)
     assert ray_color_cuda.debug_launches == before + 1
     assert torch.equal(L, ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS))
-    ref_L, ref = ray_color(s, o, d, u, DEFAULT_OPTIONS, debug=True)
+    ref_L, ref = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS, debug=True)
     knife_edge_close(L, ref_L)
     k5_close(dbg, ref, name)
 
@@ -359,7 +359,7 @@ def test_k5_k3_matches_plain(dev, name):
                               debug=True)
     assert ray_color_stream_cuda.debug_launches == before + 1
     assert torch.equal(L, ray_color_stream_cuda(s, o, d, u, DEFAULT_OPTIONS))
-    ref_L, ref = ray_color(s, o, d, u, DEFAULT_OPTIONS, debug=True)
+    ref_L, ref = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS, debug=True)
     knife_edge_close(L, ref_L)
     k5_close(dbg, ref, name, stream=True)
 
@@ -426,7 +426,7 @@ def glass_stream_scene(dev, res):
 def test_kernel_bit_equal_to_plain(dev, name):
     """K2 (demo-box: area light, glass; dof: point light; textured0) and
     K3 (sphere-grid, mesh0: point lights; glass-stream: area light and
-    glass on K3) against the plain ray_color, every lane bit for bit."""
+    glass on K3) against ray_color_plain, every lane bit for bit."""
     if name == "glass-stream":
         s = glass_stream_scene(dev, 96)
         g = torch.Generator(device="cpu").manual_seed(96)
@@ -440,7 +440,7 @@ def test_kernel_bit_equal_to_plain(dev, name):
     stream = s.num_prims > 64
     assert (ray_color_stream_cuda.launches - k3, ray_color_cuda.launches - k2) == (
         (1, 0) if stream else (0, 1))
-    ref = ray_color(s, o, d, u, DEFAULT_OPTIONS)
+    ref = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS)
     assert torch.isfinite(out).all() and ref.abs().max() > 0
     assert torch.equal(out, ref), f"{(out != ref).any(-1).sum().item()} lanes differ"
 
@@ -461,7 +461,7 @@ def filled_scene(dev, extra):
 def test_beyond_cap_scenes_on_card(dev, name):
     """chip_smoke phase 19 (c) small: scenes past the JAX package's TPU
     caps take the kernel path, through the kernel kernel_tier names,
-    bit-equal to the plain ray_color on every lane."""
+    bit-equal to ray_color_plain on every lane."""
     if name.startswith("k2-"):
         s = filled_scene(dev, int(name == "k2-budget-past"))
         g = torch.Generator(device="cpu").manual_seed(48)
@@ -477,7 +477,7 @@ def test_beyond_cap_scenes_on_card(dev, name):
     before = counter.launches
     out = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS)
     assert counter.launches == before + 1
-    ref = ray_color(s, o, d, u, DEFAULT_OPTIONS)
+    ref = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS)
     assert torch.isfinite(out).all() and ref.abs().max() > 0
     assert torch.equal(out, ref), f"{(out != ref).any(-1).sum().item()} lanes differ"
 
@@ -502,8 +502,8 @@ def test_k4_k5_beyond_caps_on_card(dev, name):
     """chip_smoke phase 19 (c) small: on K3-tier scenes past the JAX
     package's TPU caps (demo-box past K2's shared memory, with M far past
     16; a sphere cloud past 2^20 primitives), K4 (stream_wavefront: one
-    launch a bounce) bit-equal to the plain ray_color on every lane, and
-    K5 (K3's debug launch) equal to ray_color(debug=True) on every
+    launch a bounce) bit-equal to ray_color_plain on every lane, and
+    K5 (K3's debug launch) equal to ray_color_plain(debug=True) on every
     channel."""
     # each scene's own camera resolution
     s, res = (filled_scene(dev, 1), 48) if name == "k2-budget-past" else (cloud_past_2_20(dev), 64)
@@ -518,7 +518,7 @@ def test_k4_k5_beyond_caps_on_card(dev, name):
     L5, dbg = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS, debug=True)
     assert (onebounce_cuda.launches - before[0], ray_color_stream_cuda.debug_launches - before[1]) \
         == (DEFAULT_OPTIONS.max_bounces, 1)
-    ref_L, ref = ray_color(s, o, d, u, DEFAULT_OPTIONS, debug=True)
+    ref_L, ref = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS, debug=True)
     assert torch.isfinite(L4).all() and ref_L.abs().max() > 0
     for what, L in (("K4", L4), ("K5", L5)):
         assert torch.equal(L, ref_L), f"{what}: {(L != ref_L).any(-1).sum().item()} lanes differ"
@@ -655,13 +655,13 @@ def test_mesh_train_step_one_process_equals_two_on_card(dev):
 
 
 def test_terms_on_card(dev):
-    """ray_color(terms=True) on a card scene's plain path: the radiance
+    """ray_color_plain(terms=True) on a card scene's plain path: the radiance
     bit-equal to terms=False (and to K2), the terms summing to it within
     1e-6 of its largest entry."""
     s, o, d = scene_and_rays("demo-box", 64, dev)
     u = draw_uniforms(rng.PRNGKey(4), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
-    L, ys = ray_color(s, o, d, u, DEFAULT_OPTIONS, terms=True)
-    assert torch.equal(L, ray_color(s, o, d, u, DEFAULT_OPTIONS))
+    L, ys = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS, terms=True)
+    assert torch.equal(L, ray_color_plain(s, o, d, u, DEFAULT_OPTIONS))
     assert torch.equal(L, ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS))
     assert ys.shape == (DEFAULT_OPTIONS.max_bounces, 3, o.shape[0], 3)
     err = (ys.double().sum((0, 1)) - L.double()).abs().max()
@@ -1171,3 +1171,45 @@ def test_render_elastic_two_cards(two_cards):
     one = render_sharded(s, 64, 48, 2, rng.PRNGKey(7), make_mesh((2, 1), devices=[cuda0] * 2))
     two = render_sharded(s, 64, 48, 2, rng.PRNGKey(7), make_mesh((2, 1), devices=[cuda0, cuda1]))
     assert torch.equal(one, two.to(cuda0))
+
+
+@pytest.mark.parametrize("name,tier", [("demo-box", "k2"), ("mesh1", "k3"), ("sphere-grid", "k3")])
+def test_ray_color_of_a_key_bit_equal_to_plain(dev, name, tier):
+    """render.ray_color(scene, o, d, key[, options, terms]), the JAX
+    package's call: one kernel launch, bit-equal to ray_color_plain on
+    draw_uniforms(key)'s uniforms; terms=True raises on the kernel path."""
+    from plutracer_tpu_torch import render as render_pkg
+
+    s, o, d = scene_and_rays(name, 64, dev)
+    assert kernel_tier(s, DEFAULT_OPTIONS) == tier
+    kernel = ray_color_cuda if tier == "k2" else ray_color_stream_cuda
+    key = rng.PRNGKey(9)
+    before = kernel.launches
+    got = render_pkg.ray_color(s, o, d, key)
+    assert kernel.launches == before + 1
+    u = draw_uniforms(key, o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
+    assert torch.equal(got, ray_color_plain(s, o, d, u, DEFAULT_OPTIONS))
+    assert torch.equal(render_pkg.ray_color(s, o, d, key, DEFAULT_OPTIONS, False), got)
+    with pytest.raises(ValueError, match="terms"):
+        render_pkg.ray_color(s, o, d, key, DEFAULT_OPTIONS, True)
+
+
+def test_profile_trace_holds_k2_launches(dev, tmp_path):
+    """profile_trace(log_dir) around a demo-box render on the card, with no
+    device named: its trace in log_dir holds K2's launches by name."""
+    import json
+
+    from plutracer_tpu_torch.utils import profile_trace
+
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x48"]),
+                      device=dev)
+    before = ray_color_cuda.launches
+    with profile_trace(str(tmp_path / "prof")):
+        render(s, 64, 48, 2, rng.PRNGKey(0))
+        torch.cuda.synchronize()
+    assert ray_color_cuda.launches > before
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    kernels = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert any("megakernel" in k and "stream" not in k and "onebounce" not in k
+               for k in kernels), sorted(set(kernels))

@@ -1,4 +1,4 @@
-"""The port's per-bounce telemetry (K5's plain version, ray_color(...,
+"""The port's per-bounce telemetry (K5's plain version, ray_color_plain(...,
 debug=True)) against the JAX megakernels' debug output
 (ray_color_pallas(..., interpret=True, debug=True)) on the same rays and
 key: demo-box 16x16 (the K2 path, P <= 64) and sphere-grid 16x16 (the K3
@@ -50,7 +50,7 @@ from plutracer_tpu.semantics import DEFAULT_OPTIONS as JAX_OPTIONS
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops.cuda import DBG_C, DBG_CHANNELS
 from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_kernel
-from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color
+from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color_plain
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
 from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
@@ -140,7 +140,7 @@ def test_debug_channels_match_jax(both, name):
 def test_debug_leaves_radiance_unchanged(both, name):
     ts, o, d, jL, _ = both[name]
     u, L, _ = port_debug(ts, o, d)
-    plain = ray_color(ts, torch.tensor(o), torch.tensor(d), u, DEFAULT_OPTIONS)
+    plain = ray_color_plain(ts, torch.tensor(o), torch.tensor(d), u, DEFAULT_OPTIONS)
     assert torch.equal(L, plain)
     a, b = np.log1p(np.maximum(L.numpy(), 0.0)), np.log1p(np.maximum(jL, 0.0))
     assert (np.abs(a - b) > 1e-3).mean() <= 0.02

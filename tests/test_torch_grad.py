@@ -196,7 +196,7 @@ def test_kernel_function_matches_plain_autograd():
     """integrator.KernelRadiance (the kernel path with a plain backward; on
     CPU tensors its forward is the plain version) against autograd through
     the plain path, for the scene leaves and the rays."""
-    from plutracer_tpu_torch.render.integrator import DIFF_LEAVES, KernelRadiance, radiance
+    from plutracer_tpu_torch.render.integrator import DIFF_LEAVES, KernelRadiance, ray_color
 
     scene = compile_scene(load_scene_file("scenes/demo-box.urn", ["/res", "12x8"]), device="cpu")
     g = np.random.default_rng(0)
@@ -211,7 +211,7 @@ def test_kernel_function_matches_plain_autograd():
         leaves = {k: getattr(scene, k).clone().requires_grad_() for k in DIFF_LEAVES}
         o, d = o0.clone().requires_grad_(), d0.clone().requires_grad_()
         sc = dataclasses.replace(scene, **leaves)
-        L = radiance(sc, o, d, key, DEFAULT_OPTIONS.replace(integrator_backend=backend))
+        L = ray_color(sc, o, d, key, DEFAULT_OPTIONS.replace(integrator_backend=backend))
         got = torch.autograd.grad((L * weights).sum(), [o, d, *leaves.values()])
         return L.detach(), got, L.grad_fn
 

@@ -1,4 +1,4 @@
-"""The port's plain integrator (ray_color fed explicit uniforms) against the
+"""The port's plain integrator (ray_color_plain fed explicit uniforms) against the
 JAX integrator, and the K2 wrapper and backend routing.
 
 The uniforms come from the port's rng and are first asserted equal to the
@@ -7,7 +7,15 @@ those of tests/test_megakernel.py (there: Pallas megakernel vs XLA): per
 lane |log1p(a) - log1p(b)| > 1e-3 on at most 2% of lanes (float32
 reassociation flips isolated knife-edge lanes, e.g. a refracted ray's near
 root at 0), and log1p means within 0.02. K2 itself is held to the plain
-ray_color on a card in tests/test_torch_cuda.py.
+ray_color_plain on a card in tests/test_torch_cuda.py.
+
+Both packages' render.ray_color(scene, o, d, key[, options, terms]) take
+the same positional arguments (the key from each package's PRNGKey of
+one seed): the same bounds, and on the CPU the port's is ray_color_plain
+on draw_uniforms(key)'s uniforms bit for bit. mesh0 takes 3% of lanes,
+tests/test_torch_stream.py's allowance for it (the triangle self-hit
+knife edge, which XLA's FMA-contracted arithmetic and unfused float32
+decide differently): measured 2.55% at 24x24, key 7.
 """
 
 import dataclasses
@@ -17,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from plutracer_tpu import render as jax_render_pkg
 from plutracer_tpu.ops.camera import generate_rays as jax_generate_rays
 from plutracer_tpu.ops.pallas.integrator_kernel import ray_color_pallas
 from plutracer_tpu.render.integrator import ray_color as jax_ray_color
@@ -24,13 +33,14 @@ from plutracer_tpu.render.renderer import pixel_centers as jax_pixel_centers
 from plutracer_tpu.scene import compile_scene as jax_compile
 from plutracer_tpu.scene import load_scene_file as jax_load
 from plutracer_tpu.semantics import DEFAULT_OPTIONS as JAX_OPTIONS
+from plutracer_tpu_torch import render as render_pkg
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
 from plutracer_tpu_torch.render.integrator import (
     draw_uniforms,
     kernel_tier,
     megakernel_eligible,
-    ray_color,
+    ray_color_plain,
     resolve_integrator_backend,
 )
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
@@ -53,12 +63,12 @@ def setup(name, res, seed=7):
     return js, ts, np.asarray(o), np.asarray(d), seed
 
 
-def assert_knife_edge_close(out, ref, name):
+def assert_knife_edge_close(out, ref, name, allowance=0.02):
     assert np.isfinite(out).all()
     a = np.log1p(np.maximum(out, 0.0))
     b = np.log1p(np.maximum(ref, 0.0))
     diff = np.abs(a - b)
-    assert (diff > 1e-3).mean() <= 0.02, (
+    assert (diff > 1e-3).mean() <= allowance, (
         f"{name}: {(diff > 1e-3).mean():.2%} lanes differ > 1e-3; max={diff.max():.2e}")
     assert abs(a.mean() - b.mean()) <= 0.02, f"{name}: log1p mean {a.mean():.4f} vs {b.mean():.4f}"
 
@@ -78,8 +88,38 @@ def test_plain_matches_jax_xla(name):
     js, ts, o, d, seed = setup(name, 32)
     u = port_uniforms(seed, o.shape[0])
     ref = np.asarray(jax_ray_color(js, o, d, jax.random.PRNGKey(seed), XLA))
-    out = ray_color(ts, torch.from_numpy(o), torch.from_numpy(d), u, DEFAULT_OPTIONS).numpy()
+    out = ray_color_plain(ts, torch.from_numpy(o), torch.from_numpy(d), u, DEFAULT_OPTIONS).numpy()
     assert_knife_edge_close(out, ref, name)
+
+
+@pytest.mark.parametrize("name,allowance", [("demo-box", 0.02), ("mesh0", 0.03)])
+def test_ray_color_takes_jax_call(name, allowance):
+    """render.ray_color(scene, o, d, key) of both packages, the same
+    positional arguments: within the bounds above, and the port's equal to
+    ray_color_plain on the key's uniforms."""
+    js, ts, o, d, seed = setup(name, 24)
+    ref = np.asarray(jax_render_pkg.ray_color(js, o, d, jax.random.PRNGKey(seed)))
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
+    out = render_pkg.ray_color(ts, to, td, rng.PRNGKey(seed))
+    assert_knife_edge_close(out.numpy(), ref, name, allowance)
+    u = draw_uniforms(rng.PRNGKey(seed), o.shape[0], DEFAULT_OPTIONS.max_bounces, "cpu")
+    assert torch.equal(out, ray_color_plain(ts, to, td, u, DEFAULT_OPTIONS))
+
+
+def test_ray_color_terms_take_jax_call():
+    """ray_color(scene, o, d, key, options, True) of both packages on
+    demo-box: the radiance and each (bounce, site) term within the bounds
+    above."""
+    js, ts, o, d, seed = setup("demo-box", 24)
+    ref_L, ref_terms = jax_render_pkg.ray_color(js, o, d, jax.random.PRNGKey(seed),
+                                                JAX_OPTIONS, True)
+    L, terms = render_pkg.ray_color(ts, torch.from_numpy(o), torch.from_numpy(d),
+                                    rng.PRNGKey(seed), DEFAULT_OPTIONS, True)
+    assert terms.shape == ref_terms.shape == (DEFAULT_OPTIONS.max_bounces, 3, o.shape[0], 3)
+    assert_knife_edge_close(L.numpy(), np.asarray(ref_L), "demo-box terms=True radiance")
+    for site in range(3):
+        assert_knife_edge_close(terms[:, site].numpy(), np.asarray(ref_terms)[:, site],
+                                f"demo-box term {site}")
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -104,7 +144,7 @@ def test_plain_matches_jax_quirk_switches(quirks):
     u = draw_uniforms(rng.PRNGKey(seed), o.shape[0], opts.max_bounces, "cpu")
     ref = np.asarray(jax_ray_color(js, o, d, jax.random.PRNGKey(seed),
                                    XLA.replace(**quirks)))
-    out = ray_color(ts, torch.from_numpy(o), torch.from_numpy(d), u, opts).numpy()
+    out = ray_color_plain(ts, torch.from_numpy(o), torch.from_numpy(d), u, opts).numpy()
     assert_knife_edge_close(out, ref, quirks)
 
 

@@ -56,7 +56,8 @@ def test_failed_rendezvous_raises(tmp_path):
     """A world of 2 whose second process never comes: the rendezvous times
     out and raises, and leaves no process group behind."""
     with pytest.raises(RuntimeError, match="(?i)timeout"):
-        initialize_distributed(f"file://{tmp_path}/rendezvous", 2, 0, "gloo", timeout=2.0)
+        initialize_distributed(f"file://{tmp_path}/rendezvous", num_processes=2, process_id=0,
+                               backend="gloo", timeout=2.0)
     assert not dist.is_initialized()
 
 
@@ -70,7 +71,8 @@ def test_failed_worker_fails_the_job():
 def test_mesh_spans_every_rank(tmp_path):
     """In a world of 1 the mesh is built under the process group and its
     partials go through the collective, with the same image."""
-    initialize_distributed(f"file://{tmp_path}/rendezvous", 1, 0, "gloo", timeout=60.0)
+    initialize_distributed(f"file://{tmp_path}/rendezvous", num_processes=1, process_id=0,
+                           backend="gloo", timeout=60.0)
     try:
         mesh = make_mesh((2, 1), devices=[torch.device("cpu")] * 2)
         assert mesh.distributed and mesh.world == 1

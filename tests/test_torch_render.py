@@ -83,7 +83,7 @@ def test_cli_rejects_unported_flags(flag, tmp_path):
         return
     assert cli.main(args + [flag, str(target)]) == 0
     assert (tmp_path / "x.bmp").exists()
-    made = target / "render.trace.json" if flag == "/profile" else target
+    made = next(target.glob("*.pt.trace.json")) if flag == "/profile" else target
     assert made.exists() and made.stat().st_size > 0
 
 

@@ -50,7 +50,7 @@ from plutracer_tpu_torch.render.integrator import (
     k2_smem_bytes,
     kernel_tier,
     megakernel_eligible,
-    ray_color,
+    ray_color_plain,
     resolve_integrator_backend,
 )
 from plutracer_tpu_torch.render.renderer import pixel_centers, render, render_pass
@@ -133,14 +133,14 @@ def test_query_matches_jax(name, backend):
 
 @pytest.mark.parametrize("name", ["sphere-grid", "mesh0"])
 def test_plain_radiance_equal_across_backends(name):
-    """Plain ray_color at 16x12, one stratum, the same uniforms: bit-equal
+    """Plain ray_color_plain at 16x12, one stratum, the same uniforms: bit-equal
     under the three backends."""
     s = compile_scene(load_scene_file(f"scenes/{name}.urn", ["/res", "16x12"]), device="cpu")
     g = torch.Generator().manual_seed(1)
     px = pixel_centers(16, 12) + torch.rand((192, 2), generator=g)
     o, d = generate_rays(s.camera, px, torch.rand((192, 2), generator=g))
     u = draw_uniforms(rng.PRNGKey(3), 192, DEFAULT_OPTIONS.max_bounces, "cpu")
-    out = {b: ray_color(s, o, d, u, opts(b)) for b in BACKENDS}
+    out = {b: ray_color_plain(s, o, d, u, opts(b)) for b in BACKENDS}
     assert (out["xla"] > 0).any(-1).float().mean() > 0.2
     for b in ("pallas", "bvh"):
         diff = (out[b] != out["xla"]).any(-1)
@@ -223,7 +223,7 @@ def test_unknown_intersect_backend_raises(backend):
         intersect.query_lite(s, o, d, opts(backend))
     u = draw_uniforms(rng.PRNGKey(0), o.shape[0], DEFAULT_OPTIONS.max_bounces, "cpu")
     with pytest.raises(ValueError, match="intersect_backend"):
-        ray_color(s, o, d, u, opts(backend))
+        ray_color_plain(s, o, d, u, opts(backend))
 
 
 def gate_case(case):

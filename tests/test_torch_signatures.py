@@ -3,7 +3,10 @@ safemath.normalize(v, axis, eps), compile_scene(desc, options,
 build_accel) and make_mesh(shape, axis_names, devices), each against the
 JAX function; and its import paths: every name a JAX subpackage exports
 (``__all__``) and the top level's public names are exported by the
-port's counterpart, or mapped or left out by name in README.md.
+port's counterpart, or mapped or left out by name in README.md; and
+every public function and class each JAX module defines (ops.pallas and
+__main__ aside), held to the port's at the same path: it takes every call
+of the JAX one (signature_faults), one case a module.
 
 Tolerances: normalize within 1 ulp-scale (rtol 1e-6) of the JAX function
 (both compute v * rsqrt(sum(v * v) + eps); XLA's CPU rsqrt and torch's may
@@ -286,3 +289,83 @@ print("ok", len({subs!r}))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0 and out.stdout.startswith("ok"), out.stderr[-2000:]
+
+
+# ---- every exported signature of the JAX package ----
+
+JAX_MODULES = ["", *sorted(
+    m.name[len("plutracer_tpu."):]
+    for m in pkgutil.walk_packages(plutracer_tpu.__path__, "plutracer_tpu.")
+    if not m.name.startswith("plutracer_tpu.ops.pallas") and not m.name.endswith("__main__"))]
+POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
+VARIADIC = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+
+
+def _defined(mod):
+    """The public functions and classes a module defines (not those it
+    imports)."""
+    return {n: o for n, o in vars(mod).items()
+            if not n.startswith("_") and (inspect.isfunction(o) or inspect.isclass(o))
+            and o.__module__ == mod.__name__}
+
+
+def signature_faults(jobj, tobj):
+    """How the port's `tobj` would refuse a call of the JAX package's
+    `jobj`: JAX's positional parameters must be, in order, the first of the
+    port's, by the same names and kinds; JAX's keyword-only ones must be
+    keywords of the port; a JAX default must be a port default; JAX's
+    *args and **kw must be the port's; and every further parameter of the
+    port must be keyword-only or have a default."""
+    try:
+        js = inspect.signature(jobj)
+    except (TypeError, ValueError):  # a class of a builtin base (an exception)
+        return [] if inspect.isclass(tobj) else ["a class in JAX, not in the port"]
+    ts = inspect.signature(tobj)
+    jp, tp = list(js.parameters.values()), list(ts.parameters.values())
+    jpos, tpos = [p for p in jp if p.kind in POSITIONAL], [p for p in tp if p.kind in POSITIONAL]
+    faults = []
+    if [(p.name, p.kind) for p in jpos] != [(p.name, p.kind) for p in tpos[:len(jpos)]]:
+        faults.append(f"positional {[p.name for p in jpos]} are not the first of "
+                      f"{[p.name for p in tpos]}")
+    byname = {p.name: p for p in tp}
+    for p in jp:
+        q = byname.get(p.name)
+        if p.kind is inspect.Parameter.KEYWORD_ONLY and (q is None or q.kind in VARIADIC
+                                                         or q.kind is q.POSITIONAL_ONLY):
+            faults.append(f"keyword {p.name} missing")
+        if p.kind in VARIADIC and not any(q.kind is p.kind for q in tp):
+            faults.append(f"{p} missing")
+        if p.default is not p.empty and q is not None and q.default is q.empty \
+                and q.kind not in VARIADIC:
+            faults.append(f"{p.name} has no default")
+    known = {p.name for p in jp}
+    for q in tp[len(jpos):]:
+        if q.name not in known and q.kind not in VARIADIC and q.default is q.empty \
+                and q.kind is not q.KEYWORD_ONLY:
+            faults.append(f"further parameter {q.name} is positional without a default")
+    return faults
+
+
+@pytest.mark.parametrize("sub", JAX_MODULES, ids=lambda s: s or "plutracer_tpu")
+def test_jax_signatures_held(sub):
+    """Each public function and class a JAX module defines has a
+    counterpart of the same name in the port's module of the same path
+    that takes every call of the JAX one (signature_faults). A name the
+    port lacks at that path must be mapped by README's name table or left
+    out by its "Left out on purpose" paragraph; no other name is exempt."""
+    jmod = importlib.import_module("plutracer_tpu" + (f".{sub}" if sub else ""))
+    try:
+        tmod = importlib.import_module("plutracer_tpu_torch" + (f".{sub}" if sub else ""))
+    except ModuleNotFoundError:
+        tmod = None
+    mapped, left_out = _readme_names()
+    faults = {}
+    for name, jobj in _defined(jmod).items():
+        if tmod is None or not hasattr(tmod, name):
+            if f"{sub}.{name}" not in mapped and name not in left_out:
+                faults[name] = ["no counterpart"]
+            continue
+        got = signature_faults(jobj, getattr(tmod, name))
+        if got:
+            faults[name] = got
+    assert not faults, f"plutracer_tpu{'.' + sub if sub else ''}: {faults}"

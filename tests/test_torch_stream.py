@@ -35,7 +35,7 @@ from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.render.integrator import (
     kernel_tier,
     megakernel_eligible,
-    radiance,
+    ray_color,
     resolve_integrator_backend,
 )
 from plutracer_tpu_torch.render.renderer import render
@@ -166,7 +166,7 @@ def test_routing_agrees_with_jax_at_the_edges(case):
 def test_plain_radiance_matches_jax_stream_kernel(jax_stream, name, allowance):
     ts, o, d, ref = jax_stream[name]
     assert kernel_tier(ts, DEFAULT_OPTIONS) == "k3"
-    out = radiance(ts, torch.from_numpy(o), torch.from_numpy(d), rng.PRNGKey(KEY)).numpy()
+    out = ray_color(ts, torch.from_numpy(o), torch.from_numpy(d), rng.PRNGKey(KEY)).numpy()
     knife_edge_close(out, ref, name, allowance)
 
 
@@ -175,7 +175,7 @@ def test_mesh_tex_matches_jax_stream_kernel(jax_stream):
     (tests/test_megakernel.py's 3% allowance)."""
     ts, o, d, ref = jax_stream["mesh-tex"]
     assert ts.atlas.shape[0] > 1 and megakernel_eligible(ts, DEFAULT_OPTIONS)
-    out = radiance(ts, torch.from_numpy(o), torch.from_numpy(d), rng.PRNGKey(KEY)).numpy()
+    out = ray_color(ts, torch.from_numpy(o), torch.from_numpy(d), rng.PRNGKey(KEY)).numpy()
     knife_edge_close(out, ref, "mesh-tex", allowance=0.03)
 
 

@@ -30,7 +30,7 @@ import torch
 from plutracer_tpu.utils.profiling import PhaseTimer as JaxPhaseTimer
 from plutracer_tpu.utils.profiling import RenderStats as JaxRenderStats
 from plutracer_tpu_torch import rng
-from plutracer_tpu_torch.render.integrator import radiance_of_uniforms, ray_color
+from plutracer_tpu_torch.render.integrator import radiance_of_uniforms, ray_color_plain
 from plutracer_tpu_torch.render.renderer import _stratum_rays, pixel_centers, render, render_image
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
@@ -125,11 +125,26 @@ def test_phase_timer_equal_jax():
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    """profile_trace(log_dir), the JAX package's call: the directory is
+    made and the trace written inside it."""
     s = compile_scene(load_scene_file(DEMO, ["/res", "8x6"]), device="cpu")
-    with profile_trace(str(tmp_path / "prof" / "render.json"), s.device):
+    with profile_trace(str(tmp_path / "prof")):
         render(s, 8, 6, 1, rng.PRNGKey(0))
-    events = json.loads((tmp_path / "prof" / "render.json").read_text())["traceEvents"]
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+
+
+def test_profile_trace_accumulates_in_its_directory(tmp_path):
+    """Two traces into one directory are two files, as the JAX profiler's
+    runs accumulate in its log_dir; with no card in use no CUDA activity
+    is recorded."""
+    s = compile_scene(load_scene_file(DEMO, ["/res", "8x6"]), device="cpu")
+    for _ in range(2):
+        with profile_trace(str(tmp_path)) as prof:
+            render(s, 8, 6, 1, rng.PRNGKey(0))
+        assert torch.profiler.ProfilerActivity.CUDA not in prof.activities
+    assert len(list(tmp_path.glob("*.pt.trace.json"))) == 2
 
 
 def test_render_image_within_golden_bounds_of_jax(jax_runs):
@@ -147,9 +162,9 @@ def _pass0(s):
 def test_terms_split_matches_jax(jax_runs):
     s = compile_scene(load_scene_file(DEMO, ["/res", f"{RES}x{RES}"]), device="cpu")
     o, d, u = _pass0(s)
-    L, ys = ray_color(s, o, d, u, PLAIN, terms=True)
+    L, ys = ray_color_plain(s, o, d, u, PLAIN, terms=True)
     assert ys.shape == (PLAIN.max_bounces, 3, RES * RES, 3)
-    assert torch.equal(L, ray_color(s, o, d, u, PLAIN))  # terms=False: the same bits
+    assert torch.equal(L, ray_color_plain(s, o, d, u, PLAIN))  # terms=False: the same bits
     L64 = L.double().numpy()
     assert np.abs(ys.double().sum((0, 1)).numpy() - L64).max() <= 1e-6 * np.abs(L64).max()
     base, _, jungated = jax_runs()
@@ -167,7 +182,7 @@ def test_terms_split_matches_jax(jax_runs):
     # without the gate the NEE BSDF term carries radiance: held against
     # the JAX package's there
     ungated = PLAIN.replace(shading_normal_le_gate=False)
-    L, ys = ray_color(s, o, d, u, ungated, terms=True)
+    L, ys = ray_color_plain(s, o, d, u, ungated, terms=True)
     assert ys[:, 2].any() and jungated[:, 2].any()
     L64 = L.double().numpy()
     assert np.abs(ys.double().sum((0, 1)).numpy() - L64).max() <= 1e-6 * np.abs(L64).max()
@@ -196,7 +211,7 @@ def test_term_dump_then_term_diff(jax_runs, tmp_path, capsys, monkeypatch):
     assert out["terms"].shape == (RES, RES, 3, nb, 3)
     # the dump is pass 0's split and radiance
     s = compile_scene(load_scene_file(DEMO, ["/res", f"{RES}x{RES}"]), device="cpu")
-    L, ys = ray_color(s, *_pass0(s), PLAIN, terms=True)
+    L, ys = ray_color_plain(s, *_pass0(s), PLAIN, terms=True)
     assert np.array_equal(out["linear"].reshape(-1, 3), L.numpy())
     assert np.array_equal(out["terms"].reshape(-1, 3, nb, 3), ys.numpy().transpose(2, 1, 0, 3))
     base = jax_runs()[0]

@@ -29,7 +29,7 @@ from plutracer_tpu_torch.ops.camera import generate_rays
 from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_plain, walk_closest_plain
 from plutracer_tpu_torch.ops.intersect import T_MAX
 from plutracer_tpu_torch.render import renderer
-from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color
+from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color_plain
 from plutracer_tpu_torch.render.renderer import pixel_centers
 from plutracer_tpu_torch.render.wavefront import ray_color_wavefront
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
@@ -327,4 +327,4 @@ def test_dead_lanes_leave_prim_and_t_stale():
         opts = DEFAULT_OPTIONS.replace(stream_wavefront=True, stream_sort=sort)
         want = ray_color_wavefront(s, o, d, u, opts, step=onebounce_plain)
         assert torch.equal(ray_color_wavefront(s, o, d, u, opts, step=poisoned), want)
-    assert torch.equal(want, ray_color(s, o, d, u, DEFAULT_OPTIONS))
+    assert torch.equal(want, ray_color_plain(s, o, d, u, DEFAULT_OPTIONS))

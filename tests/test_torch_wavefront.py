@@ -1,11 +1,11 @@
 """The port's wavefront loop (render/wavefront.py) against the plain
-ray_color, a host loop and the JAX package: bit-equality under every
+ray_color_plain, a host loop and the JAX package: bit-equality under every
 reorder, the Morton and sort keys, every ray written once, and the K3/K4
 launchers' refusals on the CPU. Split from tests/test_torch_stream.py,
 whose helpers it uses.
 
 Bounds:
-- the wavefront loop over plain_bounce vs the plain ray_color: bit-equal
+- the wavefront loop over plain_bounce vs ray_color_plain: bit-equal
   (the same per-ray operations, only the row order differs);
 - the Morton key vs JAX's _morton_key: bit-equal (integer work);
 - the port's wavefront vs JAX's _ray_color_stream_wavefront: the
@@ -26,8 +26,8 @@ from plutracer_tpu_torch.ops.tables import pack_tables
 from plutracer_tpu_torch.render.integrator import (
     draw_uniforms,
     kernel_tier,
-    radiance,
     ray_color,
+    ray_color_plain,
 )
 from plutracer_tpu_torch.render.renderer import pixel_centers
 from plutracer_tpu_torch.render.wavefront import (
@@ -53,7 +53,7 @@ def test_wavefront_bit_equal_to_ray_color(sort):
     px = pixel_centers(16, 16) + torch.rand((256, 2), generator=g)
     o, d = generate_rays(s.camera, px, torch.rand((256, 2), generator=g))
     u = draw_uniforms(rng.PRNGKey(KEY), 256, DEFAULT_OPTIONS.max_bounces, "cpu")
-    ref = ray_color(s, o, d, u, DEFAULT_OPTIONS)
+    ref = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS)
     assert (ref > 0).any(-1).float().mean() > 0.1
     opts = DEFAULT_OPTIONS.replace(stream_wavefront=True, stream_sort=sort)
     assert kernel_tier(s, opts) == "k4"
@@ -80,7 +80,7 @@ def test_wavefront_matches_jax_wavefront():
     opts = DEFAULT_OPTIONS.replace(**kw)
     ref = np.asarray(jik.ray_color_pallas(js, o, d, jax.random.PRNGKey(KEY), JAX_OPTIONS.replace(**kw),
                                           interpret=True))
-    out = radiance(ts, torch.from_numpy(o), torch.from_numpy(d), rng.PRNGKey(KEY),
+    out = ray_color(ts, torch.from_numpy(o), torch.from_numpy(d), rng.PRNGKey(KEY),
                    opts.replace(integrator_backend="kernel")).numpy()
     knife_edge_close(out, ref, "sphere-grid wavefront")
 
@@ -141,7 +141,7 @@ def test_sort_keys_equal_jax_keys(sort):
 
 
 def ray_color_state(s, o, d, u):
-    """The state after ray_color's first vertex (a carry with live, dead
+    """The state after ray_color_plain's first vertex (a carry with live, dead
     and missed lanes)."""
     from plutracer_tpu_torch.ops.intersect import intersect_lite
     from plutracer_tpu_torch.render.integrator import PathState, plain_bounce
@@ -213,4 +213,4 @@ def test_wavefront_writes_every_ray_once(sort):
             assert int(counts[0]) == 0 and int(counts[mb]) == o.shape[0]
             assert torch.equal(out, torch.zeros_like(out))
         else:
-            assert torch.equal(out, ray_color(s, o, d, u, DEFAULT_OPTIONS))
+            assert torch.equal(out, ray_color_plain(s, o, d, u, DEFAULT_OPTIONS))
