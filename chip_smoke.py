@@ -544,6 +544,27 @@ def stratum_by_stratum(scene, w, h, n, key, options):
     return _finalize(acc, n * n, w, h)
 
 
+@contextlib.contextmanager
+def counting():
+    """Count the kernels' launches inside the block, from 0: utils/profiling's
+    record cleared, then recording on (the wrappers count only while it
+    records; its spans add torch.profiler.record_function's cost to what the
+    block times)."""
+    from plutracer_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with profiling.recording():
+        yield
+
+
+def launched(kernel: str) -> int:
+    """The launches of `kernel` (k1, k1_bvh, k2, k2_debug, k3, k3_debug, k4,
+    r1, r2) counted so far inside counting(): launches.<kernel>."""
+    from plutracer_tpu_torch.utils import profiling
+
+    return profiling.counter(f"launches.{kernel}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -554,12 +575,8 @@ def main() -> int:
     from plutracer_tpu_torch.ops.camera import generate_rays
     from plutracer_tpu_torch.ops.cuda import build
     from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
-    from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
-        closest_hit, closest_hit_cuda, closest_hit_plain,
-    )
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit, closest_hit_plain
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
     from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color_plain
     from plutracer_tpu_torch.render.renderer import (
         camera_rays_plain, launch_draws, launch_rays, pixel_centers, render,
@@ -621,11 +638,12 @@ def main() -> int:
              (f"mesh0 ragged B={65536 - RAGGED}", mesh0, m0p[RAGGED:], ext_d[RAGGED:65536]),
              ("mesh0 a ray tile (the table split across blocks)", mesh0, m0p[:256],
               ext_d[:256]))
-    for what, sc, ro, rd in cases:
-        before = closest_hit_cuda.launches
-        got = closest_hit(sc.prims_packed, ro, rd, sc.packed_type_rows)
-        assert closest_hit_cuda.launches == before + 1, what  # one launch a call
-        k1_err = max(k1_err, k1_equal_plain(sc, ro, rd, got, what))
+    with counting():
+        for what, sc, ro, rd in cases:
+            before = launched("k1")
+            got = closest_hit(sc.prims_packed, ro, rd, sc.packed_type_rows)
+            assert launched("k1") == before + 1, what  # one launch a call
+            k1_err = max(k1_err, k1_equal_plain(sc, ro, rd, got, what))
     k1_times(mesh0, m0o, m0d, "mesh0 camera", card)
     del mesh0, m0o, m0d, m0p
     k1_ms, _ = k1_times(scene, o, d, "demo-box primary", card)
@@ -652,13 +670,10 @@ def main() -> int:
     phase("5 small-scene path")
     with tempfile.TemporaryDirectory() as tmp:
         bmp = pathlib.Path(tmp) / "demo-box.bmp"
-        closest_hit_cuda.launches = 0
-        ray_color_cuda.launches = 0
-        uniform_block_cuda.launches = 0
-        camera_rays_cuda.launches = 0
-        res = cli.run([str(ROOT / "scenes" / "demo-box.urn"), "/o", str(bmp), "/seed", "7"])
-        launches = {"K1": closest_hit_cuda.launches, "K2": ray_color_cuda.launches,
-                    "R1": uniform_block_cuda.launches, "R2": camera_rays_cuda.launches}
+        with counting():
+            res = cli.run([str(ROOT / "scenes" / "demo-box.urn"), "/o", str(bmp), "/seed", "7"])
+            launches = {"K1": launched("k1"), "K2": launched("k2"),
+                        "R1": launched("r1"), "R2": launched("r2")}
         assert bmp.exists() and bmp.stat().st_size > 512 * 512 * 3, "BMP not written"
     assert res.integrator == "kernel", res.integrator
     assert tuple(res.linear.shape) == (512, 512, 3) and res.linear.device.type == "cuda"
@@ -910,16 +925,12 @@ def big_scene_phases(phase, dev, card):
     the R1 and R2 launches of phase 10's CLI renders."""
     from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
     from plutracer_tpu_torch import cli, rng
-    from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
-        closest_hit, closest_hit_bvh_cuda, closest_hit_cuda,
-    )
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit
     from plutracer_tpu_torch.ops.cuda.stream_kernel import (
         onebounce_cuda, onebounce_plain, ray_color_stream_cuda,
     )
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
     from plutracer_tpu_torch.render.integrator import draw_uniforms, kernel_tier, ray_color_plain
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
     from plutracer_tpu_torch.render.renderer import (
         camera_rays_plain, launch_draws, launch_rays, pixel_centers, render, strata_per_launch,
     )
@@ -1016,10 +1027,11 @@ def big_scene_phases(phase, dev, card):
             # every ray written once: out starts NaN, and the launches end B rays
             out = torch.full((B, 3), float("nan"), device=dev)
             waves = []
-            before = (onebounce_cuda.launches, closest_hit_cuda.launches)
-            ray_color_wavefront(scene, *rays, opts, out=out, wave_out=waves)
-            assert (onebounce_cuda.launches - before[0], closest_hit_cuda.launches - before[1]) \
-                == (mb, 0)
+            with counting():
+                before = (launched("k4"), launched("k1"))
+                ray_color_wavefront(scene, *rays, opts, out=out, wave_out=waves)
+                assert (launched("k4") - before[0], launched("k1") - before[1]) \
+                    == (mb, 0)
             ended = int(waves[0].counts[mb:].sum().item())
             assert ended == B, f"K4 {sort} {name}: {ended} rays ended, not {B}"
             k4_err = max(k4_err, lanes_equal(out, k3, f"K4 {sort} vs K3, {name} launch (every "
@@ -1055,30 +1067,29 @@ def big_scene_phases(phase, dev, card):
     r1_launches = r2_launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         for name, scene in (("mesh1", mesh1), ("mesh2", mesh2)):
-            ray_color_stream_cuda.launches = closest_hit_bvh_cuda.launches = 0
-            uniform_block_cuda.launches = camera_rays_cuda.launches = 0
-            res = cli.run([str(ROOT / "scenes" / f"{name}.urn"), "/o", str(pathlib.Path(tmp) / "o.bmp"),
-                           "/seed", "7"])
-            launches[name] = ray_color_stream_cuda.launches
-            assert closest_hit_bvh_cuda.launches == 0  # the walk runs inside K3
-            # the path uniforms of a launch of 4 strata: one R1 launch
-            assert uniform_block_cuda.launches == launches[name], uniform_block_cuda.launches
-            r1_launches += uniform_block_cuda.launches
-            # and one R2 launch: the launch's jitter and camera rays
-            assert camera_rays_cuda.launches == launches[name], camera_rays_cuda.launches
-            r2_launches += camera_rays_cuda.launches
-            assert res.integrator == "kernel" and res.tier == "k3", (res.integrator, res.tier)
-            assert tuple(res.linear.shape) == (256, 256, 3) and torch.isfinite(res.linear).all()
-            assert launches[name] == 16 // per, launches  # 4 strata a launch
-            print(f"main path: {name} 256x256 16 spp through the CLI, K3 launches "
-                  f"{launches[name]}, R1 launches {uniform_block_cuda.launches}, R2 launches "
-                  f"{camera_rays_cuda.launches}, render {res.render_seconds:.3f} s, mean radiance "
-                  f"{res.linear.mean().item():.4f}; samples/s "
-                  f"{256 * 256 * 16 / res.render_seconds:.1f} ({card})")
-            before = ray_color_stream_cuda.launches
-            same = torch.equal(res.linear, stratum_by_stratum(scene, 256, 256, 4, rng.PRNGKey(7),
-                                                              DEFAULT_OPTIONS))
-            assert ray_color_stream_cuda.launches == before + 16
+            with counting():
+                res = cli.run([str(ROOT / "scenes" / f"{name}.urn"),
+                               "/o", str(pathlib.Path(tmp) / "o.bmp"), "/seed", "7"])
+                launches[name] = launched("k3")
+                assert launched("k1_bvh") == 0  # the walk runs inside K3
+                # the path uniforms of a launch of 4 strata: one R1 launch
+                assert launched("r1") == launches[name], launched("r1")
+                r1_launches += launched("r1")
+                # and one R2 launch: the launch's jitter and camera rays
+                assert launched("r2") == launches[name], launched("r2")
+                r2_launches += launched("r2")
+                assert res.integrator == "kernel" and res.tier == "k3", (res.integrator, res.tier)
+                assert tuple(res.linear.shape) == (256, 256, 3) and torch.isfinite(res.linear).all()
+                assert launches[name] == 16 // per, launches  # 4 strata a launch
+                print(f"main path: {name} 256x256 16 spp through the CLI, K3 launches "
+                      f"{launches[name]}, R1 launches {launched('r1')}, R2 launches "
+                      f"{launched('r2')}, render {res.render_seconds:.3f} s, mean radiance "
+                      f"{res.linear.mean().item():.4f}; samples/s "
+                      f"{256 * 256 * 16 / res.render_seconds:.1f} ({card})")
+                before = launched("k3")
+                same = torch.equal(res.linear, stratum_by_stratum(
+                    scene, 256, 256, 4, rng.PRNGKey(7), DEFAULT_OPTIONS))
+                assert launched("k3") == before + 16
             print(f"main path: the {name} CLI render bit-identical to one stratum a launch "
                   f"(16 launches): {same}")
             assert same, name
@@ -1112,10 +1123,10 @@ def big_scene_phases(phase, dev, card):
               f"({card})")
     wf = DEFAULT_OPTIONS.replace(stream_wavefront=True)
     assert kernel_tier(mesh1, wf) == "k4"
-    onebounce_cuda.launches = closest_hit_cuda.launches = 0
-    img = render(mesh1, 256, 256, 2, rng.PRNGKey(7), wf)
-    torch.cuda.synchronize()
-    k4_launches, k4_k1 = onebounce_cuda.launches, closest_hit_cuda.launches
+    with counting():
+        img = render(mesh1, 256, 256, 2, rng.PRNGKey(7), wf)
+        torch.cuda.synchronize()
+        k4_launches, k4_k1 = launched("k4"), launched("k1")
     # the 4 strata in one wavefront loop: 8 K4 launches (the first finds
     # the primary hit), no K1 launch
     assert torch.isfinite(img).all() and k4_launches == mb and k4_k1 == 0, (k4_launches, k4_k1)
@@ -1129,9 +1140,10 @@ def big_scene_phases(phase, dev, card):
         h, w = golden.shape[:2]
         gscene = load(name, w, h)
         assert kernel_tier(gscene, DEFAULT_OPTIONS) == "k3"
-        before = ray_color_stream_cuda.launches
-        img = render(gscene, w, h, 2, rng.PRNGKey(42)).cpu().numpy()
-        assert ray_color_stream_cuda.launches == before + 1, name  # the 4 strata in one launch
+        with counting():
+            before = launched("k3")
+            img = render(gscene, w, h, 2, rng.PRNGKey(42)).cpu().numpy()
+            assert launched("k3") == before + 1, name  # the 4 strata in one launch
         if name == "sphere-grid":
             diff = np.abs(np.log1p(np.maximum(img, 0.0)) - np.log1p(np.maximum(golden, 0.0)))
             p99, mean = float(np.quantile(diff, 0.99)), float(diff.mean())
@@ -1340,12 +1352,12 @@ def telemetry_phase(phase, card, lib, demo_pass, mesh1_pass):
     mesh1, mo, md, mu, k3_ms = mesh1_pass
     mb, B = OPTS.max_bounces, o.shape[0]
     # the path: one debug pass of each tier, counts set to 0 just before
-    ray_color_cuda.debug_launches = ray_color_stream_cuda.debug_launches = 0
-    L2, dbg2 = ray_color_kernel(scene, o, d, u, OPTS, debug=True)
-    L3, dbg3 = ray_color_kernel(mesh1, mo, md, mu, OPTS.replace(stream_wavefront=True),
-                                debug=True)
-    torch.cuda.synchronize()
-    k5_launches = {"K2": ray_color_cuda.debug_launches, "K3": ray_color_stream_cuda.debug_launches}
+    with counting():
+        L2, dbg2 = ray_color_kernel(scene, o, d, u, OPTS, debug=True)
+        L3, dbg3 = ray_color_kernel(mesh1, mo, md, mu, OPTS.replace(stream_wavefront=True),
+                                    debug=True)
+        torch.cuda.synchronize()
+        k5_launches = {"K2": launched("k2_debug"), "K3": launched("k3_debug")}
     print(f"K5 path: a demo-box 512x512 debug pass (K2) and a mesh1 debug launch of 4 strata "
           f"of 256x256 (K3, under stream_wavefront too), launches {k5_launches}")
     assert k5_launches == {"K2": 1, "K3": 1}, k5_launches
@@ -1422,20 +1434,19 @@ def loss_grads(loss, params):
 def gradient_phase(phase, dev, card):
     """Phase 13: gradients through the kernel path's autograd Function
     (render/integrator.KernelRadiance) against plain autograd."""
-    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda
-    from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
     from plutracer_tpu_torch.parallel.sharded import get_params
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
     phase("13 gradients")
-    for (name, res), counter in zip(GRAD_CASES, (ray_color_cuda, ray_color_stream_cuda)):
+    for (name, res), counter in zip(GRAD_CASES, ("k2", "k3")):
         scene = compile_scene(load_scene_file(str(ROOT / "scenes" / f"{name}.urn"),
                                               ["/res", f"{res}x{res}"]), device=dev)
         params = get_params(scene)
         kernel_loss, plain_loss = (make_loss(scene, res, res, b) for b in ("kernel", "plain"))
-        before = counter.launches
-        got = loss_grads(kernel_loss, params)
-        assert counter.launches == before + 1, "the Function's forward did not run the kernel"
+        with counting():
+            before = launched(counter)
+            got = loss_grads(kernel_loss, params)
+            assert launched(counter) == before + 1, "the Function's forward did not run the kernel"
         want = loss_grads(plain_loss, params)
         for f in got:
             g, w = got[f], want[f]
@@ -1480,7 +1491,6 @@ def training_phase(phase, dev, card):
     from plutracer_tpu_torch import rng
     from plutracer_tpu_torch.diff.optim import Adam
     from plutracer_tpu_torch.diff.optimize import InverseRenderConfig, optimize_scene
-    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_cuda
     from plutracer_tpu_torch.parallel import sharded
     from plutracer_tpu_torch.render.renderer import render
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
@@ -1502,25 +1512,26 @@ def training_phase(phase, dev, card):
     for what, cfg, start in (("log", log_cfg, init), ("ab", ab_cfg, None)):
         start = start if start is not None else runs["log"][0]
         stats = {}
-        closest_hit_cuda.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, losses = optimize_scene(scene, target, cfg, init_params=start, stats_out=stats)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        passes = 2 if cfg.loss_space == "ab" else 1
-        samples = W * H * passes * cfg.steps
-        mae = (params["mat_color"] - true["mat_color"]).abs().mean().item()
-        print(f"training {what}: {cfg.steps} steps in {wall:.3f} s, {cfg.steps / wall:.4f} steps/s, "
-              f"{samples / wall:.1f} samples/s ({W}x{H} x {passes} pass(es) a step), K1 launches "
-              f"{closest_hit_cuda.launches}, losses {[round(x, 6) for x in losses]}, albedo MAE "
-              f"{(start['mat_color'] - true['mat_color']).abs().mean().item():.5f} -> {mae:.5f}, "
-              f"nonfinite {stats} ({card})")
-        assert all(np.isfinite(losses)) and len(losses) == cfg.steps
-        assert stats["nonfinite_grad_frac_max"] == 0.0, stats
-        assert closest_hit_cuda.launches > 0
-        runs[what] = (params, losses, wall)
-        k1_launches[f"the {what} train run's queries (8 steps)"] = closest_hit_cuda.launches
+        with counting():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, losses = optimize_scene(scene, target, cfg, init_params=start, stats_out=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            passes = 2 if cfg.loss_space == "ab" else 1
+            samples = W * H * passes * cfg.steps
+            mae = (params["mat_color"] - true["mat_color"]).abs().mean().item()
+            print(f"training {what}: {cfg.steps} steps in {wall:.3f} s, "
+                  f"{cfg.steps / wall:.4f} steps/s, {samples / wall:.1f} samples/s ({W}x{H} x "
+                  f"{passes} pass(es) a step), K1 launches {launched('k1')}, losses "
+                  f"{[round(x, 6) for x in losses]}, albedo MAE "
+                  f"{(start['mat_color'] - true['mat_color']).abs().mean().item():.5f} -> "
+                  f"{mae:.5f}, nonfinite {stats} ({card})")
+            assert all(np.isfinite(losses)) and len(losses) == cfg.steps
+            assert stats["nonfinite_grad_frac_max"] == 0.0, stats
+            assert launched("k1") > 0
+            runs[what] = (params, losses, wall)
+            k1_launches[f"the {what} train run's queries (8 steps)"] = launched("k1")
     # a run stopped after 4 steps and resumed from its checkpoint (warm:
     # its wall against the first log run's shows that run's warm-up)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1583,18 +1594,16 @@ def training_phase(phase, dev, card):
 def flagship_phase(phase, dev, card):
     """Phase 15: the flagship tool through main(argv), straight and
     interrupted in phase 2 then rerun."""
-    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda
-    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_cuda
     from plutracer_tpu_torch.tools import inverse_flagship as flagship
 
     phase("15 flagship")
     scene = ["--scene", str(ROOT / "scenes" / "demo-box.urn"), "--device", dev.type]
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        closest_hit_cuda.launches = ray_color_cuda.launches = 0
-        ref = flagship.main([*scene, *FLAGSHIP_ARGS, "--out", str(tmp / "straight.json"),
-                             "--checkpoint", str(tmp / "straight")])
-        launches = {"K1": closest_hit_cuda.launches, "K2": ray_color_cuda.launches}
+        with counting():
+            ref = flagship.main([*scene, *FLAGSHIP_ARGS, "--out", str(tmp / "straight.json"),
+                                 "--checkpoint", str(tmp / "straight")])
+            launches = {"K1": launched("k1"), "K2": launched("k2")}
         real = flagship.optimize_scene
 
         def interrupting(scene, target, cfg, init_params=None, callback=None, stats_out=None):
@@ -1726,8 +1735,6 @@ def multi_device_phase(phase, dev, card):
     import torch.distributed as dist
 
     from plutracer_tpu_torch import rng
-    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda
-    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_cuda
     from plutracer_tpu_torch.parallel import make_mesh, render_sharded
     from plutracer_tpu_torch.parallel.dryrun import mesh_jobs, run_processes
     from plutracer_tpu_torch.parallel.mesh import initialize_distributed
@@ -1749,9 +1756,9 @@ def multi_device_phase(phase, dev, card):
         try:
             mesh = make_mesh((1, 1), devices=[dev])
             assert mesh.distributed
-            closest_hit_cuda.launches = ray_color_cuda.launches = 0
-            img_a, cold_a = timed_render(lambda: render_sharded(scene, res, res, n, key, mesh))
-            launches = {"K1": closest_hit_cuda.launches, "K2": ray_color_cuda.launches}
+            with counting():
+                img_a, cold_a = timed_render(lambda: render_sharded(scene, res, res, n, key, mesh))
+                launches = {"K1": launched("k1"), "K2": launched("k2")}
             _, wall_a = timed_render(lambda: render_sharded(scene, res, res, n, key, mesh))
         finally:
             dist.destroy_process_group()
@@ -1768,9 +1775,9 @@ def multi_device_phase(phase, dev, card):
     assert launches["K1"] == n * n and launches["K2"] == n * n, launches
     # (b) the (2, 2) mesh of cuda:0 positions in this process
     mesh4 = make_mesh((2, 2), devices=[dev] * 4)
-    ray_color_cuda.launches = 0
-    img_b, wall_b = timed_render(lambda: render_sharded(scene, res, res, n, key, mesh4))
-    k2_b = ray_color_cuda.launches
+    with counting():
+        img_b, wall_b = timed_render(lambda: render_sharded(scene, res, res, n, key, mesh4))
+        k2_b = launched("k2")
     print(f"multi-device (b) the same render on a (2, 2) mesh of cuda:0 positions in one "
           f"process: {k2_b} K2 launches (two half-size strata a launch), wall {wall_b:.4f} s "
           f"({samples / wall_b:.1f} samples/s, {wall_b / wall_1:.3f}x the 1x1 mesh's) ({card})")
@@ -1952,9 +1959,7 @@ def routing_phase(phase, dev, card):
     the K3 query's launches in (b)'s "bvh" loss_and_grads."""
     from plutracer_tpu_torch import cli, rng
     from plutracer_tpu_torch.diff.optim import Adam
-    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
-    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_bvh_cuda, closest_hit_cuda
-    from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda, ray_color_stream_cuda
+    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_kernel
     from plutracer_tpu_torch.parallel import sharded
     from plutracer_tpu_torch.render.integrator import (
         k2_smem_bytes, kernel_tier, ray_color_plain, resolve_integrator_backend,
@@ -2010,11 +2015,11 @@ def routing_phase(phase, dev, card):
         step = steps[b] = sharded.make_train_step(mesh1, W, W, 2, optimizer=Adam(3e-2),
                                                   options=by(b), loss_space="log")
         state = step.init(init)
-        closest_hit_cuda.launches = closest_hit_bvh_cuda.launches = 0
-        loss, grads, nf = step.loss_and_grads(init, tflat, key, 0)
-        params, new_state = step.apply(init, state, grads, nf)
-        torch.cuda.synchronize()
-        launches = {"K1": closest_hit_cuda.launches, "K3 query": closest_hit_bvh_cuda.launches}
+        with counting():
+            loss, grads, nf = step.loss_and_grads(init, tflat, key, 0)
+            params, new_state = step.apply(init, state, grads, nf)
+            torch.cuda.synchronize()
+            launches = {"K1": launched("k1"), "K3 query": launched("k1_bvh")}
         print(f"routing (b) mesh1 {W}x{W} log train step, n = 2, intersect_backend={b}: loss "
               f"{float(loss):.9g}, non-finite {float(nf)}; launches in one loss_and_grads "
               f"{launches}")
@@ -2051,10 +2056,9 @@ def routing_phase(phase, dev, card):
     # (c) scenes past the TPU caps: the CLI's route, kernel against plain
     def kernel_vs_plain(scene, o, d, u, what):
         tier = kernel_tier(scene, OPTS)
-        counter = ray_color_cuda if tier == "k2" else ray_color_stream_cuda
-        before = counter.launches
-        out = ray_color_kernel(scene, o, d, u, OPTS)
-        assert counter.launches == before + 1, what
+        with counting():
+            out = ray_color_kernel(scene, o, d, u, OPTS)
+            assert launched(tier) == 1, what
         lanes_equal(out, ray_color_plain(scene, o, d, u, OPTS), f"routing (c) {what} {tier} vs "
                                                           f"ray_color_plain, one stratum")
         k_ms = time_ms(lambda: ray_color_kernel(scene, o, d, u, OPTS), reps=5)
@@ -2069,11 +2073,11 @@ def routing_phase(phase, dev, card):
         # before, each against its plain version on every lane
         wf = OPTS.replace(stream_wavefront=True)
         assert kernel_tier(scene, wf) == "k4", what
-        onebounce_cuda.launches = ray_color_stream_cuda.debug_launches = 0
-        L4 = ray_color_kernel(scene, o, d, u, wf)
-        L5, dbg = ray_color_kernel(scene, o, d, u, OPTS, debug=True)
-        torch.cuda.synchronize()
-        got = {"K4": onebounce_cuda.launches, "K5": ray_color_stream_cuda.debug_launches}
+        with counting():
+            L4 = ray_color_kernel(scene, o, d, u, wf)
+            L5, dbg = ray_color_kernel(scene, o, d, u, OPTS, debug=True)
+            torch.cuda.synchronize()
+            got = {"K4": launched("k4"), "K5": launched("k3_debug")}
         assert got == {"K4": OPTS.max_bounces, "K5": 1}, (what, got)
         ref_L, ref = ray_color_plain(scene, o, d, u, OPTS, debug=True)
         lanes_equal(L4, ref_L, f"routing (c) {what} K4 (stream_wavefront) vs ray_color_plain")
@@ -2085,12 +2089,10 @@ def routing_phase(phase, dev, card):
 
     with tempfile.TemporaryDirectory() as tmp:
         for name in BEYOND_CAPS:
-            counts = (ray_color_cuda, ray_color_stream_cuda, closest_hit_cuda)
-            for c in counts:
-                c.launches = 0
-            res = cli.run([str(ROOT / "scenes" / f"{name}.urn"), "/o", str(pathlib.Path(tmp) / "o.bmp"),
-                           "/seed", "7"])
-            launches = dict(zip(("K2", "K3", "K1"), (c.launches for c in counts)))
+            with counting():
+                res = cli.run([str(ROOT / "scenes" / f"{name}.urn"),
+                               "/o", str(pathlib.Path(tmp) / "o.bmp"), "/seed", "7"])
+                launches = {k: launched(k.lower()) for k in ("K2", "K3", "K1")}
             h, w = res.linear.shape[:2]
             n = load_scene_file(str(ROOT / "scenes" / f"{name}.urn")).samples
             scene = load(name, w, h)
@@ -2160,9 +2162,7 @@ def api_phase(phase, dev, card):
     from plutracer_tpu_torch import rng
     from plutracer_tpu_torch.ops import bsdf, tables, texture
     from plutracer_tpu_torch.ops.bvh import bvh_closest
-    from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
-        closest_hit, closest_hit_bvh, closest_hit_bvh_cuda, closest_hit_cuda,
-    )
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit, closest_hit_bvh
     from plutracer_tpu_torch.ops.intersect import query_closest
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
     from plutracer_tpu_torch.parallel.sharded import _deterministic
@@ -2174,16 +2174,15 @@ def api_phase(phase, dev, card):
     by = lambda b, **kw: OPTS.replace(intersect_backend=b, **kw)
     load = lambda name, res: compile_scene(load_scene_file(
         str(ROOT / "scenes" / f"{name}.urn"), ["/res", f"{res}x{res}"]), device=dev)
-    counters = {"K1": closest_hit_cuda, "K3 query": closest_hit_bvh_cuda}
+    counters = {"K1": "k1", "K3 query": "k1_bvh"}
     made = {k: 0 for k in counters}
 
     def counted(fn):
-        for c in counters.values():
-            c.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        for k, c in counters.items():
-            made[k] += c.launches
+        with counting():
+            out = fn()
+            torch.cuda.synchronize()
+            for k, c in counters.items():
+                made[k] += launched(c)
         return out
 
     def query_and_grad(scene, o, d, b):
@@ -2279,19 +2278,17 @@ def api_phase(phase, dev, card):
     # (d) render.ray_color(scene, o, d, key): the kernel tier, bit-equal to
     # the plain integrator on the key's uniforms
     from plutracer_tpu_torch import render as render_pkg
-    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda
-    from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
     from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color_plain
 
     key = rng.PRNGKey(11)
     for name, res, kernel in API_RAY_COLOR:
-        kernel = {"K2": ray_color_cuda, "K3": ray_color_stream_cuda}[kernel]
+        kernel = kernel.lower()
         scene = load(name, res)
         o, d, _ = main_path_rays(scene, res, res, 2, rng.PRNGKey(7), 1, OPTS)
-        before = kernel.launches
-        got = render_pkg.ray_color(scene, o, d, key)
-        torch.cuda.synchronize()
-        assert kernel.launches == before + 1, (name, kernel.launches - before)
+        with counting():
+            got = render_pkg.ray_color(scene, o, d, key)
+            torch.cuda.synchronize()
+            assert launched(kernel) == 1, (name, launched(kernel))
         u = draw_uniforms(key, o.shape[0], OPTS.max_bounces, dev)
         lanes_equal(got, ray_color_plain(scene, o, d, u, OPTS),
                     f"api (d) render.ray_color(scene, o, d, key) {name} {res}x{res} vs "
@@ -2474,9 +2471,10 @@ def rng_phase(phase, dev, card, main_launches):
         cases.append((f"{K} key(s) x {n} words (past 2^24)", demo[0][:K], n))
     for what, keys, n in cases:
         table = rng.key_table(keys)
-        before = uniform_block_cuda.launches
-        got = uniform_block_cuda(table, n, dev)
-        assert uniform_block_cuda.launches == before + 1, what  # one launch a call
+        with counting():
+            before = launched("r1")
+            got = uniform_block_cuda(table, n, dev)
+            assert launched("r1") == before + 1, what  # one launch a call
         want = rng.uniform_block_plain(table, n, dev)
         torch.cuda.synchronize()
         assert got.shape == want.shape == (table.shape[0], n), what
@@ -2498,13 +2496,13 @@ def rng_phase(phase, dev, card, main_launches):
 
     for name, res, n in (("demo-box", 512, 2), ("mesh1", 256, 4)):
         sc = load(name, res)
-        uniform_block_cuda.launches = 0
-        img = render(sc, res, res, n, rng.PRNGKey(7))
-        torch.cuda.synchronize()
-        made = uniform_block_cuda.launches
-        with plain_draws():
-            ref = render(sc, res, res, n, rng.PRNGKey(7))
-        assert uniform_block_cuda.launches == made and made > 0, (name, made)
+        with counting():
+            img = render(sc, res, res, n, rng.PRNGKey(7))
+            torch.cuda.synchronize()
+            made = launched("r1")
+            with plain_draws():
+                ref = render(sc, res, res, n, rng.PRNGKey(7))
+            assert launched("r1") == made and made > 0, (name, made)
         assert torch.equal(img, ref), f"{name}: the render through R1 differs from plain draws"
         print(f"R1 {name} {res}x{res} {n * n} spp render: bit-equal to plain-drawn uniforms, "
               f"R1 launches {made}")
@@ -2514,23 +2512,23 @@ def rng_phase(phase, dev, card, main_launches):
     params = sharded.get_params(sc)
     step = sharded.make_train_step(sc, TRAIN_RES, TRAIN_RES, 2, loss_space="log",
                                    trainable=("mat_color",))
-    uniform_block_cuda.launches = 0
-    got = step.loss_and_grads(params, target.reshape(-1, 3), rng.PRNGKey(3), 1)
-    torch.cuda.synchronize()
-    made = uniform_block_cuda.launches
-    with plain_draws():
-        want = step.loss_and_grads(params, target.reshape(-1, 3), rng.PRNGKey(3), 1)
-    assert made > 0 and uniform_block_cuda.launches == made, made
+    with counting():
+        got = step.loss_and_grads(params, target.reshape(-1, 3), rng.PRNGKey(3), 1)
+        torch.cuda.synchronize()
+        made = launched("r1")
+        with plain_draws():
+            want = step.loss_and_grads(params, target.reshape(-1, 3), rng.PRNGKey(3), 1)
+        assert made > 0 and launched("r1") == made, made
     assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]), "train step loss"
     for f in got[1]:
         assert torch.equal(got[1][f], want[1][f]), f"train step gradient {f}"
     print(f"R1 demo-box {TRAIN_RES}x{TRAIN_RES} log train step: loss {got[0].item():.6f} and "
           f"gradients bit-equal to plain-drawn uniforms, R1 launches {made}")
     mesh = make_mesh((1, 1), devices=[dev])
-    uniform_block_cuda.launches = 0
-    img = render_sharded(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(5), mesh)
-    torch.cuda.synchronize()
-    made = uniform_block_cuda.launches
+    with counting():
+        img = render_sharded(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(5), mesh)
+        torch.cuda.synchronize()
+        made = launched("r1")
     with plain_draws():
         ref = render_sharded(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(5), mesh)
     assert made > 0 and torch.equal(img, ref), made
@@ -2584,13 +2582,8 @@ def launch_devices_phase(phase, card):
     current."""
     from plutracer_tpu_torch import rng
     from plutracer_tpu_torch.ops.cuda import build
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
-    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_color_kernel
-    from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
-        closest_hit, closest_hit_bvh_cuda, closest_hit_cuda, closest_hit_plain,
-    )
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
-    from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda, ray_color_stream_cuda
+    from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_kernel
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit, closest_hit_plain
     from plutracer_tpu_torch.ops.intersect import query_lite
     from plutracer_tpu_torch.parallel import make_mesh, render_sharded
     from plutracer_tpu_torch.render.elastic import render_elastic
@@ -2598,6 +2591,7 @@ def launch_devices_phase(phase, card):
     from plutracer_tpu_torch.render.renderer import render
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
     from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+    from plutracer_tpu_torch.utils import profiling
 
     phase("22 launch devices")
     res, n = LAUNCH_RES, 2
@@ -2607,19 +2601,12 @@ def launch_devices_phase(phase, card):
         return compile_scene(load_scene_file(str(ROOT / "scenes" / f"{name}.urn"),
                                              ["/res", f"{w}x{w}"]), device=dev)
 
-    counters = ((closest_hit_cuda, "launches"), (closest_hit_bvh_cuda, "launches"),
-                (ray_color_cuda, "launches"), (ray_color_cuda, "debug_launches"),
-                (ray_color_stream_cuda, "launches"), (ray_color_stream_cuda, "debug_launches"),
-                (onebounce_cuda, "launches"), (uniform_block_cuda, "launches"),
-                (camera_rays_cuda, "launches"))
+    counters = ("k1", "k1_bvh", "k2", "k2_debug", "k3", "k3_debug", "k4", "r1", "r2")
     demo, mesh1 = load("demo-box", cuda0), load("mesh1", cuda0)
     o = torch.zeros((1024, 3), device=cuda0)
     g = torch.Generator().manual_seed(22)
     d = torch.nn.functional.normalize(torch.randn((1024, 3), generator=g), dim=-1).to(cuda0)
-    for fn, attr in counters:
-        setattr(fn, attr, 0)
-    build.on_device.entries = 0
-    with checked_launches() as seen:
+    with counting(), checked_launches() as seen:
         render(demo, res, res, n, rng.PRNGKey(3))  # K1 + K2 + R1 + R2
         render(mesh1, res, res, n, rng.PRNGKey(3))  # K3 (the strata batched) + R1 + R2
         render(mesh1, res, res, n, rng.PRNGKey(3), DEFAULT_OPTIONS.replace(stream_wavefront=True))
@@ -2628,8 +2615,8 @@ def launch_devices_phase(phase, card):
         ray_color_kernel(demo, o, d, u, DEFAULT_OPTIONS, debug=True)  # K1 + K5 (K2's)
         ray_color_kernel(mesh1, o, d, u, DEFAULT_OPTIONS, debug=True)  # K5 (K3's)
         torch.cuda.synchronize()
-    entries = build.on_device.entries
-    counts = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counters}
+        entries = profiling.counter("device_entries")
+        counts = {f"launches.{k}": launched(k) for k in counters}
     total = sum(counts.values())
     print(f"launch devices (a): helper entries {entries}, wrappers' launches {total} {counts}; "
           f"current device = the tensors' in {len(seen)} launches")
@@ -2771,8 +2758,6 @@ def camera_phase(phase, dev, card, main_launches):
     in turns (camera_stage_turns). Returns R2's kernels-line entry
     (launches: main_launches, the CLI renders' of phases 5 and 10)."""
     from plutracer_tpu_torch import rng
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
     from plutracer_tpu_torch.parallel import make_mesh, render_sharded, sharded
     from plutracer_tpu_torch.render.elastic import render_elastic
     from plutracer_tpu_torch.render.renderer import (
@@ -2795,9 +2780,10 @@ def camera_phase(phase, dev, card, main_launches):
         for B in (w * h, 1, 127, w * h - RAGGED):
             px0 = pixel_centers(w, h, dev)[:B].contiguous()
             keys, _ = launch_draws([rng.fold_in_words(base, j) for j in range(S)], B, 0, dev)
-            before = camera_rays_cuda.launches
-            o, d = launch_rays(sc, px0, keys, strata, n)
-            assert camera_rays_cuda.launches == before + 1  # one launch a call
+            with counting():
+                before = launched("r2")
+                o, d = launch_rays(sc, px0, keys, strata, n)
+                assert launched("r2") == before + 1  # one launch a call
             err = max(err, r2_equal(o, d, *camera_rays_plain(sc.camera, px0, keys, strata, n),
                                     f"{name} {w}x{h}, {S} strata, B={B}"))
         px0 = pixel_centers(w, h, dev)
@@ -2809,14 +2795,14 @@ def camera_phase(phase, dev, card, main_launches):
         """run() through R2 (counted, no eager camera op) and with the plain
         camera rays; the outputs bit-equal; one R2 launch a pass-loop launch
         (as many as the R1 launches, and path_launches where given)."""
-        camera_rays_cuda.launches = uniform_block_cuda.launches = 0
-        with no_eager_camera():
-            got = run()
-        torch.cuda.synchronize()
-        made, draws = camera_rays_cuda.launches, uniform_block_cuda.launches
-        with plain_camera():
-            want = run()
-        assert camera_rays_cuda.launches == made and made > 0, (what, made)
+        with counting():
+            with no_eager_camera():
+                got = run()
+            torch.cuda.synchronize()
+            made, draws = launched("r2"), launched("r1")
+            with plain_camera():
+                want = run()
+            assert launched("r2") == made and made > 0, (what, made)
         assert made == draws, (what, made, draws)
         if path_launches is not None:
             assert made == path_launches, (what, made, path_launches)

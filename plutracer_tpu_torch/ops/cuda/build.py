@@ -27,6 +27,7 @@ import time
 import torch
 
 from plutracer_tpu_torch.ops.cuda.camera_kernel import Strata
+from plutracer_tpu_torch.utils import profiling
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -163,11 +164,9 @@ def check(rc: int, name: str) -> None:
 class on_device:
     """``with on_device(dev) as stream``: make the CUDA device `dev`
     current for the block and give the handle of its current stream, for
-    the launch entry points' last argument. ``on_device.entries`` counts
-    the blocks entered: one for each kernel launch (K1's plan call is
-    inside its launch's block)."""
-
-    entries = 0
+    the launch entry points' last argument. utils/profiling's
+    ``device_entries`` counts the blocks entered: one for each kernel
+    launch (K1's plan call is inside its launch's block)."""
 
     def __init__(self, dev):
         self.dev = torch.device(dev)
@@ -177,7 +176,7 @@ class on_device:
 
     def __enter__(self) -> int:
         self.guard.__enter__()
-        type(self).entries += 1
+        profiling.count("device_entries")
         return torch.cuda.current_stream(self.dev).cuda_stream
 
     def __exit__(self, *exc):

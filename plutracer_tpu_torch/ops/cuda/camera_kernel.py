@@ -15,7 +15,7 @@ the pass loop makes one launch of it a pass-loop launch
 The strata's cells and key words go to the kernel by value (no table, no
 copy to the card); the camera is read from a table on the card
 (``camera_table``), built once a camera and kept on it.
-``camera_rays_cuda.launches`` counts kernel launches.
+Each launch counts once in utils/profiling's ``launches.r2``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from plutracer_tpu_torch.utils import profiling
 
 MAX_STRATA = 16  # the most strata a launch (csrc/camera.cu: PLU_MAX_STRATA)
 _FIELDS = ("pos", "look", "right", "up", "inv_image_size", "w", "lens_radius", "focal_distance")
@@ -111,8 +113,5 @@ def camera_rays_cuda(cam, px0: torch.Tensor, keys, strata, n: int):
                                         (ctypes.c_uint32 * (4 * MAX_STRATA))(*words)),
                                  S, B, n, o.data_ptr(), d.data_ptr(), stream)
     build.check(rc, "plu_camera_rays")
-    camera_rays_cuda.launches += 1
+    profiling.count("launches.r2")
     return o, d
-
-
-camera_rays_cuda.launches = 0

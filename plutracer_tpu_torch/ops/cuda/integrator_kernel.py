@@ -20,8 +20,9 @@ DBG_C, B) channels (ops/cuda.DBG_CHANNELS); K4 has none, so a
 debug request under stream_wavefront takes K3, as the JAX package does.
 The plain version is ray_color_plain(..., debug=True).
 
-``ray_color_cuda.launches`` counts K2's launches, ``.debug_launches`` its
-K5 launches (likewise on stream_kernel.ray_color_stream_cuda for K3).
+Each K2 launch counts once in utils/profiling's ``launches.k2``, each of
+its K5 instantiation in ``launches.k2_debug`` (``launches.k3`` and
+``launches.k3_debug`` for stream_kernel.ray_color_stream_cuda).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 from plutracer_tpu_torch.ops import intersect
 from plutracer_tpu_torch.ops.cuda import DBG_C
 from plutracer_tpu_torch.ops.tables import pack_tables
+from plutracer_tpu_torch.utils import profiling
 
 
 def _check_inputs(scene, o, d, u, options, tables):
@@ -118,12 +120,5 @@ def ray_color_cuda(scene, o, d, u, options, debug: bool = False):
             int(options.shading_normal_le_gate), stream,
         )
     build.check(rc, "plu_megakernel")
-    if debug:
-        ray_color_cuda.debug_launches += 1
-        return out, dbg
-    ray_color_cuda.launches += 1
-    return out
-
-
-ray_color_cuda.launches = 0
-ray_color_cuda.debug_launches = 0
+    profiling.count("launches.k2_debug" if debug else "launches.k2")
+    return (out, dbg) if debug else out

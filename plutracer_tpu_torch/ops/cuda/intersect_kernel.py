@@ -19,8 +19,8 @@ package's stream kernel (integrator_kernel.py: _closest_stream /
 _closest_stream3 over Morton-ordered MegaPack chunks) and answers exactly
 as K1 does.
 
-``closest_hit_cuda.launches`` and ``closest_hit_bvh_cuda.launches`` count
-kernel launches.
+Each launch counts once in utils/profiling's ``launches.k1`` (K1) or
+``launches.k1_bvh`` (the K3 query).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import torch
 from plutracer_tpu_torch.ops.intersect import T_MAX, _BIG
 from plutracer_tpu_torch.ops.safemath import sqrt
 from plutracer_tpu_torch.scene.types import PRIM_BOX, PRIM_SPHERE
+from plutracer_tpu_torch.utils import profiling
 
 PACK_W = 24
 _NO_ROW = 2**31 - 1
@@ -211,7 +212,7 @@ def closest_hit_cuda(packed, o, d, type_rows=None):
             stream,
         )
     build.check(rc, "plu_closest_hit")
-    closest_hit_cuda.launches += 1
+    profiling.count("launches.k1")
     return found, prim, t
 
 
@@ -228,9 +229,6 @@ def _arrivals(dev, n):
         buf = _ARRIVALS[index] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                              device=torch.device("cuda", index))
     return buf
-
-
-closest_hit_cuda.launches = 0
 
 
 _POP = 1 << 40  # walk_closest_plain: the ray's next step is a pop of its stack
@@ -386,8 +384,5 @@ def closest_hit_bvh_cuda(scene, o, d):
         rc = lib.plu_closest_hit_bvh(
             *tables, o.data_ptr(), d.data_ptr(), t.data_ptr(), prim.data_ptr(), B, stream)
     build.check(rc, "plu_closest_hit_bvh")
-    closest_hit_bvh_cuda.launches += 1
+    profiling.count("launches.k1_bvh")
     return t < T_MAX, prim, t
-
-
-closest_hit_bvh_cuda.launches = 0

@@ -11,7 +11,7 @@ hash (csrc/threefry.cuh), inside the camera-ray kernel.
 
 The keys arrive as a (K, 2) int64 CPU table of uint32 words, derived on
 the host (rng.fold_in_words, rng.split_words) and copied to the card once
-a call. ``uniform_block_cuda.launches`` counts kernel launches.
+a call. Each launch counts once in utils/profiling's ``launches.r1``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from plutracer_tpu_torch.rng import _check_count
+from plutracer_tpu_torch.utils import profiling
 
 MAX_KEYS = 65535  # the kernel's grid y extent (csrc/threefry.cu: MAX_KEYS)
 
@@ -61,8 +62,5 @@ def uniform_block_cuda(keys: torch.Tensor, n: int, device) -> torch.Tensor:
     with build.on_device(dev) as stream:
         rc = lib.plu_threefry_uniform(words.data_ptr(), K, n, out.data_ptr(), stream)
     build.check(rc, "plu_threefry_uniform")
-    uniform_block_cuda.launches += 1
+    profiling.count("launches.r1")
     return out
-
-
-uniform_block_cuda.launches = 0

@@ -18,9 +18,9 @@ plain version ``onebounce_plain`` is the same contract in torch around
 integrator.plain_bounce; ``onebounce`` takes the kernel on CUDA tensors
 and the plain version on CPU tensors.
 
-``ray_color_stream_cuda.launches`` and ``onebounce_cuda.launches`` count
-kernel launches; ``ray_color_stream_cuda.debug_launches`` counts K3's K5
-launches (debug=True: the telemetry of integrator_kernel.ray_color_kernel).
+Each launch counts once in utils/profiling: ``launches.k3``,
+``launches.k3_debug`` (K3's K5 instantiation, debug=True: the telemetry of
+integrator_kernel.ray_color_kernel) or ``launches.k4``.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from plutracer_tpu_torch.ops.cuda.intersect_kernel import walk_pointers
+from plutracer_tpu_torch.utils import profiling
 
 
 def _check(name, scene, tables, tensors, options):
@@ -100,15 +101,8 @@ def ray_color_stream_cuda(scene, o, d, u, options, debug: bool = False):
             dbg.data_ptr() if debug else None, B, *_flag_args(options), stream,
         )
     build.check(rc, "plu_megakernel_stream")
-    if debug:
-        ray_color_stream_cuda.debug_launches += 1
-        return out, dbg
-    ray_color_stream_cuda.launches += 1
-    return out
-
-
-ray_color_stream_cuda.launches = 0
-ray_color_stream_cuda.debug_launches = 0
+    profiling.count("launches.k3_debug" if debug else "launches.k3")
+    return (out, dbg) if debug else out
 
 
 def onebounce_cuda(scene, tables, wave, i: int, perm, options):
@@ -160,10 +154,7 @@ def onebounce_cuda(scene, tables, wave, i: int, perm, options):
             B, i, SORTS.index(wave.sort), *_flag_args(options), stream,
         )
     build.check(rc, "plu_megakernel_onebounce")
-    onebounce_cuda.launches += 1
-
-
-onebounce_cuda.launches = 0
+    profiling.count("launches.k4")
 
 
 def onebounce_plain(scene, tables, wave, i: int, perm, options):

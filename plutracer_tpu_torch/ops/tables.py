@@ -22,6 +22,8 @@ from typing import NamedTuple
 
 import torch
 
+from plutracer_tpu_torch.utils import profiling
+
 
 class PackedTables(NamedTuple):
     prim: torch.Tensor  # (P, 32)
@@ -36,45 +38,46 @@ TABLE_W = PackedTables(prim=32, mat=12, tex=12, light=8)
 
 
 def pack_tables(scene) -> PackedTables:
-    f = lambda x: x.to(torch.float32)
-    c1 = lambda x: f(x)[:, None]
-    P = scene.prim_type.shape[0]
-    M = scene.mat_type.shape[0]
-    dev = scene.prim_a.device
-    prim = torch.cat(
-        [
-            c1(scene.prim_type), f(scene.prim_a), f(scene.prim_b), f(scene.prim_c),
-            f(scene.prim_n0), f(scene.prim_n1), f(scene.prim_n2),
-            f(scene.prim_uv0), f(scene.prim_uv1), f(scene.prim_uv2),
-            c1(scene.prim_material), c1(scene.prim_light), c1(scene.prim_area),
-            torch.zeros((P, 4), dtype=torch.float32, device=dev),
-        ],
-        dim=1,
-    )
-    mat = torch.cat(
-        [
-            c1(scene.mat_type), f(scene.mat_color), c1(scene.mat_tex),
-            f(scene.mat_eta), f(scene.mat_k),
-            torch.zeros((M, 1), dtype=torch.float32, device=dev),
-        ],
-        dim=1,
-    )
-    tex = torch.cat(
-        [
-            c1(scene.tex_type), f(scene.tex_c0), f(scene.tex_c1),
-            c1(scene.tex_scale), c1(scene.tex_line), c1(scene.tex_img_ofs),
-            c1(scene.tex_img_w), c1(scene.tex_img_h),
-        ],
-        dim=1,
-    )
-    light = torch.cat(
-        [
-            c1(scene.light_type), f(scene.light_pos),
-            f(scene.light_intensity), c1(scene.light_prim),
-        ],
-        dim=1,
-    )
-    return PackedTables(prim=prim, mat=mat, tex=tex, light=light)
+    with profiling.span("plu.tables.pack"):
+        f = lambda x: x.to(torch.float32)
+        c1 = lambda x: f(x)[:, None]
+        P = scene.prim_type.shape[0]
+        M = scene.mat_type.shape[0]
+        dev = scene.prim_a.device
+        prim = torch.cat(
+            [
+                c1(scene.prim_type), f(scene.prim_a), f(scene.prim_b), f(scene.prim_c),
+                f(scene.prim_n0), f(scene.prim_n1), f(scene.prim_n2),
+                f(scene.prim_uv0), f(scene.prim_uv1), f(scene.prim_uv2),
+                c1(scene.prim_material), c1(scene.prim_light), c1(scene.prim_area),
+                torch.zeros((P, 4), dtype=torch.float32, device=dev),
+            ],
+            dim=1,
+        )
+        mat = torch.cat(
+            [
+                c1(scene.mat_type), f(scene.mat_color), c1(scene.mat_tex),
+                f(scene.mat_eta), f(scene.mat_k),
+                torch.zeros((M, 1), dtype=torch.float32, device=dev),
+            ],
+            dim=1,
+        )
+        tex = torch.cat(
+            [
+                c1(scene.tex_type), f(scene.tex_c0), f(scene.tex_c1),
+                c1(scene.tex_scale), c1(scene.tex_line), c1(scene.tex_img_ofs),
+                c1(scene.tex_img_w), c1(scene.tex_img_h),
+            ],
+            dim=1,
+        )
+        light = torch.cat(
+            [
+                c1(scene.light_type), f(scene.light_pos),
+                f(scene.light_intensity), c1(scene.light_prim),
+            ],
+            dim=1,
+        )
+        return PackedTables(prim=prim, mat=mat, tex=tex, light=light)
 
 
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

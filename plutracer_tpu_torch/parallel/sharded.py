@@ -18,6 +18,13 @@ n^2 strata. The JAX code pads the strata to a multiple of the spp axis
 with stratum 0 and, though its comment says padding contributes nothing,
 adds those samples in (its valid mask is stratum < spp, which a padding
 0 passes).
+
+A train step's layers are spans of utils/profiling (recorded while a
+profiler runs): ``plu.train.step`` (one step, a request), and inside it
+``plu.train.forward`` (the plain forward under autograd, K1's queries),
+``plu.train.backward`` (torch.autograd.grad), ``plu.train.filter`` (the
+mask, the non-finite count, nan_to_num), ``plu.train.reduce`` (the gather
+and the reduction over positions) and ``plu.train.optimizer``.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from plutracer_tpu_torch.render.renderer import (
     stratum_launches,
 )
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
+from plutracer_tpu_torch.utils import profiling
 
 DIFFERENTIABLE_FIELDS = DIFF_LEAVES  # ("mat_color", "light_intensity", "tex_c0", "tex_c1")
 
@@ -258,51 +266,60 @@ def make_train_step(
         sc = apply_params(scenes[dev], leaves)
         tile = slice(ti * rows, (ti + 1) * rows)
         with torch.enable_grad(), _deterministic():
-            loss = position_loss(sc, px_pad[dev][tile], target_pad[tile].to(dev), k, stratum)
+            with profiling.span("plu.train.forward"):
+                loss = position_loss(sc, px_pad[dev][tile], target_pad[tile].to(dev), k, stratum)
             wrt = [leaves[f] for f in fields if f in trainable]
-            got = iter(torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
-                       if wrt else ())
-        grads = {f: next(got) if f in trainable else torch.zeros_like(leaves[f]) for f in fields}
-        grads = {f: torch.where(masks[dev][f] > 0, g, 0.0) if f in masks[dev] else g
-                 for f, g in grads.items()}
-        nf_count = sum((~torch.isfinite(g)).sum().to(torch.float32) for g in grads.values())
-        grads = {f: torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0) for f, g in grads.items()}
+            with profiling.span("plu.train.backward"):
+                got = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
+                                               materialize_grads=True) if wrt else ())
+        with profiling.span("plu.train.filter"):
+            grads = {f: next(got) if f in trainable else torch.zeros_like(leaves[f])
+                     for f in fields}
+            grads = {f: torch.where(masks[dev][f] > 0, g, 0.0) if f in masks[dev] else g
+                     for f, g in grads.items()}
+            nf_count = sum((~torch.isfinite(g)).sum().to(torch.float32) for g in grads.values())
+            grads = {f: torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0)
+                     for f, g in grads.items()}
         return loss.detach(), grads, nf_count
 
     def loss_and_grads(params, target, key, stratum):
         target_pad = _pad_rows(target, d_tiles)
         partials = {(ti, si): position_grads(params, target_pad, key, stratum, ti, si, dev)
                     for ti, si, dev in mesh.local()}
-        # one float32 vector a position: loss, non-finite count, gradients
-        flat = {p: torch.cat([loss.reshape(1), nf.reshape(1), *(g[f].reshape(-1) for f in fields)])
-                for p, (loss, g, nf) in partials.items()}
-        parts = gather(mesh, flat, (2 + n_entries,), home)
+        with profiling.span("plu.train.reduce"):
+            # one float32 vector a position: loss, non-finite count, gradients
+            flat = {p: torch.cat([loss.reshape(1), nf.reshape(1),
+                                  *(g[f].reshape(-1) for f in fields)])
+                    for p, (loss, g, nf) in partials.items()}
+            parts = gather(mesh, flat, (2 + n_entries,), home)
 
-        def reduce(xs):
-            # summed over tiles in ti order, then averaged over spp
-            return over(_sum([_sum(xs[si::d_spp]) for si in range(d_spp)]), d_spp)
+            def reduce(xs):
+                # summed over tiles in ti order, then averaged over spp
+                return over(_sum([_sum(xs[si::d_spp]) for si in range(d_spp)]), d_spp)
 
-        cols = torch.stack(parts).split([1, 1, *sizes], dim=1)
-        loss = reduce(list(cols[0][:, 0]))
-        grads = {f: reduce(list(c)).reshape(getattr(scene, f).shape)
-                 for f, c in zip(fields, cols[2:])}
-        nf_count = _sum(list(cols[1][:, 0]))
-        return loss, grads, over(nf_count, n_entries * d_tiles * d_spp)
+            cols = torch.stack(parts).split([1, 1, *sizes], dim=1)
+            loss = reduce(list(cols[0][:, 0]))
+            grads = {f: reduce(list(c)).reshape(getattr(scene, f).shape)
+                     for f, c in zip(fields, cols[2:])}
+            nf_count = _sum(list(cols[1][:, 0]))
+            return loss, grads, over(nf_count, n_entries * d_tiles * d_spp)
 
     def apply(params, opt_state, grads, nf_frac):
-        updates, new_state = optimizer.update(grads, opt_state)
-        new_params = apply_updates(params, updates)
-        if project_nonnegative:
-            new_params = {f: torch.clamp(x, min=0.0) for f, x in new_params.items()}
-        # reject the whole step (parameters and optimiser state, the
-        # count included) when the backward left non-finite entries
-        bad = nf_frac > 0.0
-        return _keep(bad, params, new_params), _keep(bad, opt_state, new_state)
+        with profiling.span("plu.train.optimizer"):
+            updates, new_state = optimizer.update(grads, opt_state)
+            new_params = apply_updates(params, updates)
+            if project_nonnegative:
+                new_params = {f: torch.clamp(x, min=0.0) for f, x in new_params.items()}
+            # reject the whole step (parameters and optimiser state, the
+            # count included) when the backward left non-finite entries
+            bad = nf_frac > 0.0
+            return _keep(bad, params, new_params), _keep(bad, opt_state, new_state)
 
     def one(params, opt_state, target, key, stratum):
-        loss, grads, nf_frac = loss_and_grads(params, target, key, stratum)
-        params, opt_state = apply(params, opt_state, grads, nf_frac)
-        return params, opt_state, loss, nf_frac
+        with profiling.span("plu.train.step", request=True):
+            loss, grads, nf_frac = loss_and_grads(params, target, key, stratum)
+            params, opt_state = apply(params, opt_state, grads, nf_frac)
+            return params, opt_state, loss, nf_frac
 
     def step(params, opt_state, target_flat, key, stratum: int):
         params, opt_state, loss, _ = one(params, opt_state, target_flat, key, int(stratum))

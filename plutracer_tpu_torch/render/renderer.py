@@ -28,6 +28,14 @@ by a count divides by a float32 tensor on the dividend's device: on CUDA
 torch computes a tensor divided by a Python number (a CPU scalar) as a
 product with its reciprocal, which can round differently from the JAX
 package's division.
+
+The pass loop's layers are spans of utils/profiling (recorded while a
+profiler runs): ``plu.render`` (one image, a request), and inside it, a
+launch at a time, ``plu.render.keys`` (the launch's keys derived on Python
+ints), ``plu.render.draws`` (R1's wrapper), ``plu.render.rays`` (R2's),
+``plu.render.radiance`` (K1's primary hit and K2 or K3, with the table
+build ``plu.tables.pack``), ``plu.render.accumulate``, then
+``plu.render.finalize``.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from plutracer_tpu_torch.render.integrator import (
     radiance_of_uniforms,
     resolve_integrator_backend,
 )
+from plutracer_tpu_torch.utils import profiling
 
 # rays a kernel launch of the pass loop holds at least, and the most strata
 # it takes
@@ -74,9 +83,11 @@ def launch_draws(keys, B: int, max_bounces: int, device):
     jitter from. Returns (jitter keys [(k_px, k_lens)] * S, u (max_bounces,
     S*B, 12): stratum j's rays at rows j*B..(j+1)*B), one rng.uniform_block
     call: one R1 launch on the card, whatever S."""
-    trip = [rng.split_words(k, 3) for k in keys]
-    u = rng.uniform_block([rng.fold_in_words(t[2], i) for i in range(max_bounces) for t in trip],
-                          12 * B, device)
+    with profiling.span("plu.render.keys"):
+        trip = [rng.split_words(k, 3) for k in keys]
+        path = [rng.fold_in_words(t[2], i) for i in range(max_bounces) for t in trip]
+    with profiling.span("plu.render.draws"):
+        u = rng.uniform_block(path, 12 * B, device)
     return [(t[0], t[1]) for t in trip], u.reshape(max_bounces, len(keys) * B, 12)
 
 
@@ -129,13 +140,14 @@ def launch_rays(scene, px0, keys, strata, n: int):
     one launch of R2 on a CUDA device (it raises where it cannot launch),
     camera_rays_plain on the CPU; any other device raises."""
     dev = px0.device
-    if dev.type == "cuda":
-        from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
+    with profiling.span("plu.render.rays"):
+        if dev.type == "cuda":
+            from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
 
-        return camera_rays_cuda(scene.camera, px0, keys, strata, n)
-    if dev.type != "cpu":
-        raise ValueError(f"launch_rays: no camera rays for device {dev}")
-    return camera_rays_plain(scene.camera, px0, keys, strata, n)
+            return camera_rays_cuda(scene.camera, px0, keys, strata, n)
+        if dev.type != "cpu":
+            raise ValueError(f"launch_rays: no camera rays for device {dev}")
+        return camera_rays_plain(scene.camera, px0, keys, strata, n)
 
 
 def _stratum_rays(scene, px0, key, stratum: int, n: int, options: RenderOptions):
@@ -176,17 +188,19 @@ def stratum_launches(scene, key, pairs, px0, n: int, options: RenderOptions = DE
     keyed fold_in(key, j) (a render's pass s is the pair (s, s));
     strata_per_launch strata a launch, yielded launch by launch as lists.
     A launch's path uniforms are one launch_draws call, its camera rays
-    one launch_rays call."""
+    one launch_rays call. Every span closes before the yield."""
     B = px0.shape[0]
     pairs = list(pairs)
     per = strata_per_launch(scene, options, B)
     words = rng.key_words(key)
     for i in range(0, len(pairs), per):
         group = pairs[i:i + per]
-        keys, u = launch_draws([rng.fold_in_words(words, j) for j, _ in group], B,
-                               options.max_bounces, px0.device)
+        with profiling.span("plu.render.keys"):
+            keys = [rng.fold_in_words(words, j) for j, _ in group]
+        keys, u = launch_draws(keys, B, options.max_bounces, px0.device)
         o, d = launch_rays(scene, px0, keys, [s for _, s in group], n)
-        L = radiance_of_uniforms(scene, o, d, u, options)
+        with profiling.span("plu.render.radiance"):
+            L = radiance_of_uniforms(scene, o, d, u, options)
         yield [L[j * B:(j + 1) * B] for j in range(len(group))]
 
 
@@ -206,14 +220,16 @@ def render_passes(
     strata = range(start, start + k_passes)
     for launch in stratum_launches(scene, key, [(s, s) for s in strata],
                                    pixel_centers(width, height, scene.device), n, options):
-        for L in launch:
-            acc = acc + L
+        with profiling.span("plu.render.accumulate"):
+            for L in launch:
+                acc = acc + L
     return acc
 
 
 def _finalize(accum, spp: int, width: int, height: int):
     # divide (not multiply-by-reciprocal), as the JAX package does
-    return over(accum, spp).reshape(height, width, 3)
+    with profiling.span("plu.render.finalize"):
+        return over(accum, spp).reshape(height, width, 3)
 
 
 def render(
@@ -225,14 +241,15 @@ def render(
     `accum` ((H*W, 3), the sum of passes 0..start_pass-1) and `start_pass`
     resume a partial render; the strata run in chunks of PASS_CHUNK."""
     spp = n * n
-    if accum is None:
-        accum = zeros_accum(width, height, scene.device)
-    s = start_pass
-    while s < spp:
-        k = min(PASS_CHUNK, spp - s)
-        accum = render_passes(scene, key, s, width, height, n, k, options, accum=accum)
-        s += k
-    return _finalize(accum, spp, width, height)
+    with profiling.span("plu.render", request=True):
+        if accum is None:
+            accum = zeros_accum(width, height, scene.device)
+        s = start_pass
+        while s < spp:
+            k = min(PASS_CHUNK, spp - s)
+            accum = render_passes(scene, key, s, width, height, n, k, options, accum=accum)
+            s += k
+        return _finalize(accum, spp, width, height)
 
 
 def render_image(scene, width: int, height: int, n: int, seed: int = 0,

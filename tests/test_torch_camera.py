@@ -37,6 +37,7 @@ from plutracer_tpu_torch.ops.cuda import build, camera_kernel, intersect_kernel
 from plutracer_tpu_torch.render import renderer
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+from plutracer_tpu_torch.utils import profiling
 from test_torch_launch import CARD, OTHER, Cards, FakeLibrary, HostAsCard
 from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
@@ -202,15 +203,18 @@ def test_stratum_launches_one_r2_call_a_launch(card_env, monkeypatch, pairs):
     monkeypatch.setattr(renderer, "radiance_of_uniforms", radiance)
     per = renderer.strata_per_launch(s, DEFAULT_OPTIONS, W * H)
     assert per == renderer.MAX_STRATA == camera_kernel.MAX_STRATA
-    before = (camera_kernel.camera_rays_cuda.launches, build.on_device.entries)
-    out = list(renderer.stratum_launches(s, rng.PRNGKey(0), pairs, px0, 5, DEFAULT_OPTIONS))
+    counted = lambda: (profiling.counter("launches.r2"), profiling.counter("device_entries"))
+    with profiling.recording():
+        before = counted()
+        out = list(renderer.stratum_launches(s, rng.PRNGKey(0), pairs, px0, 5, DEFAULT_OPTIONS))
+        after = counted()
     launches = -(-len(pairs) // per)
     assert len(out) == len(seen) == launches
     assert [name for name, _, _ in lib.calls] == (
         ["plu_threefry_uniform", "plu_camera_rays"] * launches)
     assert all(current == CARD for _, current, _ in lib.calls) and cards.stack == [OTHER]
-    assert camera_kernel.camera_rays_cuda.launches - before[0] == launches
-    assert build.on_device.entries - before[1] == 2 * launches
+    assert after[0] - before[0] == launches
+    assert after[1] - before[1] == 2 * launches
     base = rng.key_words(rng.PRNGKey(0))
     for i, args in enumerate(lib.r2_args):
         group = pairs[i * per:(i + 1) * per]

@@ -57,11 +57,9 @@ from plutracer_tpu_torch.ops.cuda.integrator_kernel import ray_color_cuda, ray_c
 from plutracer_tpu_torch.ops.cuda.intersect_kernel import (
     closest_hit,
     closest_hit_bvh,
-    closest_hit_bvh_cuda,
-    closest_hit_cuda,
     closest_hit_plain,
 )
-from plutracer_tpu_torch.ops.cuda.stream_kernel import onebounce_cuda, ray_color_stream_cuda
+from plutracer_tpu_torch.ops.cuda.stream_kernel import ray_color_stream_cuda
 from plutracer_tpu_torch.ops.intersect import T_MAX, query_lite
 from plutracer_tpu_torch.render.integrator import (
     K2_SMEM_MAX,
@@ -76,6 +74,7 @@ from plutracer_tpu_torch.render.wavefront import ray_color_wavefront
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.scene.types import PRIM_SPHERE, PrimDesc
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, TEXTBOOK_OPTIONS
+from plutracer_tpu_torch.utils import profiling
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -84,9 +83,18 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture
 def dev():
+    """The card, with utils/profiling recording through the test: the
+    kernels' launch counters count only while it records."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    with profiling.recording():
+        yield torch.device("cuda")
+
+
+def launches(kernel):
+    """The launches of `kernel` (k1, k1_bvh, k2, k2_debug, k3, k3_debug,
+    k4, r1, r2) recorded so far: utils/profiling's launches.<kernel>."""
+    return profiling.counter(f"launches.{kernel}")
 
 
 def scene_and_rays(name, res, dev):
@@ -109,9 +117,9 @@ def test_k1_bit_equal_to_plain(dev, name):
     o2 = lo + (hi - lo) * torch.rand((4096, 3), generator=g).to(dev)
     d2 = torch.nn.functional.normalize(torch.randn((4096, 3), generator=g).to(dev), dim=-1)
     for ro, rd in ((o, d), (o2, d2)):
-        before = closest_hit_cuda.launches
+        before = launches("k1")
         f, p, t = closest_hit(s.prims_packed, ro, rd, s.packed_type_rows)
-        assert closest_hit_cuda.launches == before + 1
+        assert launches("k1") == before + 1
         pf, pp, pt = closest_hit_plain(s.prims_packed, ro, rd)
         assert f.float().mean() > 0.1
         assert torch.equal(f, pf) and torch.equal(p, pp) and torch.equal(t, pt)
@@ -167,9 +175,9 @@ def structural_close(img, golden, what):
 def test_k2_matches_plain(dev, name, options):
     s, o, d = scene_and_rays(name, 96, dev)
     u = draw_uniforms(rng.PRNGKey(5), o.shape[0], options.max_bounces, dev)
-    before = ray_color_cuda.launches
+    before = launches("k2")
     out = ray_color_kernel(s, o, d, u, options)
-    assert ray_color_cuda.launches == before + 1
+    assert launches("k2") == before + 1
     ref = ray_color_plain(s, o, d, u, options)
     knife_edge_close(out, ref)
 
@@ -184,9 +192,9 @@ def test_k3_query_bit_equal_to_k1(dev, name):
     f0, _, t0 = closest_hit(s.prims_packed, o, d, s.packed_type_rows)
     p = o + d * torch.where(f0, t0, 1.0)[:, None]
     for ro, rd in ((o, d), (p, interior_rays(s, o.shape[0], dev)[1]), interior_rays(s, 4096, dev)):
-        before = closest_hit_bvh_cuda.launches
+        before = launches("k1_bvh")
         got = closest_hit_bvh(s, ro, rd)
-        assert closest_hit_bvh_cuda.launches == before + 1
+        assert launches("k1_bvh") == before + 1
         for want in (closest_hit_plain(s.prims_packed, ro, rd),
                      closest_hit(s.prims_packed, ro, rd, s.packed_type_rows)):
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -201,12 +209,12 @@ def test_intersect_backends_on_card(dev, name):
     winners and t on hits; ray_color_plain under the three is bit-equal
     on every lane."""
     s, o, d = scene_and_rays(name, 48, dev)
-    counters = {"pallas": closest_hit_cuda, "bvh": closest_hit_bvh_cuda}
+    counters = {"pallas": "k1", "bvh": "k1_bvh"}
     got = {}
     for b in ("pallas", "bvh", "xla"):
-        before = {k: c.launches for k, c in counters.items()}
+        before = {k: launches(c) for k, c in counters.items()}
         got[b] = query_lite(s, o, d, DEFAULT_OPTIONS.replace(intersect_backend=b))
-        assert {k: c.launches - before[k] for k, c in counters.items()} == \
+        assert {k: launches(c) - before[k] for k, c in counters.items()} == \
             {k: int(k == b) for k in counters}, b
     f = got["xla"][0]
     for b in ("pallas", "bvh"):
@@ -225,9 +233,9 @@ def test_intersect_backends_on_card(dev, name):
 def test_k3_matches_plain(dev, name):
     s, o, d = scene_and_rays(name, 96, dev)
     u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
-    before = ray_color_stream_cuda.launches
+    before = launches("k3")
     out = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS)
-    assert ray_color_stream_cuda.launches == before + 1
+    assert launches("k3") == before + 1
     knife_edge_close(out, ray_color_plain(s, o, d, u, DEFAULT_OPTIONS))
 
 
@@ -238,11 +246,11 @@ def test_k4_matches_k3(dev, sort):
     s, o, d = scene_and_rays("mesh0", 96, dev)
     u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
     opts = DEFAULT_OPTIONS.replace(stream_wavefront=True, stream_sort=sort)
-    before = onebounce_cuda.launches, closest_hit_cuda.launches
+    before = launches("k4"), launches("k1")
     out = torch.full_like(o, float("nan"))
     waves = []
     ray_color_wavefront(s, o, d, u, opts, out=out, wave_out=waves)
-    assert (onebounce_cuda.launches, closest_hit_cuda.launches) == (
+    assert (launches("k4"), launches("k1")) == (
         before[0] + opts.max_bounces, before[1])
     assert int(waves[0].counts[opts.max_bounces:].sum()) == o.shape[0]
     assert torch.equal(out, ray_color_stream_cuda(s, o, d, u, DEFAULT_OPTIONS))
@@ -298,28 +306,28 @@ def test_render_golden_structural_on_card(dev, name):
     h, w = golden.shape[:2]
     s = compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"), ["/res", f"{w}x{h}"]),
                       device=dev)
-    before = ray_color_stream_cuda.launches
+    before = launches("k3")
     img = render(s, w, h, 2, rng.PRNGKey(42)).cpu().numpy()
-    assert ray_color_stream_cuda.launches == before + 1  # the 4 strata in one launch
+    assert launches("k3") == before + 1  # the 4 strata in one launch
     structural_close(img, golden, name)
 
 
 def test_cli_on_card_k3(dev, tmp_path):
     out = tmp_path / "out.bmp"
-    before = ray_color_stream_cuda.launches
+    before = launches("k3")
     res = cli.run([str(REPO / "scenes" / "mesh0.urn"), "/res", "64x48", "/smp", "2",
                    "/o", str(out), "/seed", "1"])
     assert res.integrator == "kernel" and res.tier == "k3"
-    assert ray_color_stream_cuda.launches == before + 1  # the 4 strata in one launch
+    assert launches("k3") == before + 1  # the 4 strata in one launch
     assert torch.isfinite(res.linear).all()
 
 
 def test_cli_on_card(dev, tmp_path):
     out = tmp_path / "out.bmp"
-    before = ray_color_cuda.launches
+    before = launches("k2")
     res = cli.run([str(REPO / "scenes" / "demo-box.urn"), "/res", "64x48", "/smp", "2",
                    "/o", str(out), "/seed", "1"])
-    assert res.integrator == "kernel" and ray_color_cuda.launches == before + 1
+    assert res.integrator == "kernel" and launches("k2") == before + 1
     assert torch.isfinite(res.linear).all()
     assert read_bmp(str(out)).shape == (48, 64, 3)
 
@@ -340,9 +348,9 @@ def k5_close(dbg, ref, what, stream=False):
 def test_k5_k2_matches_plain(dev, name):
     s, o, d = scene_and_rays(name, 96, dev)
     u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
-    before = ray_color_cuda.debug_launches
+    before = launches("k2_debug")
     L, dbg = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS, debug=True)
-    assert ray_color_cuda.debug_launches == before + 1
+    assert launches("k2_debug") == before + 1
     assert torch.equal(L, ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS))
     ref_L, ref = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS, debug=True)
     knife_edge_close(L, ref_L)
@@ -353,11 +361,11 @@ def test_k5_k2_matches_plain(dev, name):
 def test_k5_k3_matches_plain(dev, name):
     s, o, d = scene_and_rays(name, 96, dev)
     u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
-    before = ray_color_stream_cuda.debug_launches
+    before = launches("k3_debug")
     # debug under stream_wavefront takes K3 (K4 has no telemetry)
     L, dbg = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS.replace(stream_wavefront=True),
                               debug=True)
-    assert ray_color_stream_cuda.debug_launches == before + 1
+    assert launches("k3_debug") == before + 1
     assert torch.equal(L, ray_color_stream_cuda(s, o, d, u, DEFAULT_OPTIONS))
     ref_L, ref = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS, debug=True)
     knife_edge_close(L, ref_L)
@@ -394,13 +402,13 @@ def test_train_step_on_card(dev):
     params = dict(get_params(s))
     params["mat_color"] = params["mat_color"] * 0.5
     step = make_train_step(s, 32, 24, 2, loss_downsample=2, project_nonnegative=True)
-    before = closest_hit_cuda.launches
+    before = launches("k1")
     p, st = params, step.init(params)
     losses = []
     for i in range(3):
         p, st, loss = step(p, st, target, rng.fold_in(rng.PRNGKey(1), i), i % 4)
         losses.append(loss)
-    assert closest_hit_cuda.launches > before  # the plain path queries through K1
+    assert launches("k1") > before  # the plain path queries through K1
     mp, mst, mlosses, nf = step.many(params, step.init(params), target, rng.PRNGKey(1), 0, 3)
     assert torch.isfinite(mlosses).all() and not nf.any()
     assert torch.equal(mlosses, torch.stack(losses))
@@ -435,10 +443,10 @@ def test_kernel_bit_equal_to_plain(dev, name):
     else:
         s, o, d = scene_and_rays(name, 96, dev)
     u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
-    k2, k3 = ray_color_cuda.launches, ray_color_stream_cuda.launches
+    k2, k3 = launches("k2"), launches("k3")
     out = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS)
     stream = s.num_prims > 64
-    assert (ray_color_stream_cuda.launches - k3, ray_color_cuda.launches - k2) == (
+    assert (launches("k3") - k3, launches("k2") - k2) == (
         (1, 0) if stream else (0, 1))
     ref = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS)
     assert torch.isfinite(out).all() and ref.abs().max() > 0
@@ -473,10 +481,9 @@ def test_beyond_cap_scenes_on_card(dev, name):
     assert resolve_integrator_backend(s, DEFAULT_OPTIONS, dev) == "kernel"
     assert kernel_tier(s, DEFAULT_OPTIONS) == tier
     u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
-    counter = ray_color_cuda if tier == "k2" else ray_color_stream_cuda
-    before = counter.launches
+    before = launches(tier)
     out = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS)
-    assert counter.launches == before + 1
+    assert launches(tier) == before + 1
     ref = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS)
     assert torch.isfinite(out).all() and ref.abs().max() > 0
     assert torch.equal(out, ref), f"{(out != ref).any(-1).sum().item()} lanes differ"
@@ -513,10 +520,10 @@ def test_k4_k5_beyond_caps_on_card(dev, name):
     wf = DEFAULT_OPTIONS.replace(stream_wavefront=True)
     assert resolve_integrator_backend(s, wf, dev) == "kernel" and kernel_tier(s, wf) == "k4"
     u = draw_uniforms(rng.PRNGKey(5), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
-    before = (onebounce_cuda.launches, ray_color_stream_cuda.debug_launches)
+    before = (launches("k4"), launches("k3_debug"))
     L4 = ray_color_kernel(s, o, d, u, wf)
     L5, dbg = ray_color_kernel(s, o, d, u, DEFAULT_OPTIONS, debug=True)
-    assert (onebounce_cuda.launches - before[0], ray_color_stream_cuda.debug_launches - before[1]) \
+    assert (launches("k4") - before[0], launches("k3_debug") - before[1]) \
         == (DEFAULT_OPTIONS.max_bounces, 1)
     ref_L, ref = ray_color_plain(s, o, d, u, DEFAULT_OPTIONS, debug=True)
     assert torch.isfinite(L4).all() and ref_L.abs().max() > 0
@@ -527,11 +534,11 @@ def test_k4_k5_beyond_caps_on_card(dev, name):
 
 def test_cli_beyond_caps_on_card(dev, tmp_path, capsys):
     """The CLI renders the 65,536-texel atlas scene through K2."""
-    before = ray_color_cuda.launches
+    before = launches("k2")
     res = cli.run([str(REPO / "scenes" / "textured256.urn"), "/res", "64x48", "/smp", "2",
                    "/o", str(tmp_path / "t.bmp")])
     assert res.integrator == "kernel" and res.tier == "k2"
-    assert ray_color_cuda.launches > before and torch.isfinite(res.linear).all()
+    assert launches("k2") > before and torch.isfinite(res.linear).all()
     assert "with the kernel integrator (k2)" in capsys.readouterr().out
 
 
@@ -544,18 +551,17 @@ def test_batched_render_equals_stratum_by_stratum(dev, name, wavefront):
     s = compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"), ["/res", "64x48"]),
                       device=dev)
     opts = DEFAULT_OPTIONS.replace(stream_wavefront=wavefront)
-    counter = (onebounce_cuda if wavefront else
-               ray_color_stream_cuda if s.num_prims > 64 else ray_color_cuda)
-    before, k1 = counter.launches, closest_hit_cuda.launches
+    counter = "k4" if wavefront else "k3" if s.num_prims > 64 else "k2"
+    before, k1 = launches(counter), launches("k1")
     img = render(s, 64, 48, 3, rng.PRNGKey(9), opts)
     per_pass = opts.max_bounces if wavefront else 1
-    assert counter.launches == before + per_pass
+    assert launches(counter) == before + per_pass
     if wavefront:
-        assert closest_hit_cuda.launches == k1  # the wavefront launches no K1
+        assert launches("k1") == k1  # the wavefront launches no K1
     acc = None
     for st in range(9):
         acc = render_passes(s, rng.PRNGKey(9), st, 64, 48, 3, 1, opts, acc)
-    assert counter.launches == before + 10 * per_pass
+    assert launches(counter) == before + 10 * per_pass
     assert torch.equal(img, _finalize(acc, 9, 64, 48))
 
 
@@ -630,9 +636,9 @@ def test_mesh_render_kernel_equals_plain_on_card(dev):
     s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x48"]),
                       device=dev)
     mesh = make_mesh((2, 2), devices=[dev] * 4)
-    before = ray_color_cuda.launches
+    before = launches("k2")
     img = render_sharded(s, 64, 48, 2, rng.PRNGKey(3), mesh)
-    assert ray_color_cuda.launches > before
+    assert launches("k2") > before
     plain = render_sharded(s, 64, 48, 2, rng.PRNGKey(3), mesh,
                            DEFAULT_OPTIONS.replace(integrator_backend="plain"))
     assert torch.isfinite(img).all() and torch.equal(img, plain)
@@ -679,13 +685,13 @@ def query_closest_on_card(s, o, d, engine):
     from plutracer_tpu_torch.parallel.sharded import _deterministic
 
     a = s.prim_a.clone().requires_grad_(True)
-    before = (closest_hit_cuda.launches, closest_hit_bvh_cuda.launches)
+    before = (launches("k1"), launches("k1_bvh"))
     with _deterministic():
         h = query_closest(dataclasses.replace(s, prim_a=a), o, d,
                           DEFAULT_OPTIONS.replace(intersect_backend=engine))
         (g,) = torch.autograd.grad(h.p.sum(), a)
-    launches = (closest_hit_cuda.launches - before[0], closest_hit_bvh_cuda.launches - before[1])
-    return h, g, launches
+    made = (launches("k1") - before[0], launches("k1_bvh") - before[1])
+    return h, g, made
 
 
 @pytest.mark.parametrize("name", ["demo-box", "mesh0"])
@@ -754,10 +760,10 @@ def test_estimate_direct_backends_on_card(dev, name):
     for gate in (False, True):
         out = {}
         for b in ENGINES:
-            before = (closest_hit_cuda.launches, closest_hit_bvh_cuda.launches)
+            before = (launches("k1"), launches("k1_bvh"))
             out[b] = estimate_direct(*args, DEFAULT_OPTIONS.replace(
                 intersect_backend=b, shading_normal_le_gate=gate))
-            made = (closest_hit_cuda.launches - before[0], closest_hit_bvh_cuda.launches - before[1])
+            made = (launches("k1") - before[0], launches("k1_bvh") - before[1])
             assert made == {"pallas": (2, 0), "bvh": (0, 2), "xla": (0, 0)}[b], (b, made)
         assert torch.isfinite(out["pallas"]).all() and out["pallas"].abs().max() > 0
         for b in ("bvh", "xla"):
@@ -808,12 +814,11 @@ def r1_keys(K):
 def test_r1_bit_equal_to_plain(dev, K, n):
     """Every word of R1's block equals the plain int64 hash's, on the card;
     one launch a call."""
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
 
     keys = r1_keys(K)
-    before = uniform_block_cuda.launches
+    before = launches("r1")
     got = rng.uniform_block(keys, n, dev)
-    assert uniform_block_cuda.launches == before + 1
+    assert launches("r1") == before + 1
     want = rng.uniform_block_plain(keys, n, dev)
     assert got.shape == want.shape == (K, n)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -838,27 +843,24 @@ def test_r1_cli_render_equals_plain_draws(dev, name, tmp_path, monkeypatch):
     """A CLI render through the kernels, its path uniforms by R1 (one
     launch a pass-loop launch, as many as R2's, counted), is bit-identical
     to the same render with plain-drawn uniforms."""
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
 
     args = [str(REPO / "scenes" / f"{name}.urn"), "/smp", "2", "/seed", "7",
             "/o", str(tmp_path / "x.bmp")]
-    uniform_block_cuda.launches = camera_rays_cuda.launches = 0
+    profiling.reset()
     got = cli.run(args)
     torch.cuda.synchronize()
-    made = uniform_block_cuda.launches
-    assert got.integrator == "kernel" and made > 0 and made == camera_rays_cuda.launches
+    made = launches("r1")
+    assert got.integrator == "kernel" and made > 0 and made == launches("r2")
     with monkeypatch.context() as m:
         plain_drawn(m)
         want = cli.run(args)
-    assert uniform_block_cuda.launches == made
+    assert launches("r1") == made
     assert torch.equal(got.linear, want.linear)
 
 
 def test_r1_train_step_equals_plain_draws(dev, monkeypatch):
     """A demo-box train step's loss and gradients with R1's draws equal
     those with plain-drawn uniforms, bit for bit."""
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
     from plutracer_tpu_torch.parallel import sharded
 
     s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x64"]),
@@ -868,9 +870,9 @@ def test_r1_train_step_equals_plain_draws(dev, monkeypatch):
     for loss_space in ("log", "ab"):
         step = sharded.make_train_step(s, 64, 64, 2, loss_space=loss_space,
                                        trainable=("mat_color", "light_intensity"))
-        uniform_block_cuda.launches = 0
+        profiling.reset()
         got = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
-        assert uniform_block_cuda.launches == (2 if loss_space == "ab" else 1)
+        assert launches("r1") == (2 if loss_space == "ab" else 1)
         with monkeypatch.context() as m:
             plain_drawn(m)
             want = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
@@ -922,15 +924,14 @@ def test_r2_bit_equal_to_plain(dev, name, S, order, B):
     call."""
     import random
 
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
     from plutracer_tpu_torch.render.renderer import camera_rays_plain, launch_rays
 
     n = 4 if S < 16 else 5
     strata = list(range(S)) if order == "in order" else random.Random(S).sample(range(n * n), S)
     s, px0, keys = r2_launch(name, 64, 48, S, B, dev)
-    before = camera_rays_cuda.launches
+    before = launches("r2")
     o, d = launch_rays(s, px0, keys, strata, n)
-    assert camera_rays_cuda.launches == before + 1
+    assert launches("r2") == before + 1
     for po, pd in (r1_drawn_rays(s, px0, keys, strata, n),
                    camera_rays_plain(s.camera, px0, keys, strata, n)):
         assert o.shape == d.shape == po.shape == (S * B, 3)
@@ -981,21 +982,19 @@ def test_r2_render_equals_plain_camera(dev, name, res, n, tmp_path, monkeypatch)
     """A CLI render through the kernels makes one R2 launch a pass-loop
     launch (as many as its R1 launches) and no eager camera op, and is
     bit-identical to the same render with the plain camera rays."""
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
 
     args = [str(REPO / "scenes" / f"{name}.urn"), "/res", f"{res[0]}x{res[1]}", "/smp", str(n),
             "/seed", "7", "/o", str(tmp_path / "x.bmp")]
-    camera_rays_cuda.launches = uniform_block_cuda.launches = 0
+    profiling.reset()
     with monkeypatch.context() as m:
         no_eager_camera(m)
         got = cli.run(args)
-    made = camera_rays_cuda.launches
-    assert got.integrator == "kernel" and made > 0 and made == uniform_block_cuda.launches
+    made = launches("r2")
+    assert got.integrator == "kernel" and made > 0 and made == launches("r1")
     with monkeypatch.context() as m:
         plain_camera(m)
         want = cli.run(args)
-    assert camera_rays_cuda.launches == made
+    assert launches("r2") == made
     assert torch.equal(got.linear, want.linear)
 
 
@@ -1003,32 +1002,31 @@ def test_r2_train_step_and_sharded_equal_plain_camera(dev, monkeypatch):
     """A demo-box train step's loss and gradients, and render_sharded on a
     1x1 mesh, through R2 (one launch a traced stratum, no eager camera
     op) equal the same with the plain camera rays, bit for bit."""
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
     from plutracer_tpu_torch.parallel import make_mesh, render_sharded, sharded
 
     s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x64"]),
                       device=dev)
     target = render(s, 64, 64, 2, rng.PRNGKey(11)).reshape(-1, 3)
     params = sharded.get_params(s)
-    for loss_space, launches in (("log", 1), ("ab", 2)):
+    for loss_space, want in (("log", 1), ("ab", 2)):
         step = sharded.make_train_step(s, 64, 64, 2, loss_space=loss_space,
                                        trainable=("mat_color", "light_intensity"))
-        camera_rays_cuda.launches = 0
+        profiling.reset()
         with monkeypatch.context() as m:
             no_eager_camera(m)
             got = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
-        assert camera_rays_cuda.launches == launches
+        assert launches("r2") == want
         with monkeypatch.context() as m:
             plain_camera(m)
             want = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
         assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
         assert all(torch.equal(got[1][f], want[1][f]) for f in got[1])
     mesh = make_mesh((1, 1), devices=[dev])
-    camera_rays_cuda.launches = 0
+    profiling.reset()
     with monkeypatch.context() as m:
         no_eager_camera(m)
         img = render_sharded(s, 64, 64, 2, rng.PRNGKey(5), mesh)
-    assert camera_rays_cuda.launches == 1  # the 4 strata in one launch
+    assert launches("r2") == 1  # the 4 strata in one launch
     with monkeypatch.context() as m:
         plain_camera(m)
         assert torch.equal(img, render_sharded(s, 64, 64, 2, rng.PRNGKey(5), mesh))
@@ -1040,8 +1038,6 @@ def test_one_r1_and_one_r2_launch_a_pass_loop_launch(dev, tmp_path, monkeypatch)
     as many R1 as R2 launches, one of each a path-kernel launch, in a CLI
     render and in a train step's traced strata, and no jitter block drawn
     (every R1 block is max_bounces keys a stratum of 12 words a ray)."""
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
     from plutracer_tpu_torch.parallel import sharded
 
     real, blocks = rng.uniform_block, []
@@ -1053,23 +1049,23 @@ def test_one_r1_and_one_r2_launch_a_pass_loop_launch(dev, tmp_path, monkeypatch)
     monkeypatch.setattr(rng, "uniform_block", recorded)
     mb = DEFAULT_OPTIONS.max_bounces
     # 25 strata: chunks of 16 and 9, one launch each
-    uniform_block_cuda.launches = camera_rays_cuda.launches = ray_color_cuda.launches = 0
+    profiling.reset()
     res = cli.run([str(REPO / "scenes" / "demo-box.urn"), "/res", "64x64", "/smp", "5",
                    "/seed", "7", "/o", str(tmp_path / "x.bmp")])
     torch.cuda.synchronize()
-    made = uniform_block_cuda.launches
+    made = launches("r1")
     assert res.integrator == "kernel"
-    assert made == camera_rays_cuda.launches == ray_color_cuda.launches == len(blocks) == 2
+    assert made == launches("r2") == launches("k2") == len(blocks) == 2
     assert blocks == [(mb * 16, 12 * 64 * 64), (mb * 9, 12 * 64 * 64)], blocks
     s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x64"]),
                       device=dev)
     target = render(s, 64, 64, 2, rng.PRNGKey(11)).reshape(-1, 3)
     step = sharded.make_train_step(s, 64, 64, 2, loss_space="ab", trainable=("mat_color",))
-    uniform_block_cuda.launches = camera_rays_cuda.launches = 0
+    profiling.reset()
     blocks.clear()
     step.loss_and_grads(sharded.get_params(s), target, rng.PRNGKey(3), 1)
     torch.cuda.synchronize()
-    assert uniform_block_cuda.launches == camera_rays_cuda.launches == len(blocks) == 2
+    assert launches("r1") == launches("r2") == len(blocks) == 2
     assert blocks == [(mb, 12 * 64 * 64)] * 2, blocks
 
 
@@ -1078,23 +1074,13 @@ def test_one_r1_and_one_r2_launch_a_pass_loop_launch(dev, tmp_path, monkeypatch)
 
 def test_launch_helper_counts_every_launch(dev):
     """Over renders through K1 + K2, K3 and K4, the K3 query, K5, R1 and
-    R2, the launch helper's entries equal the wrappers' launch counters:
-    no launch bypasses build.on_device."""
-    from plutracer_tpu_torch.ops.cuda import build
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_cuda
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
-
-    counters = ((closest_hit_cuda, "launches"), (closest_hit_bvh_cuda, "launches"),
-                (ray_color_cuda, "launches"), (ray_color_cuda, "debug_launches"),
-                (ray_color_stream_cuda, "launches"), (ray_color_stream_cuda, "debug_launches"),
-                (onebounce_cuda, "launches"), (uniform_block_cuda, "launches"),
-                (camera_rays_cuda, "launches"))
+    R2, the launch helper's entries (device_entries) equal the wrappers'
+    launch counters: no launch bypasses build.on_device."""
+    counters = ("k1", "k1_bvh", "k2", "k2_debug", "k3", "k3_debug", "k4", "r1", "r2")
     demo, o, d = scene_and_rays("demo-box", 32, dev)
     mesh1 = compile_scene(load_scene_file(str(REPO / "scenes" / "mesh1.urn"), ["/res", "32x32"]),
                           device=dev)
-    for fn, attr in counters:
-        setattr(fn, attr, 0)
-    build.on_device.entries = 0
+    profiling.reset()
     render(demo, 32, 32, 2, rng.PRNGKey(1))
     render(mesh1, 32, 32, 2, rng.PRNGKey(1))
     render(mesh1, 32, 32, 2, rng.PRNGKey(1), DEFAULT_OPTIONS.replace(stream_wavefront=True))
@@ -1102,8 +1088,8 @@ def test_launch_helper_counts_every_launch(dev):
     u = draw_uniforms(rng.PRNGKey(2), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
     ray_color_kernel(demo, o, d, u, DEFAULT_OPTIONS, debug=True)
     ray_color_kernel(mesh1, o, d, u, DEFAULT_OPTIONS, debug=True)
-    counts = [getattr(fn, attr) for fn, attr in counters]
-    assert all(counts) and build.on_device.entries == sum(counts), counts
+    counts = [launches(k) for k in counters]
+    assert all(counts) and profiling.counter("device_entries") == sum(counts), counts
 
 
 @pytest.fixture
@@ -1182,11 +1168,10 @@ def test_ray_color_of_a_key_bit_equal_to_plain(dev, name, tier):
 
     s, o, d = scene_and_rays(name, 64, dev)
     assert kernel_tier(s, DEFAULT_OPTIONS) == tier
-    kernel = ray_color_cuda if tier == "k2" else ray_color_stream_cuda
     key = rng.PRNGKey(9)
-    before = kernel.launches
+    before = launches(tier)
     got = render_pkg.ray_color(s, o, d, key)
-    assert kernel.launches == before + 1
+    assert launches(tier) == before + 1
     u = draw_uniforms(key, o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
     assert torch.equal(got, ray_color_plain(s, o, d, u, DEFAULT_OPTIONS))
     assert torch.equal(render_pkg.ray_color(s, o, d, key, DEFAULT_OPTIONS, False), got)
@@ -1203,13 +1188,78 @@ def test_profile_trace_holds_k2_launches(dev, tmp_path):
 
     s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"), ["/res", "64x48"]),
                       device=dev)
-    before = ray_color_cuda.launches
+    before = launches("k2")
     with profile_trace(str(tmp_path / "prof")):
         render(s, 64, 48, 2, rng.PRNGKey(0))
         torch.cuda.synchronize()
-    assert ray_color_cuda.launches > before
+    assert launches("k2") > before
     (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
     kernels = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
                if e.get("cat") == "kernel"]
     assert any("megakernel" in k and "stream" not in k and "onebounce" not in k
                for k in kernels), sorted(set(kernels))
+
+
+# the library's kernels by the name each C entry point launches
+# (csrc/*.cu), and the launches.* counter that counts it
+LIBRARY_KERNELS = {"closest_hit_ring": "k1", "closest_hit_bvh_kernel": "k1_bvh",
+                   "megakernel": "k2", "megakernel_stream": "k3", "megakernel_onebounce": "k4",
+                   "threefry_uniform": "r1", "camera_rays": "r2"}
+
+
+def library_kernel(name):
+    """The launches.* key of a kernel record's name, or None for a kernel
+    outside the library (torch's own)."""
+    import re
+
+    found = re.findall(r"[A-Za-z_]\w*", name)
+    keys = [LIBRARY_KERNELS[w] for w in found if w in LIBRARY_KERNELS]
+    return keys[0] if keys else None
+
+
+@pytest.mark.parametrize("name,tier", [("demo-box", "k2"), ("mesh1", "k3")])
+def test_profiled_render_counts_every_library_kernel(dev, name, tier):
+    """A 256x256 25-spp render under torch.profiler on the card (7 launches
+    of up to 4 strata, on K2's and on K3's tier): the launches.* counters
+    recorded equal, kernel by kernel, the trace's records of the library's
+    kernels; the program's plu.* spans are in the same kineto events as the
+    device records, each within 1 ms of the span the registry recorded, and
+    on their clock: each path kernel's and R1's record starts after the
+    start of the plu.render.radiance / plu.render.draws span that launched
+    it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"),
+                                      ["/res", "256x256"]), device=dev)
+    assert kernel_tier(s, DEFAULT_OPTIONS) == tier
+    render(s, 256, 256, 5, rng.PRNGKey(1))  # built and warm
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        render(s, 256, 256, 5, rng.PRNGKey(2))
+        torch.cuda.synchronize()
+    rec = profiling.recorded()
+    kernels, spans = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        at = (e.start_ns(), e.start_ns() + e.duration_ns())
+        if "CUDA" in str(e.device_type()):
+            key = library_kernel(e.name())
+            if key is not None:
+                kernels.setdefault(key, []).append(at)
+        elif e.name().startswith("plu."):
+            spans.setdefault(e.name(), []).append(at)
+    counted = {k[len("launches."):]: v for k, v in rec["counters"].items()
+               if k.startswith("launches.")}
+    assert {k: len(v) for k, v in kernels.items()} == counted
+    assert counted[tier] == 7 and counted["r1"] == counted["r2"] == 7
+    assert counted.get("k1", 0) == (7 if tier == "k2" else 0)
+    assert set(spans) == set(rec["spans"]) >= {"plu.render", "plu.render.radiance",
+                                               "plu.render.draws", "plu.tables.pack"}
+    for span, at in spans.items():
+        mine = sorted((e.start_ns, e.end_ns) for e in rec["entries"] if e.name == span)
+        assert len(mine) == len(at), span
+        for (a, b), (ka, kb) in zip(mine, sorted(at)):
+            assert abs(a - ka) < 1_000_000 and abs(b - kb) < 1_000_000, (span, a - ka, b - kb)
+    for kernel, span in ((tier, "plu.render.radiance"), ("r1", "plu.render.draws")):
+        for (k0, _), (s0, _) in zip(sorted(kernels[kernel]), sorted(spans[span])):
+            assert k0 >= s0, (kernel, span, k0 - s0)

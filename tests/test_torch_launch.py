@@ -32,6 +32,7 @@ from plutracer_tpu_torch.render.wavefront import Wave
 from plutracer_tpu_torch.ops.camera import generate_rays
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+from plutracer_tpu_torch.utils import profiling
 from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -203,15 +204,17 @@ def test_wrapper_launches_on_its_tensors_card(launch_env, kernel):
     stream; one helper entry a launch, K1's plan inside its launch's."""
     cards, lib = launch_env
     fn, scene, want = WRAPPERS[kernel]
-    entries = build.on_device.entries
-    fn(scene)
+    with profiling.recording():
+        entries = profiling.counter("device_entries")
+        fn(scene)
+        entries = profiling.counter("device_entries") - entries
     assert [name for name, _, _ in lib.calls] == want
     for name, current, last in lib.calls:
         assert current == CARD, (name, current)
         if name != "plu_closest_hit_plan":
             assert last == 1000 + CARD.index, (name, last)  # CARD's stream
     assert cards.stack == [OTHER]  # left as it was found
-    assert build.on_device.entries - entries == len(want) - want.count("plu_closest_hit_plan")
+    assert entries == len(want) - want.count("plu_closest_hit_plan")
 
 
 def test_k1_arrivals_one_buffer_a_card(launch_env):

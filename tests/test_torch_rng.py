@@ -242,15 +242,18 @@ def test_kernel_wrapper_refuses_the_cpu():
     the count; nothing is launched here."""
     from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
 
-    before = uniform_block_cuda.launches
+    from plutracer_tpu_torch.utils import profiling
+
     keys = rng.split(rng.PRNGKey(0), 2)
-    with pytest.raises(ValueError, match="CUDA"):
-        uniform_block_cuda(keys, 8, "cpu")
-    with pytest.raises(ValueError, match="2\\*\\*32"):
-        uniform_block_cuda(keys, 2**32, "cuda")
-    with pytest.raises(ValueError, match="at most"):
-        uniform_block_cuda(torch.zeros((65536, 2), dtype=torch.int64), 8, "cuda")
-    assert uniform_block_cuda.launches == before
+    with profiling.recording():
+        before = profiling.counter("launches.r1")
+        with pytest.raises(ValueError, match="CUDA"):
+            uniform_block_cuda(keys, 8, "cpu")
+        with pytest.raises(ValueError, match="2\\*\\*32"):
+            uniform_block_cuda(keys, 2**32, "cuda")
+        with pytest.raises(ValueError, match="at most"):
+            uniform_block_cuda(torch.zeros((65536, 2), dtype=torch.int64), 8, "cuda")
+        assert profiling.counter("launches.r1") == before
 
 
 def test_cpu_draws_never_import_the_kernel_module():

@@ -42,6 +42,7 @@ from plutracer_tpu_torch.render.wavefront import (
 )
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
+from plutracer_tpu_torch.utils import profiling
 from test_torch_stream import KEY, WAVEFRONT_BOUNCES, knife_edge_close, setup
 from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
@@ -92,18 +93,21 @@ def test_stream_launchers_reject_cpu_and_grad():
     u = torch.rand((DEFAULT_OPTIONS.max_bounces, 16, 12))
     wave = Wave.start(s, o, d, u, "morton", DEFAULT_OPTIONS.max_bounces)
     tables = pack_tables(s)
-    with pytest.raises(ValueError, match="CUDA"):
-        ray_color_stream_cuda(s, o, d, u, DEFAULT_OPTIONS)
-    with pytest.raises(ValueError, match="CUDA"):
-        onebounce_cuda(s, tables, wave, 0, None, DEFAULT_OPTIONS)
-    with pytest.raises(ValueError, match="permutation"):
-        onebounce_cuda(s, tables, wave, 1, None, DEFAULT_OPTIONS)
-    with pytest.raises(NotImplementedError):
-        ray_color_stream_cuda(s, o.requires_grad_(), d, u, DEFAULT_OPTIONS)
-    wave.carry.requires_grad_()
-    with pytest.raises(NotImplementedError):
-        onebounce_cuda(s, tables, wave, 0, None, DEFAULT_OPTIONS)
-    assert ray_color_stream_cuda.launches == 0 and onebounce_cuda.launches == 0
+    with profiling.recording():
+        launches = lambda: (profiling.counter("launches.k3"), profiling.counter("launches.k4"))
+        before = launches()
+        with pytest.raises(ValueError, match="CUDA"):
+            ray_color_stream_cuda(s, o, d, u, DEFAULT_OPTIONS)
+        with pytest.raises(ValueError, match="CUDA"):
+            onebounce_cuda(s, tables, wave, 0, None, DEFAULT_OPTIONS)
+        with pytest.raises(ValueError, match="permutation"):
+            onebounce_cuda(s, tables, wave, 1, None, DEFAULT_OPTIONS)
+        with pytest.raises(NotImplementedError):
+            ray_color_stream_cuda(s, o.requires_grad_(), d, u, DEFAULT_OPTIONS)
+        wave.carry.requires_grad_()
+        with pytest.raises(NotImplementedError):
+            onebounce_cuda(s, tables, wave, 0, None, DEFAULT_OPTIONS)
+        assert launches() == before
 
 
 def wavefront_inputs(name="mesh0", res=16, seed=3):
