@@ -159,6 +159,18 @@ both main paths of the port on the card:
      the camera stage (launch_draws + launch_rays at R2's cases) and the
      CLI renders of phases 5 and 10 timed in both trees, each in its own
      process, in turns (parent, this tree, this tree, parent).
+24.  G1, the table-row gather's backward (csrc/row_grad.cu): bit-equal to
+     its plain twin (row_grad_kernel.row_grad_plain, int32 views) at
+     every width (1, 8, 12, 32) over 1 to 20,000 rows and 0 to 262,144
+     rays, the same bits over three calls, one launch a call; at the
+     Cornell train step's material and light tables (512x512 rays) and
+     prim fields of 2^16, 2^18 and 2^20 rows (sorted rays), bit-equal to
+     the twin again and timed: kernel-only (torch.profiler) and wrapper,
+     beside the twin's, torch's deterministic index_put_'s (library_ms)
+     and the bound; a Cornell box 512x512 log step (n = 2,
+     albedo and emission: the benchmark's train mix) launches G1 24 times,
+     gives the same loss and gradients twice from one state, and G1's
+     device time in it (torch.profiler) beside all its kernels'.
 
 Every phase asserts and prints its seconds; any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
@@ -191,7 +203,12 @@ its function. R2's entry counts its launches in the same CLI renders
 (R2_RAY_BYTES a ray, the pixel positions and the camera table once), its
 jitter's integer operations (R1_WORD_OPS a word, two words a ray and two
 more with a lens) at R1's rate, and its float32 operations (R2_RAY_OPS);
-no single PyTorch call computes camera rays.
+no single PyTorch call computes camera rays. G1's entry counts its
+launches in phase 24's log step; its bound is the bytes it must move (a
+ray's index and W floats read, the table's gradient written) over HBM's
+rate; its library_ms is torch's
+index_put_(accumulate=True) under deterministic algorithms at the same
+shape, which the port no longer calls.
 The next line is the card's name and power limit; the last line is
 {"ok": true, "device": ...}.
 """
@@ -241,6 +258,14 @@ INT32_OPS_A_CLOCK = 128
 # phase 21: the ragged batches, the blocks past 2^24 words (keys, words)
 R1_RAGGED = (1, 127, 1_000_003)
 R1_BIG = ((1, 2**24 + 3), (3, 2**24 + 1))
+G1_SOURCE = "plutracer_tpu_torch/csrc/row_grad.cu"
+G1_REPLACES = "none: XLA's scatter-add, the VJP of plutracer_tpu/ops/tables.py's gathers"
+G1_KERNELS = ("row_grad_sorted", "row_grad")  # the first that a name holds names it
+# (B, R, W): every width of the gather's tables, one and many chunks and sorted tiles
+G1_CASES = [(B, R, W) for R in (1, 5, 31, 20000) for W in (1, 8, 12, 32)
+            for B in (0, 1, 2047, 2049, 262144)]
+G1_TIMED = (("mat", 12), ("light", 8))  # the Cornell train step's tables, B = 512^2
+G1_FIELDS = ((2**16, 32), (2**18, 32), (2**20, 32))  # trainable prim fields: sorted rays
 R2_SOURCE = "plutracer_tpu_torch/csrc/camera.cu"
 R2_REPLACES = "plutracer_tpu/render/renderer.py:36"
 R2_KERNELS = ("camera_rays",)
@@ -509,12 +534,14 @@ def ptxas_report(log: str):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = next((k for k in ("closest_hit_bvh_kernel", *K1_KERNELS, *R1_KERNELS,
-                                     *R2_KERNELS,
+                                     *R2_KERNELS, *G1_KERNELS,
                                      "megakernel_stream", "megakernel_onebounce", "megakernel")
                          if k in line), re.search(r"function '([^']+)'", line).group(1))
             m = re.search(name + r"ILb([01])E", line)
             tags = ("<split>", "<one>") if name in K1_KERNELS else ("<debug>", "<plain>")
             kernel = name + ("" if m is None else tags[0] if m.group(1) == "1" else tags[1])
+            width = re.search(name + r"ILi(\d+)E", line)
+            kernel += "" if width is None else f"<W={width.group(1)}>"
         if "registers" in line or "spill" in line:
             out.setdefault(kernel, []).append(line.strip())
     return out
@@ -759,6 +786,7 @@ def main() -> int:
     r1 = rng_phase(phase, dev, card, launches["R1"] + r1_big)
     launch_devices_phase(phase, card)
     r2 = camera_phase(phase, dev, card, launches["R2"] + r2_big)
+    g1 = row_grad_phase(phase, dev, card)
     phase()
     print(f"K1 launches by shape: demo-box primary (the 512x512 64-spp render) {launches['K1']}, "
           + ", ".join(f"{k} {v}" for k, v in train_k1.items())
@@ -779,6 +807,7 @@ def main() -> int:
         k5,
         r1,
         r2,
+        g1,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -2590,6 +2619,7 @@ def launch_devices_phase(phase, card):
     from plutracer_tpu_torch.render.integrator import draw_uniforms
     from plutracer_tpu_torch.render.renderer import render
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+    from plutracer_tpu_torch.ops.tables import _rows, pack_tables
     from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
     from plutracer_tpu_torch.utils import profiling
 
@@ -2601,7 +2631,7 @@ def launch_devices_phase(phase, card):
         return compile_scene(load_scene_file(str(ROOT / "scenes" / f"{name}.urn"),
                                              ["/res", f"{w}x{w}"]), device=dev)
 
-    counters = ("k1", "k1_bvh", "k2", "k2_debug", "k3", "k3_debug", "k4", "r1", "r2")
+    counters = ("k1", "k1_bvh", "k2", "k2_debug", "k3", "k3_debug", "k4", "r1", "r2", "g1")
     demo, mesh1 = load("demo-box", cuda0), load("mesh1", cuda0)
     o = torch.zeros((1024, 3), device=cuda0)
     g = torch.Generator().manual_seed(22)
@@ -2614,6 +2644,8 @@ def launch_devices_phase(phase, card):
         u = draw_uniforms(rng.PRNGKey(4), 1024, DEFAULT_OPTIONS.max_bounces, cuda0)  # R1
         ray_color_kernel(demo, o, d, u, DEFAULT_OPTIONS, debug=True)  # K1 + K5 (K2's)
         ray_color_kernel(mesh1, o, d, u, DEFAULT_OPTIONS, debug=True)  # K5 (K3's)
+        table = pack_tables(demo).mat.clone().requires_grad_(True)
+        torch.autograd.grad(_rows(table, o[:, 0].long()).sum(), table)  # G1
         torch.cuda.synchronize()
         entries = profiling.counter("device_entries")
         counts = {f"launches.{k}": launched(k) for k in counters}
@@ -2944,6 +2976,139 @@ def camera_stage_turns(parent: pathlib.Path, card: str):
             print(f"CLI render {name}, {who}: samples/s "
                   f"{a['samples_per_s'][name]:.1f} / {b['samples_per_s'][name]:.1f} "
                   f"(turns 1 / 2, medians of {STAGE_RENDER_REPS}) ({card})")
+
+
+def g1_case(B, R, W, dev, seed=5):
+    """B rays' rows (half among the first three, so rows repeat) and a
+    gradient of mixed magnitudes with some -0.0 entries."""
+    g = torch.Generator().manual_seed(seed + B + R * W)
+    idx = torch.randint(0, R, (B,), generator=g)
+    idx[: B // 2] = torch.randint(0, min(R, 3), (B // 2,), generator=g)
+    grad = torch.randn((B, W), generator=g) * 10.0 ** torch.randint(-3, 3, (B, 1), generator=g)
+    grad[torch.rand((B, W), generator=g) < 0.05] = -0.0
+    return idx.to(dev), grad.to(dev)
+
+
+def g1_bound(B, R, W):
+    """(bound ms, "bytes" or "operations") of a G1 call: each ray's index
+    and W floats read once, the table's gradient written once; one add a
+    value."""
+    return work_bound(B * (8 + 4 * W) + R * W * 4, B * W)
+
+
+def g1_times(idx, grad, shape, what, card, reps=50):
+    """(kernel-only ms, wrapper ms, twin ms, library ms, bound, max |G1 -
+    twin|) of G1 at one shape, its output asserted bit-equal (int32
+    views) to the plain twin's: the kernels' device time a call from
+    torch.profiler (a sorted call's sort excluded), CUDA events around
+    calls of the wrapper (its sort included), of the plain twin and of
+    torch's index_put_(accumulate=True) under deterministic algorithms
+    (the backward G1 replaces: its sort, then a warp a run of equal
+    rows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from plutracer_tpu_torch.ops.cuda.row_grad_kernel import row_grad_cuda, row_grad_plain
+    from plutracer_tpu_torch.parallel.sharded import _deterministic
+
+    call = lambda: row_grad_cuda(idx, grad, shape)
+    got, want = call(), row_grad_plain(idx, grad, shape)
+    err = (got - want).abs().max().item()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+        f"G1 {what}: not bit-equal to its twin (max |diff| {err})")
+    wrapper = time_ms(call, reps)
+    twin = time_ms(lambda: row_grad_plain(idx, grad, shape), reps=3, warmup=1)
+    with _deterministic():
+        zeros = torch.zeros(shape, device=grad.device)
+        library = time_ms(lambda: zeros.clone().index_put_((idx,), grad, accumulate=True),
+                          reps=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if any(k in ev.key for k in G1_KERNELS)]
+    dev_us = sum(getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+                 for ev in evs)
+    kernel = dev_us / 1e3 / sum(ev.count for ev in evs) if dev_us > 0 else wrapper
+    how = "torch.profiler" if dev_us > 0 else "the profiler recorded none: wrapper time"
+    bound = g1_bound(idx.numel(), shape[0], grad.numel() // max(idx.numel(), 1))
+    print(f"G1 time {what}: kernel-only {kernel:.4f} ms ({how}), wrapper {wrapper:.4f} ms a "
+          f"call, twin {twin:.4f} ms, library (torch's deterministic index_put_) "
+          f"{library:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}); bit-equal to the twin, "
+          f"max |diff| {err} ({card})")
+    return kernel, wrapper, twin, library, bound, err
+
+
+def row_grad_phase(phase, dev, card):
+    """Phase 24: G1 bit-equal to its plain twin at every width, one and
+    many chunks and tiles of sorted rays, the same bits over three calls;
+    bit-equal again and timed at the Cornell train step's shapes and on
+    prim fields (G1_FIELDS), beside the twin's, torch's deterministic
+    index_put_'s and the bound; a log
+    train step's G1 launches, its bits twice from one state and G1's
+    device time in it. Returns
+    G1's kernels-line entry (launches: those of one Cornell box 512x512
+    log step, n = 2, the benchmark's train mix)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from plutracer_tpu_torch.ops.cuda.row_grad_kernel import row_grad_cuda, row_grad_plain
+    from plutracer_tpu_torch.parallel import sharded
+    from plutracer_tpu_torch.render.renderer import render
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+    from plutracer_tpu_torch import rng
+
+    phase("24 G1 row gradient")
+    for B, R, W in G1_CASES:
+        idx, grad = g1_case(B, R, W, dev)
+        shape = (R,) if W == 1 else (R, W)
+        grad = grad.reshape((B,) + shape[1:])
+        with counting():
+            got = [row_grad_cuda(idx, grad, shape) for _ in range(3)]
+            assert launched("g1") == (3 if B else 0)
+        want = row_grad_plain(idx, grad, shape)
+        same = all(torch.equal(g.view(torch.int32), want.view(torch.int32)) for g in got)
+        assert same, f"G1 (B, R, W) = {(B, R, W)}: not bit-equal to its twin"
+    print(f"G1: bit-equal to row_grad_plain (int32 views) on {len(G1_CASES)} shapes, three "
+          "calls each")
+    cornell = compile_scene(load_scene_file(str(ROOT / "benchmark" / "scenes" /
+                                                "cornell-box.urn")), device=dev)
+    B = 512 * 512
+    times = {}
+    for name, W in G1_TIMED:
+        R = {"mat": cornell.mat_type.shape[0], "light": cornell.light_type.shape[0]}[name]
+        idx, grad = g1_case(B, R, W, dev)
+        times[name] = g1_times(idx, grad, (R, W), f"{name} table ({R}, {W}), B = {B}", card)
+    for R, W in G1_FIELDS:
+        idx, grad = g1_case(B, R, W, dev)
+        g1_times(idx, grad, (R, W), f"prim field ({R}, {W}), B = {B}", card, reps=10)
+
+    target = render(cornell, 512, 512, 2, rng.PRNGKey(11)).reshape(-1, 3)
+    params = dict(sharded.get_params(cornell))
+    step = sharded.make_train_step(cornell, 512, 512, 2, loss_space="log",
+                                   trainable=("mat_color", "light_intensity"))
+    with counting():
+        got = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
+        made = launched("g1")
+    again = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
+    same = torch.equal(got[0], again[0]) and all(torch.equal(got[1][f], again[1][f])
+                                                 for f in got[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
+        torch.cuda.synchronize()
+    records = [e for e in prof.profiler.kineto_results.events()  # kernels, copies, fills:
+               if "CUDA" in str(e.device_type()) and not e.name().startswith("plu.")]  # no spans
+    ms = lambda evs: sum(e.duration_ns() for e in evs) / 1e6
+    g1_ms = ms(e for e in records if any(k in e.name() for k in G1_KERNELS))
+    print(f"G1 in a Cornell box 512x512 log step (n = 2, albedo and emission): {made} launches; "
+          f"loss and gradients bit-equal from one state twice: {same}; G1's device time "
+          f"{g1_ms:.4f} ms of the step's {ms(records):.4f} ms of device records "
+          f"(torch.profiler) ({card})")
+    assert made == 24 and same
+    kernel, wrapper, twin, library, bound, err = times["mat"]
+    e = entry("G1 row_grad (ms: kernel-only, the Cornell material table (M, 12), B = 512^2)",
+              G1_SOURCE, G1_REPLACES, made, err, kernel, twin, bound)
+    e["library_ms"] = library
+    return e
 
 
 if __name__ == "__main__":

@@ -70,6 +70,10 @@ _SIGNATURES = {
     "plu_threefry_uniform": [_vp, _i, ctypes.c_longlong, _vp, _vp],
     # camera table, px0, the strata's cells and jitter keys (by value), S, B, n, o, d, stream
     "plu_camera_rays": [_vp, _vp, Strata, _i, _i, _i, _vp, _vp, _vp],
+    # idx, grad, part (or null), out, arrivals (or null), B, R, W, chunk, chunks, stream
+    "plu_row_grad": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    # rows, perm, grad, part (or null), out, arrivals (or null), B, R, W, tiles, stream
+    "plu_row_grad_sorted": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
 }
 
 
@@ -181,3 +185,23 @@ class on_device:
 
     def __exit__(self, *exc):
         return self.guard.__exit__(*exc)
+
+
+_ARRIVALS = {}  # (device index, stream handle) -> int32 counts, all 0 between launches
+
+
+def arrivals(dev, n: int, stream: int) -> torch.Tensor:
+    """Arrival counts for a launch whose last block to arrive folds the
+    others' partials (K1 one a ray tile, G1 one): at least n int32 zeros
+    on the CUDA device `dev` ("cuda" names the current one), one buffer a
+    card and stream (the handle ``on_device`` gives). Each such kernel
+    sets its counts back to 0 before it ends and launches on one stream
+    run in order, so the kernels that share a buffer never count at once;
+    a launch on another stream has its own."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    buf = _ARRIVALS.get((index, stream))
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVALS[(index, stream)] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                                       device=torch.device("cuda", index))
+    return buf

@@ -204,7 +204,7 @@ def closest_hit_cuda(packed, o, d, type_rows=None):
         if splits > 1:  # the splits' partial answers and each ray tile's arrivals
             part_t = torch.empty(splits * B, dtype=torch.float32, device=dev)
             part_k = torch.empty(splits * B, dtype=torch.int32, device=dev)
-            arrivals = _arrivals(dev, tiles.value)
+            arrivals = build.arrivals(dev, tiles.value, stream)
         ptr = lambda x: None if x is None else x.data_ptr()
         rc = lib.plu_closest_hit(
             packed.data_ptr(), n_rows, n_sph, n_box, o.data_ptr(), d.data_ptr(), t.data_ptr(),
@@ -214,21 +214,6 @@ def closest_hit_cuda(packed, o, d, type_rows=None):
     build.check(rc, "plu_closest_hit")
     profiling.count("launches.k1")
     return found, prim, t
-
-
-_ARRIVALS = {}  # device index -> int32 counts, all 0 between launches (the kernel resets them)
-
-
-def _arrivals(dev, n):
-    """The arrival counts of n ray tiles on the CUDA device `dev`, one
-    buffer a card ("cuda" names the current one)."""
-    dev = torch.device(dev)
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    buf = _ARRIVALS.get(index)
-    if buf is None or buf.numel() < n:
-        buf = _ARRIVALS[index] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                             device=torch.device("cuda", index))
-    return buf
 
 
 _POP = 1 << 40  # walk_closest_plain: the ray's next step is a pop of its stack

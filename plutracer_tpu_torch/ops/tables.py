@@ -13,7 +13,10 @@ tex  (W=12): 0 type | 1:4 c0 | 4:7 c1 | 7 scale | 8 line | 9 ofs | 10 w | 11 h
 light (W=8): 0 type | 1:4 pos | 4:7 intensity | 7 prim
 
 Gathers are plain indexing with out-of-range ids clamped to [0, n-1]
-(a -1 sentinel reads row 0, as in every tier of the JAX gathers).
+(a -1 sentinel reads row 0, as in every tier of the JAX gathers). Where a
+table on a card takes a gradient, the gather's backward is G1
+(ops/cuda/row_grad_kernel.RowGather), whose sums are deterministic by
+construction; the CPU keeps torch's own backward.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from plutracer_tpu_torch.ops.cuda.row_grad_kernel import RowGather
 from plutracer_tpu_torch.utils import profiling
 
 
@@ -81,7 +85,10 @@ def pack_tables(scene) -> PackedTables:
 
 
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return table[idx.long().clamp(0, table.shape[0] - 1)]
+    i = idx.long().clamp(0, table.shape[0] - 1)
+    if table.is_cuda and table.requires_grad and torch.is_grad_enabled():
+        return RowGather.apply(table, i)  # its backward is G1 (ops/cuda/row_grad_kernel)
+    return table[i]
 
 
 def _i(x: torch.Tensor) -> torch.Tensor:

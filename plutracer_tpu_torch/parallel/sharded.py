@@ -131,10 +131,12 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 @contextlib.contextmanager
 def _deterministic():
-    """torch's deterministic algorithms for the duration: the backward of a
-    table row gather accumulates with atomics on a CUDA device, which sum
-    in a different order from run to run; the sorted accumulation makes a
-    step, and so a resumed run, reproducible bit for bit."""
+    """torch's deterministic algorithms for the duration: torch operators
+    that would accumulate with atomics on a CUDA device, which sum in a
+    different order from run to run, take their deterministic versions, so
+    a step, and so a resumed run, is reproducible bit for bit. The table
+    row gathers' backward is G1 on a card (ops/cuda/row_grad_kernel),
+    deterministic by construction."""
     prev = torch.are_deterministic_algorithms_enabled()
     prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)

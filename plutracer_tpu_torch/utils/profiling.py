@@ -26,7 +26,7 @@ default:
   stack is a thread's own: autograd's engine runs backward functions on
   threads of its own, whose spans start there without a parent.
 - ``count(name, k)``: adds k to a counter (``launches.k1``, ``k1_bvh``,
-  ``k2``, ``k2_debug``, ``k3``, ``k3_debug``, ``k4``, ``r1``, ``r2``: the
+  ``k2``, ``k2_debug``, ``k3``, ``k3_debug``, ``k4``, ``r1``, ``r2``, ``g1``: the
   kernel records each C entry point puts on the card, one a call;
   ``device_entries``: the blocks of ``ops/cuda/build.on_device``);
   ``counter(name)`` reads one.

@@ -33,7 +33,7 @@ from plutracer_tpu.render.renderer import pixel_centers as jax_pixel_centers
 from plutracer_tpu.scene import compile_scene as jax_compile
 from plutracer_tpu.scene import load_scene_file as jax_load
 from plutracer_tpu_torch import rng
-from plutracer_tpu_torch.ops.cuda import build, camera_kernel, intersect_kernel
+from plutracer_tpu_torch.ops.cuda import build, camera_kernel
 from plutracer_tpu_torch.render import renderer
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
@@ -170,7 +170,7 @@ def card_env(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", cards.current_stream)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: cards.current.index)
     monkeypatch.setattr(build, "load", lambda: type("Lib", (), {"lib": lib})())
-    monkeypatch.setattr(intersect_kernel, "_ARRIVALS", {})
+    monkeypatch.setattr(build, "_ARRIVALS", {})
     with HostAsCard():
         yield cards, lib
 

@@ -680,7 +680,7 @@ ENGINES = ("pallas", "bvh", "xla")
 def query_closest_on_card(s, o, d, engine):
     """query_closest under `engine`, the K1 and K3-query launches it made,
     and the gradient of sum(hit.p) with respect to prim_a (deterministic
-    algorithms: the row gather's backward accumulates with atomics)."""
+    algorithms, as the train step runs: the row gather's backward is G1)."""
     from plutracer_tpu_torch.ops.intersect import query_closest
     from plutracer_tpu_torch.parallel.sharded import _deterministic
 
@@ -1073,10 +1073,13 @@ def test_one_r1_and_one_r2_launch_a_pass_loop_launch(dev, tmp_path, monkeypatch)
 
 
 def test_launch_helper_counts_every_launch(dev):
-    """Over renders through K1 + K2, K3 and K4, the K3 query, K5, R1 and
-    R2, the launch helper's entries (device_entries) equal the wrappers'
-    launch counters: no launch bypasses build.on_device."""
-    counters = ("k1", "k1_bvh", "k2", "k2_debug", "k3", "k3_debug", "k4", "r1", "r2")
+    """Over renders through K1 + K2, K3 and K4, the K3 query, K5, R1, R2
+    and a gather's backward (G1), the launch helper's entries
+    (device_entries) equal the wrappers' launch counters: no launch
+    bypasses build.on_device."""
+    from plutracer_tpu_torch.ops.tables import _rows, pack_tables
+
+    counters = ("k1", "k1_bvh", "k2", "k2_debug", "k3", "k3_debug", "k4", "r1", "r2", "g1")
     demo, o, d = scene_and_rays("demo-box", 32, dev)
     mesh1 = compile_scene(load_scene_file(str(REPO / "scenes" / "mesh1.urn"), ["/res", "32x32"]),
                           device=dev)
@@ -1088,6 +1091,8 @@ def test_launch_helper_counts_every_launch(dev):
     u = draw_uniforms(rng.PRNGKey(2), o.shape[0], DEFAULT_OPTIONS.max_bounces, dev)
     ray_color_kernel(demo, o, d, u, DEFAULT_OPTIONS, debug=True)
     ray_color_kernel(mesh1, o, d, u, DEFAULT_OPTIONS, debug=True)
+    table = pack_tables(demo).mat.clone().requires_grad_(True)
+    torch.autograd.grad(_rows(table, o[:, 0].long()).sum(), table)
     counts = [launches(k) for k in counters]
     assert all(counts) and profiling.counter("device_entries") == sum(counts), counts
 
@@ -1204,7 +1209,8 @@ def test_profile_trace_holds_k2_launches(dev, tmp_path):
 # (csrc/*.cu), and the launches.* counter that counts it
 LIBRARY_KERNELS = {"closest_hit_ring": "k1", "closest_hit_bvh_kernel": "k1_bvh",
                    "megakernel": "k2", "megakernel_stream": "k3", "megakernel_onebounce": "k4",
-                   "threefry_uniform": "r1", "camera_rays": "r2"}
+                   "threefry_uniform": "r1", "camera_rays": "r2", "row_grad": "g1",
+                   "row_grad_sorted": "g1"}
 
 
 def library_kernel(name):
@@ -1263,3 +1269,158 @@ def test_profiled_render_counts_every_library_kernel(dev, name, tier):
     for kernel, span in ((tier, "plu.render.radiance"), ("r1", "plu.render.draws")):
         for (k0, _), (s0, _) in zip(sorted(kernels[kernel]), sorted(spans[span])):
             assert k0 >= s0, (kernel, span, k0 - s0)
+
+
+# G1, the table-row gather's backward (csrc/row_grad.cu): bit-equal to its
+# plain twin, deterministic, within tests/test_torch_row_grad.py's
+# reordering bound of torch's deterministic accumulation
+
+
+def g1_case(B, R, W, dev, seed=5):
+    """B rays' rows (half among the first three, so rows repeat) and a
+    gradient of mixed magnitudes with some -0.0 entries, on the card."""
+    g = torch.Generator().manual_seed(seed + B + R * W)
+    idx = torch.randint(0, R, (B,), generator=g)
+    idx[: B // 2] = torch.randint(0, min(R, 3), (B // 2,), generator=g)
+    grad = torch.randn((B, W), generator=g) * 10.0 ** torch.randint(-3, 3, (B, 1), generator=g)
+    grad[torch.rand((B, W), generator=g) < 0.05] = -0.0
+    return idx.to(dev), grad.to(dev)
+
+
+@pytest.mark.parametrize("B", [0, 1, 2047, 2049, 262144])
+@pytest.mark.parametrize("W", [1, 8, 12, 32])
+@pytest.mark.parametrize("R", [1, 5, 31, 20000])
+def test_g1_bit_equal_to_twin(dev, R, W, B):
+    """G1 bit-equal (int32 views) to row_grad_plain, the same bits over
+    three calls, one launch a call (none for no rays), and within the
+    reordering bound of torch's index_put_(accumulate=True) under
+    deterministic algorithms (the sorted accumulation)."""
+    from plutracer_tpu_torch.ops.cuda.row_grad_kernel import (
+        BLOCK, WARPS, plan, row_grad_cuda, row_grad_plain,
+    )
+    from plutracer_tpu_torch.parallel.sharded import _deterministic
+
+    idx, grad = g1_case(B, R, W, dev)
+    shape = (R,) if W == 1 else (R, W)  # the light-link column is 1-D
+    grad = grad.reshape((B,) + shape[1:])
+    before = launches("g1")
+    got = [row_grad_cuda(idx, grad, shape) for _ in range(3)]
+    assert launches("g1") - before == (3 if B else 0)
+    want = row_grad_plain(idx, grad, shape)
+    for g in got:
+        assert g.shape == shape and torch.equal(g.view(torch.int32), want.view(torch.int32))
+    with _deterministic():
+        lib = torch.zeros(shape, device=dev).index_put_((idx,), grad, accumulate=True)
+    p = plan(max(B, 1), R, W)
+    depth = 5 + p.chunk // BLOCK + WARPS + p.chunks - 1
+    count = torch.bincount(idx, minlength=R).double().reshape((R,) + (1,) * (len(shape) - 1))
+    mag = torch.zeros(shape, dtype=torch.float64, device=dev).index_add_(0, idx,
+                                                                    grad.double().abs())
+    n = depth + count
+    assert ((got[0].double() - lib.double()).abs() <= n * 2.0**-24 / (1 - n * 2.0**-24) * mag).all()
+
+
+@pytest.mark.parametrize("R", [2**16, 2**18, 2**20])
+def test_g1_prim_fields(dev, R):
+    """A prim field's gradient (R rows of 32, 512^2 rays, half of them on
+    three rows: rows that span hundreds of tiles of sorted rays): bit-equal
+    to the twin over two calls, within the reordering bound of torch's
+    deterministic index_put_."""
+    from plutracer_tpu_torch.ops.cuda.row_grad_kernel import (
+        BLOCK, WARPS, plan, row_grad_cuda, row_grad_plain,
+    )
+    from plutracer_tpu_torch.parallel.sharded import _deterministic
+
+    B, W = 512 * 512, 32
+    idx, grad = g1_case(B, R, W, dev)
+    assert plan(B, R, W).sorted
+    got = [row_grad_cuda(idx, grad, (R, W)) for _ in range(2)]
+    want = row_grad_plain(idx, grad, (R, W))
+    for g in got:
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+    with _deterministic():
+        lib = torch.zeros((R, W), device=dev).index_put_((idx,), grad, accumulate=True)
+    p = plan(B, R, W)
+    n = 5 + p.chunk // BLOCK + WARPS + p.chunks - 1 + torch.bincount(idx, minlength=R)[:, None]
+    mag = torch.zeros((R, W), dtype=torch.float64, device=dev).index_add_(0, idx,
+                                                                          grad.double().abs())
+    assert ((got[0].double() - lib.double()).abs() <= n * 2.0**-24 / (1 - n * 2.0**-24) * mag).all()
+
+
+def g1_step(dev, res=64):
+    """demo-box at res^2 and a log train step at n = 2 training albedo and
+    emission (the benchmark's train mix), with its target and start."""
+    from plutracer_tpu_torch.parallel import sharded
+
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / "demo-box.urn"),
+                                      ["/res", f"{res}x{res}"]), device=dev)
+    target = render(s, res, res, 4, rng.PRNGKey(11)).reshape(-1, 3)
+    params = dict(sharded.get_params(s))
+    params["mat_color"] = params["mat_color"] * 0.5
+    step = sharded.make_train_step(s, res, res, 2, loss_space="log",
+                                   trainable=("mat_color", "light_intensity"))
+    return step, params, target
+
+
+def test_g1_counts_the_steps_gathers(dev, monkeypatch):
+    """launches.g1 counts the gathers of a table that takes a gradient: 24
+    a log step at n = 2 training albedo and emission (8 bounces, each
+    gathers the material rows once and the light rows twice); the same
+    state gives the same loss and gradients bit for bit, twice."""
+    from plutracer_tpu_torch.ops import tables
+    from plutracer_tpu_torch.ops.cuda.row_grad_kernel import RowGather
+
+    gathers = []
+
+    class Counted(RowGather):
+        @staticmethod
+        def forward(ctx, table, idx):
+            gathers.append(tuple(table.shape))
+            return RowGather.forward(ctx, table, idx)
+
+    monkeypatch.setattr(tables, "RowGather", Counted)
+    step, params, target = g1_step(dev)
+    profiling.reset()
+    got = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
+    assert launches("g1") == len(gathers) == 24, (launches("g1"), gathers)
+    again = step.loss_and_grads(params, target, rng.PRNGKey(3), 1)
+    assert torch.equal(got[0], again[0])
+    assert all(torch.equal(got[1][f], again[1][f]) for f in got[1])
+    assert got[1]["mat_color"].abs().max() > 0 and got[1]["light_intensity"].abs().max() > 0
+
+
+G1_STEPS = """
+import sys, torch
+sys.path.insert(0, {repo!r})
+sys.path.insert(0, {tests!r})
+from test_torch_cuda import g1_step
+from plutracer_tpu_torch import rng
+step, p, target = g1_step(torch.device("cuda"))
+st = step.init(p)
+for i in range(2):
+    p, st, loss = step(p, st, target, rng.fold_in(rng.PRNGKey(1), i), i % 4)
+torch.save({{"params": {{k: v.cpu() for k, v in p.items()}}, "loss": loss.cpu()}}, {out!r})
+"""
+
+
+def test_g1_train_steps_equal_across_processes(dev, tmp_path):
+    """Two log train steps (G1 in every backward) in two fresh processes
+    and in this one: parameters and loss bit-equal."""
+    import subprocess
+    import sys
+
+    runs = []
+    for j in range(2):
+        out = tmp_path / f"run{j}.pt"
+        code = G1_STEPS.format(repo=str(REPO), tests=str(REPO / "tests"), out=str(out))
+        subprocess.run([sys.executable, "-c", code], check=True, timeout=600)
+        runs.append(torch.load(out))
+    step, p, target = g1_step(dev)
+    st = step.init(p)
+    for i in range(2):
+        p, st, loss = step(p, st, target, rng.fold_in(rng.PRNGKey(1), i), i % 4)
+    runs.append({"params": {k: v.cpu() for k, v in p.items()}, "loss": loss.cpu()})
+    for run in runs[1:]:
+        assert torch.equal(run["loss"], runs[0]["loss"])
+        for k, v in runs[0]["params"].items():
+            assert torch.equal(run["params"][k], v), k

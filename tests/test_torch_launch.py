@@ -23,7 +23,7 @@ from torch.overrides import TorchFunctionMode
 
 from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops.cuda import build, camera_kernel, integrator_kernel, intersect_kernel
-from plutracer_tpu_torch.ops.cuda import rng_kernel
+from plutracer_tpu_torch.ops.cuda import rng_kernel, row_grad_kernel
 from plutracer_tpu_torch.ops.cuda import stream_kernel
 from plutracer_tpu_torch.ops.tables import pack_tables
 from plutracer_tpu_torch.render.integrator import draw_uniforms, kernel_tier
@@ -128,7 +128,7 @@ def launch_env(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", cards.current_stream)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: cards.current.index)
     monkeypatch.setattr(build, "load", lambda: type("Lib", (), {"lib": lib})())
-    monkeypatch.setattr(intersect_kernel, "_ARRIVALS", {})
+    monkeypatch.setattr(build, "_ARRIVALS", {})
     with HostAsCard():
         yield cards, lib
 
@@ -179,6 +179,16 @@ def r2(name):
                                           2)
 
 
+def g1(_name):
+    idx = torch.arange(5000).remainder(7).to(CARD)  # two chunks: partials and arrivals
+    return row_grad_kernel.row_grad_cuda(idx, torch.zeros(5000, 12).to(CARD), (7, 12))
+
+
+def g1_sorted(_name):
+    idx = torch.arange(5000).remainder(300).to(CARD)  # past a warp's slice; 20 tiles
+    return row_grad_kernel.row_grad_cuda(idx, torch.zeros(5000, 12).to(CARD), (300, 12))
+
+
 # (wrapper, scene, the C calls it makes in order)
 WRAPPERS = {
     "K1": (k1, "demo-box", ["plu_closest_hit_plan", "plu_closest_hit"]),
@@ -194,6 +204,8 @@ WRAPPERS = {
     "K4": (k4, "sphere-grid", ["plu_megakernel_onebounce"]),
     "R1": (r1, None, ["plu_threefry_uniform"]),
     "R2": (r2, "dof", ["plu_camera_rays"]),
+    "G1": (g1, None, ["plu_row_grad"]),
+    "G1 sorted": (g1_sorted, None, ["plu_row_grad_sorted"]),
 }
 
 
@@ -218,16 +230,17 @@ def test_wrapper_launches_on_its_tensors_card(launch_env, kernel):
 
 
 def test_k1_arrivals_one_buffer_a_card(launch_env):
-    """K1's arrival counts are kept by device index: "cuda" (the current
-    card) and its explicit index share one buffer, another card has its
-    own."""
+    """The arrival counts of K1 and G1 (build.arrivals) are kept by device
+    index and stream: "cuda" (the current card) and its explicit index
+    share one buffer, another card has its own."""
     cards, _ = launch_env
     with cards.device(CARD):
-        a = intersect_kernel._arrivals(torch.device("cuda"), 8)
-    b = intersect_kernel._arrivals(CARD, 8)
-    c = intersect_kernel._arrivals(OTHER, 8)
-    assert a is b and c is not a
-    assert set(intersect_kernel._ARRIVALS) == {CARD.index, OTHER.index}
+        a = build.arrivals(torch.device("cuda"), 8, 7)
+    b = build.arrivals(CARD, 8, 7)
+    c = build.arrivals(OTHER, 8, 7)
+    d = build.arrivals(CARD, 8, 9)  # another stream
+    assert a is b and c is not a and d is not a
+    assert set(build._ARRIVALS) == {(CARD.index, 7), (OTHER.index, 7), (CARD.index, 9)}
 
 
 def test_on_device_refuses_the_cpu():
@@ -278,5 +291,5 @@ def test_every_c_call_inside_the_launch_helper():
                 c_calls += 1
                 assert _inside_on_device(node, parents), (
                     f"{path.name}:{node.lineno}: {node.attr} called outside build.on_device")
-    # K1's plan and launch, the K3 query, K2, K3, K4, R1, R2
-    assert c_calls == len(build._SIGNATURES) == 8
+    # K1's plan and launch, the K3 query, K2, K3, K4, R1, R2, G1 and its sorted kernel
+    assert c_calls == len(build._SIGNATURES) == 10

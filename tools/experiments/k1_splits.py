@@ -41,7 +41,7 @@ def main() -> int:
     from chip_smoke import card_line, main_path_rays
     from plutracer_tpu_torch import rng
     from plutracer_tpu_torch.ops.cuda import build
-    from plutracer_tpu_torch.ops.cuda.intersect_kernel import _arrivals, closest_hit_plain
+    from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_plain
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
     from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS
@@ -73,8 +73,8 @@ def main() -> int:
         for sp in SPLITS:
             pt = torch.empty(sp * B, device="cuda")
             pk = torch.empty(sp * B, dtype=torch.int32, device="cuda")
-            ar = _arrivals(o.device, tiles.value)
             stream = torch.cuda.current_stream().cuda_stream
+            ar = build.arrivals(o.device, tiles.value, stream)
 
             def call():
                 build.check(lib.plu_closest_hit(
