@@ -52,10 +52,14 @@ both main paths of the port on the card:
 14.  training: optimize_scene on demo-box 256x256, n = 2 (the flagship's
      phase-1 shape), from perturbed albedo: 8 steps of the log loss and 8
      of the ab loss, a 4 + 4 run resumed from its checkpoint against a
-     straight 8, steps/s and samples/s, and one step of each loss split
-     into the real make_train_step's halves (loss_and_grads, its forward
-     traces, apply), the cost of deterministic algorithms, and what
-     optimize_scene adds;
+     straight 8, steps/s and samples/s, and one step of each loss (the
+     captured step's replay, bit-equal to the eager halves from the same
+     state) beside the real make_train_step's eager halves
+     (loss_and_grads, its forward traces, apply), the cost of
+     deterministic algorithms, and what optimize_scene adds; the
+     benchmark's train cell's step (the Cornell box at 512x512) captured
+     and replayed over two steps, bit-equal to its eager halves, its
+     replay timed beside them;
 15.  the flagship recipe (plutracer_tpu_torch/tools/inverse_flagship.py
      through its main(argv)) on demo-box at the tool's full 256x256: a
      256-spp target (K1 + K2), 20 phase-1 log steps and 10 phase-2 pooled
@@ -127,11 +131,13 @@ both main paths of the port on the card:
      demo-box 512x512 stratum's path uniforms (8, 262,144, 12), a 4-strata
      mesh1 launch's (8, 4 x 65,536, 12), both launches' jitter blocks,
      ragged B (1, 127, 1,000,003) and blocks past 2^24 words, one launch
-     a call; kernel-only (torch.profiler) and wrapper times beside the
-     plain version's and the bound; demo-box 512x512 and mesh1 256x256
-     renders, a demo-box 256x256 train step (loss and gradients) and a
-     1x1-mesh render_sharded through R1 bit-equal to the same with
-     plain-drawn uniforms (the draws before R1), R1 launches counted.
+     a call, and there its table entry (uniform_block_words: the key
+     words already on the card) too; kernel-only (torch.profiler) and
+     wrapper times beside the plain version's and the bound; demo-box
+     512x512 and mesh1 256x256 renders, a demo-box 256x256 train step
+     (loss and gradients; and captured, three replays) and a 1x1-mesh
+     render_sharded through R1 bit-equal to the same with plain-drawn
+     uniforms (the draws before R1), R1 launches counted.
 22.  launch devices: (a) over demo-box and mesh1 renders at 64x64, n = 2
      (K1 + K2, K3, and K4 under stream_wavefront; R1 and R2), a K3 query, K2's and
      K3's K5 launches and an R1 block, the launch helper
@@ -150,10 +156,16 @@ both main paths of the port on the card:
      lane of a demo-box 512x512 stratum, a dof 640x480 stratum (the thin
      lens), a 4-strata and a 16-strata mesh1 256x256 launch (cells out of
      order) and ragged B (1, 127, B - 77); kernel-only (torch.profiler)
-     and wrapper times beside the plain version's and the bound; the
-     renders of demo-box, dof and mesh1, a demo-box train step (log and
-     ab), render_sharded on a 1x1 mesh and render_elastic through R2
-     bit-equal to the same with the plain camera rays, each with one R2
+     and wrapper times beside the plain version's and the bound; R2's
+     table entry (camera_rays_table_cuda: cells and key words read from
+     a table on the card, the captured train step's) bit-equal to its
+     plain twin and to the by-value entry at each of those launches and
+     at the Cornell train cell's 512x512 stratum, timed beside the
+     by-value entry; the renders of demo-box, dof and mesh1, a demo-box
+     train step (log and ab: eager, and captured for one step and a
+     many of three), render_sharded on a 1x1 mesh and render_elastic
+     through R2 bit-equal to the same with the plain camera rays (the
+     captured step's plain twin captured as R2 is), each with one R2
      launch a pass-loop launch (as many as its R1 launches) and no eager
      camera op. With an earlier checkout unpacked in _checkout/parent,
      the camera stage (launch_draws + launch_rays at R2's cases) and the
@@ -293,6 +305,9 @@ R2_RAY_BYTES = 24
 # launch, mesh1 4), and the most strata a launch takes
 R2_CASES = (("demo-box", (512, 512), 1, 8), ("dof", (640, 480), 1, 8),
             ("mesh1", (256, 256), 4, 4), ("mesh1", (256, 256), 16, 4))
+# and R2's table entry (the captured train step's) also at the train cell's
+# launch: one stratum of the Cornell box at 512x512, n = 2
+R2_TABLE_CASES = R2_CASES + (("cornell-box", (512, 512), 1, 2),)
 R2_RENDERS = (("demo-box", 512, 512, 2), ("dof", 640, 480, 2), ("mesh1", 256, 256, 4))
 RAGGED = 77  # rays short of a whole block tile in phase 3's ragged batches
 PLAIN_CHUNK = 4096  # rays per closest_hit_plain call: it builds a (B, P) matrix
@@ -461,6 +476,13 @@ def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
 
 
+def scene_file(name: str) -> pathlib.Path:
+    """The .urn file of a scene of scenes/, or of the benchmark's Cornell box."""
+    if name == "cornell-box":
+        return ROOT / "benchmark" / "scenes" / "cornell-box.urn"
+    return ROOT / "scenes" / f"{name}.urn"
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -582,6 +604,13 @@ def counting():
     profiling.reset()
     with profiling.recording():
         yield
+
+
+def replays() -> int:
+    """The captured train steps' replays counted so far inside counting()."""
+    from plutracer_tpu_torch.utils import profiling
+
+    return profiling.counter("train.graph_replays")
 
 
 def launched(kernel: str) -> int:
@@ -806,7 +835,7 @@ def main() -> int:
         big[1],
         k5,
         r1,
-        r2,
+        *r2,
         g1,
     ]
     print(json.dumps({"kernels": kernels}))
@@ -1560,7 +1589,9 @@ def training_phase(phase, dev, card):
             assert stats["nonfinite_grad_frac_max"] == 0.0, stats
             assert launched("k1") > 0
             runs[what] = (params, losses, wall)
-            k1_launches[f"the {what} train run's queries (8 steps)"] = launched("k1")
+            # on one card the step is captured once and replayed: the count is
+            # its warm-up's and its capture's K1 calls, none from the replays
+            k1_launches[f"the {what} train run's queries (a captured step)"] = launched("k1")
     # a run stopped after 4 steps and resumed from its checkpoint (warm:
     # its wall against the first log run's shows that run's warm-up)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1592,7 +1623,13 @@ def training_phase(phase, dev, card):
             loss_downsample=cfg.loss_downsample, loss_clamp=cfg.loss_clamp)
         state = step.init(init)
         halves = lambda: step.loss_and_grads(init, tflat, key, 0)
-        _, grads, nf = halves()
+        loss, grads, nf = halves()
+        # the captured step (its first call captures, then it replays) against
+        # the eager halves from the same state, bit for bit
+        eager = (*step.apply(init, state, grads, nf), loss)
+        assert same_tree(step(init, state, tflat, key, 0), eager), f"{what}: captured != eager"
+        print(f"training {what} step at {W}x{H}: the captured step's replay bit-equal to the "
+              f"eager halves (parameters, Adam's state, loss {loss.item():.6f})")
         apply_ms = time_ms(lambda: step.apply(init, state, grads, nf), reps=20)
         parts = {"step": [], "loss_and_grads": [], "forward traces": [], "nondeterministic": []}
         for _ in range(SPLIT_ROUNDS):
@@ -1610,14 +1647,77 @@ def training_phase(phase, dev, card):
         med = {k: statistics.median(v) for k, v in parts.items()}
         spread = ", ".join(f"{k} {min(v):.1f}-{max(v):.1f}" for k, v in parts.items())
         print(f"training step split ({what} loss, {W}x{H}, medians of {SPLIT_ROUNDS}): step "
-              f"{med['step']:.4f} ms = loss_and_grads {med['loss_and_grads']:.4f} (forward traces "
+              f"(captured, replayed) {med['step']:.4f} ms; eager: loss_and_grads "
+              f"{med['loss_and_grads']:.4f} (forward traces "
               f"{med['forward traces']:.4f}, backward and gradient filter "
               f"{med['loss_and_grads'] - med['forward traces']:.4f}) + apply (Adam) "
-              f"{apply_ms:.4f} + remainder {med['step'] - med['loss_and_grads'] - apply_ms:.4f}; "
+              f"{apply_ms:.4f}; "
               f"loss_and_grads without deterministic algorithms {med['nondeterministic']:.4f} "
               f"(their cost {med['loss_and_grads'] - med['nondeterministic']:.4f}); optimize_scene "
               f"{runs[what][2] * 1e3 / cfg.steps:.4f} ms a step; ranges ms: {spread} ({card})")
+    cornell_train_step(dev, card)
     return k1_launches
+
+
+CORNELL_TRAIN = 512  # the train cell's resolution (benchmark/configs/cornell-box.json)
+
+
+def cornell_train_step(dev, card):
+    """Phase 14's last part: the benchmark's train cell's step
+    (benchmark/traffic/train_step.json on the Cornell box at 512x512: log
+    loss, n = 2, albedo Adam 3e-2 and a decaying emission Adam, diffuse
+    albedo from 0.25 and a quarter of the emission, the non-diffuse
+    materials masked), captured, against its eager halves bit for bit over
+    two steps; the replay's and the eager step's times and the memory the
+    capture holds."""
+    from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.diff import optim
+    from plutracer_tpu_torch.parallel import sharded
+    from plutracer_tpu_torch.render.renderer import render
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
+    from plutracer_tpu_torch.scene.types import MAT_DIFFUSE
+
+    R = CORNELL_TRAIN
+    sc = compile_scene(load_scene_file(str(scene_file("cornell-box")), ["/res", f"{R}x{R}"]),
+                       device=dev)
+    target = render(sc, R, R, 4, rng.PRNGKey(11)).reshape(-1, 3)
+    diffuse = sc.mat_type == MAT_DIFFUSE
+    params = dict(sharded.get_params(sc))
+    params["mat_color"] = torch.where(diffuse[:, None], 0.25, params["mat_color"])
+    params["light_intensity"] = params["light_intensity"] * 0.25
+    opt = optim.MultiTransform(
+        {"albedo": optim.Adam(3e-2), "emission": optim.Adam(optim.exponential_decay(1.0, 600, 0.1))},
+        {"mat_color": "albedo", "light_intensity": "emission", "tex_c0": "albedo",
+         "tex_c1": "albedo"})
+    step = sharded.make_train_step(sc, R, R, 2, optimizer=opt, loss_space="log",
+                                   trainable=("mat_color", "light_intensity"),
+                                   grad_mask={"mat_color": diffuse.to(torch.float32)[:, None]})
+    state = step.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses = []
+    for i in range(2):
+        key = rng.fold_in(rng.PRNGKey(5), i)
+        loss, grads, nf = step.loss_and_grads(params, target, key, i)
+        eager = (*step.apply(params, state, grads, nf), loss)
+        got = step(params, state, target, key, i)  # the first call captures
+        assert same_tree(got, eager), f"the Cornell train step {i}: captured != eager"
+        params, state = got[0], got[1]
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    key = rng.fold_in(rng.PRNGKey(5), 2)
+    replay = [time_ms(lambda: step(params, state, target, key, 2), 1, 0) for _ in range(10)]
+    eager = [time_ms(lambda: step.apply(params, state, *step.loss_and_grads(params, target, key,
+                                                                              2)[1:]), 1, 0)
+             for _ in range(3)]
+    print(f"training Cornell box {R}x{R}, the train cell's step: 2 steps captured and replayed "
+          f"bit-equal to the eager halves (parameters, both Adams' states, losses {losses}); "
+          f"a replayed step {statistics.median(replay):.4f} ms (median of 10, "
+          f"{min(replay):.2f}-{max(replay):.2f}), the eager halves {statistics.median(eager):.4f} "
+          f"ms (median of 3); peak allocation over the step's inputs "
+          f"{peak / 1e9:.3f} GB ({card})")
 
 
 def flagship_phase(phase, dev, card):
@@ -2384,12 +2484,36 @@ def plain_draws():
     were before R1 (eager int64 tensor ops), for bit-equality checks."""
     from plutracer_tpu_torch import rng
 
-    real = rng.uniform_block
+    real = rng.uniform_block, rng.uniform_block_words
     rng.uniform_block = lambda keys, n, device="cpu": rng.uniform_block_plain(keys, n, device)
+    # the captured train step's draws from its key words on the card (only
+    # device ops, so the plain draw is captured as R1 is)
+    rng.uniform_block_words = lambda words, n: rng.uniform_block_plain(
+        words.to(torch.int64) & 0xFFFFFFFF, n, words.device)
     try:
         yield
     finally:
-        rng.uniform_block = real
+        rng.uniform_block, rng.uniform_block_words = real
+
+
+def signed_words(table: torch.Tensor, dev) -> torch.Tensor:
+    """A (K, 2) int64 table of uint32 key words as the int32 bit patterns
+    on `dev` that R1's table entry (uniform_block_words) reads."""
+    return torch.where(table >= 2**31, table - 2**32, table).to(torch.int32).to(dev)
+
+
+def same_tree(a, b) -> bool:
+    """Two results (tensors, arrays, numbers, and dicts, tuples and lists
+    of them) equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
 
 
 def int32_rate():
@@ -2465,7 +2589,7 @@ def rng_phase(phase, dev, card, main_launches):
     uniforms. Returns R1's kernels-line entry (launches: main_launches,
     the CLI renders' of phases 5 and 10)."""
     from plutracer_tpu_torch import rng
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda, uniform_block_words
     from plutracer_tpu_torch.parallel import make_mesh, render_sharded, sharded
     from plutracer_tpu_torch.render.renderer import render
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
@@ -2503,15 +2627,18 @@ def rng_phase(phase, dev, card, main_launches):
         with counting():
             before = launched("r1")
             got = uniform_block_cuda(table, n, dev)
-            assert launched("r1") == before + 1, what  # one launch a call
+            # the table entry (the captured train step's): the words on the card
+            from_words = uniform_block_words(signed_words(table, dev), n)
+            assert launched("r1") == before + 2, what  # one launch a call
         want = rng.uniform_block_plain(table, n, dev)
         torch.cuda.synchronize()
-        assert got.shape == want.shape == (table.shape[0], n), what
-        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        assert differ == 0, f"R1 vs plain ({what}): {differ} words differ"
-        print(f"R1 {what}: {table.shape[0] * n} words bit-equal to plain, mean "
-              f"{got.double().mean().item():.6f}")
-        del got, want
+        assert got.shape == want.shape == from_words.shape == (table.shape[0], n), what
+        differ = [int((x.view(torch.int32) != want.view(torch.int32)).sum())
+                  for x in (got, from_words)]
+        assert differ == [0, 0], f"R1 vs plain ({what}): {differ} words differ (by value, table)"
+        print(f"R1 {what}: {table.shape[0] * n} words bit-equal to plain, from the key table "
+              f"and from words on the card, mean {got.double().mean().item():.6f}")
+        del got, want, from_words
     r1_ms, _, r1_plain_ms, bound = r1_times(demo[0], demo[2], "demo-box stratum path uniforms",
                                            card)
     r1_times(demo[1], demo[3], "demo-box stratum jitter", card)
@@ -2553,6 +2680,26 @@ def rng_phase(phase, dev, card, main_launches):
         assert torch.equal(got[1][f], want[1][f]), f"train step gradient {f}"
     print(f"R1 demo-box {TRAIN_RES}x{TRAIN_RES} log train step: loss {got[0].item():.6f} and "
           f"gradients bit-equal to plain-drawn uniforms, R1 launches {made}")
+
+    def captured_steps():
+        """Three steps of a new step (captured at its first call, replayed):
+        its draws from the key words on the card (R1's table entry)."""
+        fresh = sharded.make_train_step(sc, TRAIN_RES, TRAIN_RES, 2, loss_space="log",
+                                        trainable=("mat_color",))
+        return fresh.many(params, fresh.init(params), target.reshape(-1, 3), rng.PRNGKey(3),
+                          0, 3)
+
+    with counting():
+        got = captured_steps()
+        torch.cuda.synchronize()
+        made = launched("r1")
+        with plain_draws():
+            want = captured_steps()
+        assert made > 0 and launched("r1") == made and replays() == 6, (made, replays())
+    assert same_tree(got, want), "the captured train step through R1 differs from plain draws"
+    print(f"R1 demo-box {TRAIN_RES}x{TRAIN_RES} log train step, captured, 3 replays: parameters, "
+          f"Adam's state and losses {got[2].tolist()} bit-equal to the same captured with "
+          f"plain-drawn uniforms, R1 launches {made} (the warm-up's and the capture's)")
     mesh = make_mesh((1, 1), devices=[dev])
     with counting():
         img = render_sharded(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(5), mesh)
@@ -2700,18 +2847,24 @@ def launch_devices_phase(phase, card):
 
 @contextlib.contextmanager
 def plain_camera():
-    """renderer.launch_rays computing with camera_rays_plain on every
-    device: the pass loop's, the train step's and the sharded and elastic
-    renders' camera rays as they were before R2, for bit-equality checks."""
+    """renderer.launch_rays computing with camera_rays_plain and
+    launch_rays_table with camera_rays_table_plain on every device: the
+    pass loop's, the train step's (eager and captured) and the sharded and
+    elastic renders' camera rays as they were before R2, for bit-equality
+    checks."""
     from plutracer_tpu_torch.render import renderer
 
-    real = renderer.launch_rays
+    real = renderer.launch_rays, renderer.launch_rays_table
     renderer.launch_rays = lambda scene, px0, keys, strata, n: renderer.camera_rays_plain(
         scene.camera, px0, keys, strata, n)
+    # the captured train step's, from its cells and key words on the card
+    # (only device ops, so the plain version is captured as R2 is)
+    renderer.launch_rays_table = lambda scene, px0, table, n: renderer.camera_rays_table_plain(
+        scene.camera, px0, table, n)
     try:
         yield
     finally:
-        renderer.launch_rays = real
+        renderer.launch_rays, renderer.launch_rays_table = real
 
 
 @contextlib.contextmanager
@@ -2746,20 +2899,37 @@ def r2_equal(o, d, po, pd, what):
     return max((o - po).abs().max().item(), (d - pd).abs().max().item())
 
 
-def r2_times(scene, px0, keys, strata, n, what, card, reps=50):
+def r2_table(keys, strata, dev) -> torch.Tensor:
+    """The (S, 5) int32 table R2's table entry reads: each stratum's cell,
+    then its jitter keys' (k_px, k_lens) words as int32 bit patterns."""
+    rows = torch.tensor([[c, *k_px, *k_lens] for c, (k_px, k_lens) in zip(strata, keys)],
+                        dtype=torch.int64)
+    return signed_words(rows, dev)
+
+
+def r2_times(scene, px0, keys, strata, n, what, card, reps=50, table=None):
     """(kernel-only ms, wrapper ms, plain ms, bound) of an R2 launch: the
     kernel's device time a launch from torch.profiler, CUDA events around
     calls of launch_rays (the checks, the output's allocation, the launch)
     and of camera_rays_plain (the plain jitter draw and the eager ops);
     the bound from the bytes this launch moves and its rays' integer and
-    float operations."""
+    float operations. With `table` (r2_table of keys and strata on the
+    card), the same of the table entry and its plain twin."""
     from torch.profiler import ProfilerActivity, profile
 
-    from plutracer_tpu_torch.render.renderer import camera_rays_plain, launch_rays
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_table_cuda
+    from plutracer_tpu_torch.render.renderer import (
+        camera_rays_plain, camera_rays_table_plain, launch_rays,
+    )
 
-    call = lambda: launch_rays(scene, px0, keys, strata, n)
+    if table is None:
+        call = lambda: launch_rays(scene, px0, keys, strata, n)
+        twin = lambda: camera_rays_plain(scene.camera, px0, keys, strata, n)
+    else:
+        call = lambda: camera_rays_table_cuda(scene.camera, px0, table, n)
+        twin = lambda: camera_rays_table_plain(scene.camera, px0, table, n)
     wrapper = time_ms(call, reps)
-    plain = time_ms(lambda: camera_rays_plain(scene.camera, px0, keys, strata, n), reps=10)
+    plain = time_ms(twin, reps=10)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             call()
@@ -2772,7 +2942,8 @@ def r2_times(scene, px0, keys, strata, n, what, card, reps=50):
     rays = len(strata) * px0.shape[0]
     lens = bool(scene.camera.lens_radius.item() > 0.0)
     bound = r2_bound(rays, px0.shape[0], lens)
-    print(f"R2 time {what} ({len(strata)} strata x {px0.shape[0]} pixels, "
+    entry_name = "by value" if table is None else "table entry"
+    print(f"R2 time {what}, {entry_name} ({len(strata)} strata x {px0.shape[0]} pixels, "
           f"{'lens' if lens else 'pinhole'}): kernel-only {kernel:.4f} ms ({how}), wrapper "
           f"{wrapper:.4f} ms a call, plain {plain:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}) "
           f"({card})")
@@ -2782,18 +2953,24 @@ def r2_times(scene, px0, keys, strata, n, what, card, reps=50):
 def camera_phase(phase, dev, card, main_launches):
     """Phase 23: R2 (keys to rays) against camera_rays_plain (the plain
     jitter draw, then the eager ops) on every lane at the main paths'
-    launches, the most strata a launch takes and ragged B; its times;
-    renders, train steps and the sharded and elastic renders through R2
+    launches, the most strata a launch takes and ragged B, and its table
+    entry (camera_rays_table_cuda: cells and key words read on the card)
+    against its plain twin and the by-value entry there and at the train
+    cell's Cornell stratum; both entries' times; renders, eager and
+    captured train steps and the sharded and elastic renders through R2
     against the same with the plain camera rays, one R2 launch a
     pass-loop launch (as many as R1's) and no eager camera op; with
     _checkout/parent, the camera stage and the CLI renders in both trees,
-    in turns (camera_stage_turns). Returns R2's kernels-line entry
-    (launches: main_launches, the CLI renders' of phases 5 and 10)."""
+    in turns (camera_stage_turns). Returns the kernels-line entries of R2
+    (launches: main_launches, the CLI renders' of phases 5 and 10) and of
+    its table entry."""
     from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_table_cuda
     from plutracer_tpu_torch.parallel import make_mesh, render_sharded, sharded
     from plutracer_tpu_torch.render.elastic import render_elastic
     from plutracer_tpu_torch.render.renderer import (
-        camera_rays_plain, launch_draws, launch_rays, pixel_centers, render,
+        camera_rays_plain, camera_rays_table_plain, launch_draws, launch_rays, pixel_centers,
+        render,
     )
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
@@ -2801,53 +2978,58 @@ def camera_phase(phase, dev, card, main_launches):
     base = rng.key_words(rng.PRNGKey(7))
 
     def load(name, w, h):
-        return compile_scene(load_scene_file(str(ROOT / "scenes" / f"{name}.urn"),
-                                             ["/res", f"{w}x{h}"]), device=dev)
+        return compile_scene(load_scene_file(str(scene_file(name)), ["/res", f"{w}x{h}"]),
+                             device=dev)
 
-    err, times = 0.0, {}
-    for name, (w, h), S, n in R2_CASES:
+    err, table_err, times, table_times = 0.0, 0.0, {}, {}
+    for name, (w, h), S, n in R2_TABLE_CASES:
         sc = load(name, w, h)
         # the cells out of order: 5j + 3 mod n^2 (a permutation at S = n^2)
         strata = [(5 * j + 3) % (n * n) for j in range(S)]
         for B in (w * h, 1, 127, w * h - RAGGED):
+            what = f"{name} {w}x{h}, {S} strata, B={B}"
             px0 = pixel_centers(w, h, dev)[:B].contiguous()
             keys, _ = launch_draws([rng.fold_in_words(base, j) for j in range(S)], B, 0, dev)
+            table = r2_table(keys, strata, dev)
             with counting():
                 before = launched("r2")
                 o, d = launch_rays(sc, px0, keys, strata, n)
-                assert launched("r2") == before + 1  # one launch a call
+                to, td = camera_rays_table_cuda(sc.camera, px0, table, n)
+                assert launched("r2") == before + 2  # one launch a call
             err = max(err, r2_equal(o, d, *camera_rays_plain(sc.camera, px0, keys, strata, n),
-                                    f"{name} {w}x{h}, {S} strata, B={B}"))
+                                    what))
+            # the table entry against its plain twin and against the by-value entry
+            table_err = max(table_err,
+                            r2_equal(to, td, *camera_rays_table_plain(sc.camera, px0, table, n),
+                                     f"table entry {what}"),
+                            r2_equal(to, td, o, d, f"table entry against by value, {what}"))
         px0 = pixel_centers(w, h, dev)
         keys, _ = launch_draws([rng.fold_in_words(base, j) for j in range(S)], w * h, 0, dev)
         times[(name, S)] = r2_times(sc, px0, keys, strata, n, f"{name} {w}x{h}", card)
-        del sc, px0, o, d
+        table_times[(name, S)] = r2_times(sc, px0, keys, strata, n, f"{name} {w}x{h}", card,
+                                          table=r2_table(keys, strata, dev))
+        del sc, px0, o, d, to, td
 
-    def through_r2(what, run, path_launches=None):
+    def through_r2(what, run, path_launches=None, replayed=0):
         """run() through R2 (counted, no eager camera op) and with the plain
         camera rays; the outputs bit-equal; one R2 launch a pass-loop launch
-        (as many as the R1 launches, and path_launches where given)."""
+        (as many as the R1 launches, and path_launches where given), and
+        `replayed` captured train steps replayed. Returns the R2 launches."""
         with counting():
             with no_eager_camera():
                 got = run()
             torch.cuda.synchronize()
-            made, draws = launched("r2"), launched("r1")
+            made, draws, replays_made = launched("r2"), launched("r1"), replays()
             with plain_camera():
                 want = run()
             assert launched("r2") == made and made > 0, (what, made)
-        assert made == draws, (what, made, draws)
+        assert made == draws and replays_made == replayed, (what, made, draws, replays_made)
         if path_launches is not None:
             assert made == path_launches, (what, made, path_launches)
-        flat = lambda x: x if isinstance(x, (tuple, list)) else (x,)
-        for a, b in zip(flat(got), flat(want)):
-            if isinstance(a, dict):
-                assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a), what
-            elif isinstance(a, np.ndarray):
-                assert np.array_equal(a, b), what
-            else:
-                assert torch.equal(a, b), what
+        assert same_tree(got, want), what
         print(f"R2 {what}: bit-equal to the plain camera rays, R2 launches {made} (R1 {draws}), "
-              f"no eager camera op")
+              f"{replays_made} replays, no eager camera op")
+        return made
 
     for name, w, h, n in R2_RENDERS:
         sc = load(name, w, h)
@@ -2857,28 +3039,55 @@ def camera_phase(phase, dev, card, main_launches):
     sc = load("demo-box", TRAIN_RES, TRAIN_RES)
     target = render(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(11)).reshape(-1, 3)
     params = sharded.get_params(sc)
+    table_launches = 0
     for loss_space, traced in (("log", 1), ("ab", 2)):
         step = sharded.make_train_step(sc, TRAIN_RES, TRAIN_RES, 2, loss_space=loss_space,
                                        trainable=("mat_color", "light_intensity"))
         through_r2(f"demo-box {TRAIN_RES}x{TRAIN_RES} {loss_space} train step (loss, gradients)",
                    lambda: step.loss_and_grads(params, target, rng.PRNGKey(3), 1), traced)
+
+        # the captured step (a new one a run: each captures at its first call),
+        # one step and a many of 3: R2's table entry, in its warm-up and its
+        # capture, and nothing launched by the replays
+        def captured(k, loss_space=loss_space):
+            fresh = sharded.make_train_step(sc, TRAIN_RES, TRAIN_RES, 2, loss_space=loss_space,
+                                            trainable=("mat_color", "light_intensity"))
+            state = fresh.init(params)
+            if k == 1:
+                return fresh(params, state, target, rng.PRNGKey(3), 1)
+            return fresh.many(params, state, target, rng.PRNGKey(3), 0, k)
+
+        for k in (1, 3):
+            table_launches += through_r2(
+                f"demo-box {TRAIN_RES}x{TRAIN_RES} {loss_space} train step captured, "
+                f"{k} replay(s) (parameters, Adam's state, loss)", lambda: captured(k),
+                2 * traced, k)
     mesh = make_mesh((1, 1), devices=[dev])
     through_r2(f"render_sharded demo-box {TRAIN_RES}x{TRAIN_RES} 4 spp on a 1x1 mesh",
                lambda: render_sharded(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(5), mesh), 1)
     through_r2(f"render_elastic demo-box {TRAIN_RES}x{TRAIN_RES} 4 spp on [{dev}]",
                lambda: render_elastic(sc, TRAIN_RES, TRAIN_RES, 2, 5, devices=[dev]), 1)
-    for (name, S), (kernel, wrapper, plain, bound) in times.items():
-        print(f"R2 {name} launch of {S} strata: kernel-only / bound {kernel / bound[0]:.4f}, "
-              f"plain / wrapper {plain / wrapper:.4f} ({card})")
+    for (name, S), (kernel, wrapper, plain, bound) in table_times.items():
+        by_value = times[(name, S)]
+        print(f"R2 {name} launch of {S} strata: by value kernel-only / bound "
+              f"{by_value[0] / by_value[3][0]:.4f}, plain / wrapper "
+              f"{by_value[2] / by_value[1]:.4f}; table entry kernel-only / bound "
+              f"{kernel / bound[0]:.4f}, table / by value: kernel-only {kernel / by_value[0]:.4f}, "
+              f"wrapper {wrapper / by_value[1]:.4f} ({card})")
     parent = ROOT / "_checkout" / "parent"
     if (parent / "plutracer_tpu_torch").is_dir():
         camera_stage_turns(parent, card)
     else:
         print("R2 against an earlier tree: not run (no _checkout/parent)")
     r2_ms, _, r2_plain_ms, bound = times[("demo-box", 1)]
-    return entry("R2 camera stage, jitter and rays (ms: kernel-only, a demo-box 512x512 stratum; "
-                 "launches: the CLI renders of demo-box, mesh1 and mesh2)", R2_SOURCE,
-                 R2_REPLACES, main_launches, err, r2_ms, r2_plain_ms, bound)
+    table_ms, _, table_plain_ms, table_bound = table_times[("cornell-box", 1)]
+    return (entry("R2 camera stage, jitter and rays (ms: kernel-only, a demo-box 512x512 "
+                  "stratum; launches: the CLI renders of demo-box, mesh1 and mesh2)", R2_SOURCE,
+                  R2_REPLACES, main_launches, err, r2_ms, r2_plain_ms, bound),
+            entry("R2 table entry camera_rays_table, cells and key words read on the card (ms: "
+                  "kernel-only, the Cornell train cell's 512x512 stratum; launches: phase 23's "
+                  "captured train steps, their warm-ups and captures)", R2_SOURCE, R2_REPLACES,
+                  table_launches, table_err, table_ms, table_plain_ms, table_bound))
 
 
 STAGE_REPS = 50  # calls of the camera stage timed a case (camera_stage_figures)

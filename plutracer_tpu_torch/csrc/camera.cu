@@ -9,7 +9,10 @@
 // the thin lens into device code. This kernel is that fusion whole for a
 // launch of S strata of B pixels: from each stratum's cell and its k_px
 // and k_lens keys, all passed by value, it writes o and d of all S * B
-// rays, stratum j at rows j*B..(j+1)*B.
+// rays, stratum j at rows j*B..(j+1)*B. A second entry point reads the
+// same cells and key words from a small table on the card instead
+// (camera_rays_table): a launch inside a captured CUDA graph, whose
+// parameters are fixed when it is captured, takes its strata from there.
 //
 // What it computes for pixel p of stratum j, cell c = strata.cell[j], as
 // plutracer_tpu_torch.render.renderer.camera_rays_plain does on the card
@@ -52,6 +55,9 @@
 #include "threefry.cuh"
 
 constexpr int PLU_MAX_STRATA = 16;  // renderer.MAX_STRATA: the most strata a launch
+// int32 words a stratum of a table on the card: its cell, then its jitter
+// keys' four words (ops/cuda/camera_kernel.STRATUM_WORDS)
+constexpr int STRATUM_WORDS = 5;
 
 // a launch's strata, passed by value (ops/cuda/camera_kernel.Strata): each
 // stratum's cell and its jitter keys' words (k_px's two, then k_lens's);
@@ -156,18 +162,13 @@ __device__ __forceinline__ void camera_ray(const float* __restrict__ cam, float2
   rd[2] = dz;
 }
 
-// cam: the camera table; px0: (B, 2); o, d: (S * B, 3)
-__global__ void __launch_bounds__(BLOCK) camera_rays(const float* __restrict__ cam,
-                                                     const float2* __restrict__ px0,
-                                                     const __grid_constant__ PluStrata strata,
-                                                     int B, int n,
-                                                     float* __restrict__ o,
-                                                     float* __restrict__ d) {
-  const int p = blockIdx.x * BLOCK + threadIdx.x;
-  if (p >= B) return;
-  const int j = blockIdx.y;
-  const int c = strata.cell[j];
-  const uint32_t* key = strata.key[j];
+// Ray p of stratum j of cell c, jittered by the stream of key words k
+// (k_px's two, then k_lens's), written at row j * B + p of o and d: one
+// body for both entry points, so they give the same bits.
+__device__ __forceinline__ void stratum_ray(const float* __restrict__ cam,
+                                            const float2* __restrict__ px0, int p, int j, int c,
+                                            const uint32_t* key, int B, int n,
+                                            float* __restrict__ o, float* __restrict__ d) {
   // the hashes first, independent of each other; a pinhole camera never
   // reads the lens jitter
   float2 jp, jl = make_float2(0.0f, 0.0f);
@@ -187,6 +188,39 @@ __global__ void __launch_bounds__(BLOCK) camera_rays(const float* __restrict__ c
   }
 }
 
+// cam: the camera table; px0: (B, 2); o, d: (S * B, 3)
+__global__ void __launch_bounds__(BLOCK) camera_rays(const float* __restrict__ cam,
+                                                     const float2* __restrict__ px0,
+                                                     const __grid_constant__ PluStrata strata,
+                                                     int B, int n,
+                                                     float* __restrict__ o,
+                                                     float* __restrict__ d) {
+  const int p = blockIdx.x * BLOCK + threadIdx.x;
+  if (p >= B) return;
+  const int j = blockIdx.y;
+  stratum_ray(cam, px0, p, j, strata.cell[j], strata.key[j], B, n, o, d);
+}
+
+// The same rays with each stratum's cell and key words read from a table
+// on the card, (S, STRATUM_WORDS) int32: cell, then k_px's and k_lens's
+// words (ops/cuda/camera_kernel.camera_rays_table_cuda). A launch whose
+// strata are written on the card before it runs, as a captured graph's
+// are, takes this one.
+__global__ void __launch_bounds__(BLOCK) camera_rays_table(const float* __restrict__ cam,
+                                                           const float2* __restrict__ px0,
+                                                           const int* __restrict__ table,
+                                                           int B, int n,
+                                                           float* __restrict__ o,
+                                                           float* __restrict__ d) {
+  const int p = blockIdx.x * BLOCK + threadIdx.x;
+  if (p >= B) return;
+  const int j = blockIdx.y;
+  const int* row = table + j * STRATUM_WORDS;
+  const uint32_t key[4] = {(uint32_t)row[1], (uint32_t)row[2], (uint32_t)row[3],
+                           (uint32_t)row[4]};
+  stratum_ray(cam, px0, p, j, row[0], key, B, n, o, d);
+}
+
 }  // namespace
 
 // cam: the camera table on the card; px0: B pixel positions (x, y);
@@ -200,5 +234,18 @@ extern "C" int plu_camera_rays(const void* cam, const void* px0, PluStrata strat
   const dim3 grid((unsigned)((B + BLOCK - 1) / BLOCK), (unsigned)S);
   camera_rays<<<grid, BLOCK, 0, (cudaStream_t)stream>>>((const float*)cam, (const float2*)px0,
                                                         strata, B, n, (float*)o, (float*)d);
+  return (int)cudaGetLastError();
+}
+
+// The same launch with the strata's cells and jitter keys read from table,
+// (S, STRATUM_WORDS) int32 on the card (4-byte aligned), instead of by
+// value. Returns a cudaError_t.
+extern "C" int plu_camera_rays_table(const void* cam, const void* px0, const void* table, int S,
+                                     int B, int n, void* o, void* d, void* stream) {
+  if (B <= 0) return 0;
+  if (S < 1 || S > PLU_MAX_STRATA || n < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((B + BLOCK - 1) / BLOCK), (unsigned)S);
+  camera_rays_table<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      (const float*)cam, (const float2*)px0, (const int*)table, B, n, (float*)o, (float*)d);
   return (int)cudaGetLastError();
 }

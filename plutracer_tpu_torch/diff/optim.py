@@ -58,11 +58,28 @@ class AdamState(NamedTuple):
     nu: Dict[str, torch.Tensor]
 
 
-def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
-    """1 - decay**count in float32, the power correctly rounded."""
-    power = torch.pow(torch.tensor(np.float32(decay).item(), dtype=torch.float64,
-                                   device=count.device), count.to(torch.float64))
-    return torch.tensor(1.0, dtype=torch.float32, device=count.device) - power.to(torch.float32)
+def _bias_correction(decay: torch.Tensor, one: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """1 - decay**count in float32, the power correctly rounded: decay is
+    the float64 value of the float32 decay rate, one a float32 1, both
+    scalar tensors on count's device."""
+    power = torch.pow(decay, count.to(torch.float64))
+    return one - power.to(torch.float32)
+
+
+class _Constants:
+    """Scalar tensors built once a device and kept: an update then copies
+    nothing from the host, so a CUDA graph can capture it, and it computes
+    with the values it computed with before (the same ops, the same
+    bits)."""
+
+    def __init__(self, build: Callable):
+        self.build, self.held = build, {}
+
+    def on(self, device: torch.device):
+        got = self.held.get(device)
+        if got is None:
+            got = self.held[device] = self.build(device)
+        return got
 
 
 class Adam:
@@ -73,6 +90,20 @@ class Adam:
     def __init__(self, learning_rate: Union[float, Callable] = 1e-3, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
         self.learning_rate, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
+        self._constants = _Constants(self._build_constants)
+
+    def _build_constants(self, dev) -> dict:
+        """The update's constants on `dev`: float32 tensors first, as in the
+        JAX program (a Python float operand would make torch compute in
+        double), the bias corrections' bases in float64."""
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+        f64 = lambda x: torch.tensor(np.float32(x).item(), dtype=torch.float64, device=dev)
+        b1, b2 = self.b1, self.b2
+        got = dict(c1=f32(1 - b1), d1=f32(b1), c2=f32(1 - b2), d2=f32(b2), eps=f32(self.eps),
+                   eps_root=f32(0.0), one=f32(1.0), b1_64=f64(b1), b2_64=f64(b2))
+        if not callable(self.learning_rate):
+            got["step"] = f32(-1 * self.learning_rate)
+        return got
 
     def init(self, params: Dict[str, torch.Tensor]) -> AdamState:
         dev = next(iter(params.values())).device
@@ -84,25 +115,28 @@ class Adam:
 
     def update(self, grads: Dict[str, torch.Tensor], state: AdamState):
         """(updates, new state) for gradients shaped like the parameters.
-        Every constant is a float32 tensor first, as in the JAX program
-        (a Python float operand would make torch compute in double)."""
-        dev = state.count.device
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
-        b1, b2 = self.b1, self.b2
-        c1, d1, c2, d2 = f32(1 - b1), f32(b1), f32(1 - b2), f32(b2)
-        mu = {k: c1 * g + d1 * state.mu[k] for k, g in grads.items()}
-        nu = {k: c2 * (g * g) + d2 * state.nu[k] for k, g in grads.items()}
+        Every constant is a float32 tensor on the count's device, built at
+        the first update there (``_build_constants``); the count is the
+        one value that changes from update to update."""
+        k = self._constants.on(state.count.device)
+        c1, d1, c2, d2 = k["c1"], k["d1"], k["c2"], k["d2"]
+        mu = {f: c1 * g + d1 * state.mu[f] for f, g in grads.items()}
+        nu = {f: c2 * (g * g) + d2 * state.nu[f] for f, g in grads.items()}
         count = state.count + 1
-        bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
-        lr = self.learning_rate(state.count) if callable(self.learning_rate) else self.learning_rate
-        step = torch.as_tensor(-1 * lr, dtype=torch.float32, device=dev)
-        eps, eps_root = f32(self.eps), f32(0.0)
+        bc1 = _bias_correction(k["b1_64"], k["one"], count)
+        bc2 = _bias_correction(k["b2_64"], k["one"], count)
+        if callable(self.learning_rate):
+            step = torch.as_tensor(-1 * self.learning_rate(state.count), dtype=torch.float32,
+                                   device=state.count.device)
+        else:
+            step = k["step"]
+        eps, eps_root = k["eps"], k["eps_root"]
         # divisors expanded to full shape: torch divides by a scalar as a
         # multiplication by its reciprocal, which rounds differently
         full = lambda c, x: c.expand_as(x)
-        updates = {k: step * ((mu[k] / full(bc1, mu[k]))
-                              / (_sqrt_rn(nu[k] / full(bc2, nu[k]) + eps_root) + eps))
-                   for k in grads}
+        updates = {f: step * ((mu[f] / full(bc1, mu[f]))
+                              / (_sqrt_rn(nu[f] / full(bc2, nu[f]) + eps_root) + eps))
+                   for f in grads}
         return updates, AdamState(count, mu, nu)
 
     def state_leaves(self, state: AdamState) -> List[torch.Tensor]:
@@ -146,18 +180,23 @@ def exponential_decay(init_value: float, transition_steps: int, decay_rate: floa
     count below 1,201 of the recipe's phase-1 schedule (20.0, 600, 0.1)
     and below 446 of its phase-2 schedule (1e-2, 300, 0.05); inside a
     jitted program XLA fuses the power and rounds some counts otherwise
-    (tests/test_torch_flagship.py)."""
+    (tests/test_torch_flagship.py). Its constants are tensors built once a
+    device (at the first call there) and kept: a call copies nothing from
+    the host."""
+    f32 = lambda x, dev: torch.tensor(np.float32(x).item(), dtype=torch.float32, device=dev)
     if transition_steps <= 0 or decay_rate == 0:
-        return lambda count: torch.tensor(np.float32(init_value).item(), dtype=torch.float32,
-                                          device=count.device)
+        const = _Constants(lambda dev: f32(init_value, dev))
+        return lambda count: const.on(count.device)
+
+    consts = _Constants(lambda dev: (
+        f32(transition_steps, dev), f32(init_value, dev),
+        torch.tensor(np.float32(decay_rate).item(), dtype=torch.float64, device=dev)))
 
     def schedule(count: torch.Tensor) -> torch.Tensor:
-        dev = count.device
-        f32 = lambda x: torch.tensor(np.float32(x).item(), dtype=torch.float32, device=dev)
-        p = count.to(torch.float32) / f32(transition_steps)
-        power = torch.pow(torch.tensor(np.float32(decay_rate).item(), dtype=torch.float64,
-                                       device=dev), p.to(torch.float64)).to(torch.float32)
-        return torch.where(count <= 0, f32(init_value), f32(init_value) * power)
+        steps, init, rate = consts.on(count.device)
+        p = count.to(torch.float32) / steps
+        power = torch.pow(rate, p.to(torch.float64)).to(torch.float32)
+        return torch.where(count <= 0, init, init * power)
 
     return schedule
 

@@ -21,7 +21,9 @@ def generate_rays(cam: CameraParams, px: torch.Tensor, lens_u: torch.Tensor):
     Returns (o, d): (B,3) each.
     """
     uv = px * cam.inv_image_size * 2.0 - 1.0
-    uv = uv * torch.tensor([1.0, -1.0], device=uv.device)
+    flip = uv.new_ones(2)
+    flip[1:].fill_(-1.0)  # filled on the device: no host copy, so a CUDA graph can capture it
+    uv = uv * flip
     d = cam.w * cam.look + uv[..., 0:1] * cam.right + uv[..., 1:2] * cam.up
     d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
     o = cam.pos.expand(d.shape)

@@ -70,6 +70,8 @@ _SIGNATURES = {
     "plu_threefry_uniform": [_vp, _i, ctypes.c_longlong, _vp, _vp],
     # camera table, px0, the strata's cells and jitter keys (by value), S, B, n, o, d, stream
     "plu_camera_rays": [_vp, _vp, Strata, _i, _i, _i, _vp, _vp, _vp],
+    # camera table, px0, the strata's table on the card (S x 5 int32), S, B, n, o, d, stream
+    "plu_camera_rays_table": [_vp, _vp, _vp, _i, _i, _i, _vp, _vp, _vp],
     # idx, grad, part (or null), out, arrivals (or null), B, R, W, chunk, chunks, stream
     "plu_row_grad": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     # rows, perm, grad, part (or null), out, arrivals (or null), B, R, W, tiles, stream

@@ -15,6 +15,12 @@ the pass loop makes one launch of it a pass-loop launch
 The strata's cells and key words go to the kernel by value (no table, no
 copy to the card); the camera is read from a table on the card
 (``camera_table``), built once a camera and kept on it.
+``camera_rays_table_cuda(cam, px0, table, n)`` is the same launch with
+the cells and key words read from an (S, STRATUM_WORDS) int32 table on
+the card (cell, then k_px's and k_lens's words as int32 bit patterns),
+the same kernel body and so the same bits: a launch captured in a CUDA
+graph (parallel/sharded's train step) keeps its arguments from the
+capture, so its strata come from a buffer written before each replay.
 Each launch counts once in utils/profiling's ``launches.r2``.
 """
 
@@ -27,6 +33,7 @@ import torch
 from plutracer_tpu_torch.utils import profiling
 
 MAX_STRATA = 16  # the most strata a launch (csrc/camera.cu: PLU_MAX_STRATA)
+STRATUM_WORDS = 5  # int32 words a stratum of a table on the card (csrc/camera.cu)
 _FIELDS = ("pos", "look", "right", "up", "inv_image_size", "w", "lens_radius", "focal_distance")
 
 
@@ -80,6 +87,22 @@ def _check(what: str, t: torch.Tensor, shape, dev) -> None:
         raise ValueError(f"camera_rays_cuda: {what} must be 8-byte aligned")
 
 
+def _launch_shape(px0: torch.Tensor, S: int, n: int, what: str):
+    """(device, B) of a launch of S strata over px0, after the checks both
+    entry points share."""
+    dev = px0.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: needs CUDA tensors, got {dev}")
+    B = px0.shape[0]
+    if not 1 <= S <= MAX_STRATA:
+        raise ValueError(f"{what}: 1 to {MAX_STRATA} strata a launch, got {S}")
+    if n < 1:
+        raise ValueError(f"{what}: an n = {n} grid")
+    if S * B >= 2**31:
+        raise ValueError(f"{what}: {S} x {B} rays, at most 2**31 - 1")
+    return dev, B
+
+
 def camera_rays_cuda(cam, px0: torch.Tensor, keys, strata, n: int):
     """Launch R2 on px0's CUDA device and its current stream (no
     synchronisation): (o, d), (S*B, 3) float32 each, views of one buffer.
@@ -87,17 +110,11 @@ def camera_rays_cuda(cam, px0: torch.Tensor, keys, strata, n: int):
     tensor included, and never falls back to the plain version."""
     from plutracer_tpu_torch.ops.cuda import build
 
-    dev = px0.device
-    if dev.type != "cuda":
-        raise ValueError(f"camera_rays_cuda: needs CUDA tensors, got {dev}")
     strata = [int(s) for s in strata]
-    S, B, n = len(strata), px0.shape[0], int(n)
-    if not 1 <= S <= MAX_STRATA:
-        raise ValueError(f"camera_rays_cuda: 1 to {MAX_STRATA} strata a launch, got {S}")
-    if n < 1 or min(strata) < 0 or max(strata) >= 2**31:
+    S, n = len(strata), int(n)
+    dev, B = _launch_shape(px0, S, n, "camera_rays_cuda")
+    if min(strata) < 0 or max(strata) >= 2**31:
         raise ValueError(f"camera_rays_cuda: cells {strata} of an n = {n} grid")
-    if S * B >= 2**31:
-        raise ValueError(f"camera_rays_cuda: {S} x {B} rays, at most 2**31 - 1")
     words = jitter_words(keys, S)
     table = camera_table(cam)
     _check("px0", px0, (B, 2), dev)
@@ -113,5 +130,40 @@ def camera_rays_cuda(cam, px0: torch.Tensor, keys, strata, n: int):
                                         (ctypes.c_uint32 * (4 * MAX_STRATA))(*words)),
                                  S, B, n, o.data_ptr(), d.data_ptr(), stream)
     build.check(rc, "plu_camera_rays")
+    profiling.count("launches.r2")
+    return o, d
+
+
+def camera_rays_table_cuda(cam, px0: torch.Tensor, table: torch.Tensor, n: int):
+    """camera_rays_cuda with the strata's cells and jitter key words read
+    on the card from `table`, (S, STRATUM_WORDS) int32 on px0's card (each
+    row: the cell, then k_px's and k_lens's words as int32 bit patterns),
+    not passed by value: one launch, nothing copied to the card and no
+    synchronisation, so a CUDA graph can capture it. A cell outside [0,
+    n * n) is the caller's to prevent (the table is read only on the
+    card). Raises on anything else the kernel does not take."""
+    from plutracer_tpu_torch.ops.cuda import build
+
+    n = int(n)
+    if table.dim() != 2 or table.shape[1] != STRATUM_WORDS:
+        raise ValueError(f"camera_rays_table_cuda: the table must be (S, {STRATUM_WORDS}), "
+                         f"got {tuple(table.shape)}")
+    S = table.shape[0]
+    dev, B = _launch_shape(px0, S, n, "camera_rays_table_cuda")
+    if table.dtype != torch.int32 or not table.is_contiguous() or table.device != dev:
+        raise ValueError(f"camera_rays_table_cuda: the table must be contiguous int32 on {dev}, "
+                         f"got {table.dtype} on {table.device}")
+    cam_table = camera_table(cam)
+    _check("px0", px0, (B, 2), dev)
+    _check("the camera table", cam_table, (17,), dev)
+    out = torch.empty((2, S * B, 3), dtype=torch.float32, device=dev)
+    o, d = out[0], out[1]
+    if B == 0:
+        return o, d
+    lib = build.load().lib
+    with build.on_device(dev) as stream:
+        rc = lib.plu_camera_rays_table(cam_table.data_ptr(), px0.data_ptr(), table.data_ptr(),
+                                       S, B, n, o.data_ptr(), d.data_ptr(), stream)
+    build.check(rc, "plu_camera_rays_table")
     profiling.count("launches.r2")
     return o, d

@@ -11,7 +11,11 @@ hash (csrc/threefry.cuh), inside the camera-ray kernel.
 
 The keys arrive as a (K, 2) int64 CPU table of uint32 words, derived on
 the host (rng.fold_in_words, rng.split_words) and copied to the card once
-a call. Each launch counts once in utils/profiling's ``launches.r1``.
+a call. ``uniform_block_words(words, n)`` launches the same kernel on a
+table already on the card ((K, 2) int32 bit patterns of the words), with
+no copy: the launch a CUDA graph captures (parallel/sharded's train
+step), whose table is written before each replay. Each launch counts
+once in utils/profiling's ``launches.r1``.
 """
 
 from __future__ import annotations
@@ -40,8 +44,6 @@ def uniform_block_cuda(keys: torch.Tensor, n: int, device) -> torch.Tensor:
     (K, n) float32 on the CUDA `device`, row k = uniform(keys[k], (n,)).
     One launch for every K in 1..MAX_KEYS and 0 < n < 2**32; raises on
     anything else, a CPU device included."""
-    from plutracer_tpu_torch.ops.cuda import build
-
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"uniform_block_cuda: needs a CUDA device, got {dev}")
@@ -52,7 +54,36 @@ def uniform_block_cuda(keys: torch.Tensor, n: int, device) -> torch.Tensor:
     K = keys.shape[0] if keys.dim() == 2 else -1
     if K > MAX_KEYS:
         raise ValueError(f"uniform_block_cuda: at most {MAX_KEYS} keys a launch, got {K}")
-    words = _device_words(keys, dev)
+    return _launch(_device_words(keys, dev), n, dev)
+
+
+def uniform_block_words(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Launch R1 on the card of `words`, a contiguous (K, 2) int32 table of
+    uint32 key words (bit patterns), and its current stream, reading the
+    table where it lies (no copy, no synchronisation): (K, n) float32,
+    row k = uniform of key k, bit-equal to uniform_block_cuda of the same
+    words. Raises on anything the kernel does not take."""
+    if words.dim() != 2 or words.shape[1] != 2 or words.dtype != torch.int32:
+        raise ValueError(f"uniform_block_words: words must be a (K, 2) int32 table, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    if not words.is_cuda or not words.is_contiguous():
+        raise ValueError(f"uniform_block_words: words must be contiguous on a CUDA device, got "
+                         f"{words.device}")
+    n = int(n)
+    _check_count(n)
+    if n < 0:
+        raise ValueError(f"uniform_block_words: n must be non-negative, got {n}")
+    if words.shape[0] > MAX_KEYS:
+        raise ValueError(f"uniform_block_words: at most {MAX_KEYS} keys a launch, got "
+                         f"{words.shape[0]}")
+    return _launch(words, n, words.device)
+
+
+def _launch(words: torch.Tensor, n: int, dev) -> torch.Tensor:
+    """One R1 launch over the (K, 2) int32 words on the card `dev`."""
+    from plutracer_tpu_torch.ops.cuda import build
+
+    K = words.shape[0]
     out = torch.empty((K, n), dtype=torch.float32, device=dev)
     if K == 0 or n == 0:
         return out

@@ -25,6 +25,18 @@ profiler runs): ``plu.train.step`` (one step, a request), and inside it
 ``plu.train.backward`` (torch.autograd.grad), ``plu.train.filter`` (the
 mask, the non-finite count, nan_to_num), ``plu.train.reduce`` (the gather
 and the reduction over positions) and ``plu.train.optimizer``.
+
+When every position of the mesh lies on the scene's one card in this
+process, the step is captured as two CUDA graphs at its first call and
+replayed at every call (``_Graphed``): one replay of each a step in place
+of the tens of thousands of launches an eager step issues from Python,
+the same kernels on the same words, so the same bits. A replayed step
+records ``plu.train.forward`` (the forward graph's replay) and
+``plu.train.backward`` (the rest's: the backward, the filter, the
+reduction and the optimiser) and counts ``train.graph_replays``; a
+capture counts ``train.graph_captures``. No C entry is called on a
+replay, so the ``launches.*`` counters do not move. A mesh over several
+cards or processes, and a CPU scene, run the step eagerly.
 """
 
 from __future__ import annotations
@@ -32,6 +44,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import pathlib
+import traceback
 from typing import Dict, Optional
 
 import numpy as np
@@ -46,6 +60,8 @@ from plutracer_tpu_torch.render.renderer import (
     over,
     pixel_centers,
     stratum_launches,
+    stratum_words,
+    trace_stratum_table,
 )
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
 from plutracer_tpu_torch.utils import profiling
@@ -146,15 +162,123 @@ def _deterministic():
         torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
 
 
+def _map(fn, tree, *rest):
+    """fn over the tensors of matching trees (dicts, tuples and NamedTuples
+    of tensors), leaf by leaf: a tree shaped as the first."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, tuple):
+        vals = [_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return fn(tree, *rest)
+
+
 def _keep(bad: torch.Tensor, old, new):
     """`old` where `bad`, else `new`, leaf by leaf over matching dicts,
     tuples (NamedTuples included) and tensors."""
-    if isinstance(old, dict):
-        return {k: _keep(bad, old[k], new[k]) for k in old}
-    if isinstance(old, tuple):
-        vals = [_keep(bad, a, b) for a, b in zip(old, new)]
-        return type(old)(*vals) if hasattr(old, "_fields") else tuple(vals)
-    return torch.where(bad, old, new)
+    return _map(lambda a, b: torch.where(bad, a, b), old, new)
+
+
+def _copy_into(held: torch.Tensor, given: torch.Tensor) -> None:
+    """Write `given` into the graph's input `held` (same shape and dtype)."""
+    if given.shape != held.shape or given.dtype != held.dtype:
+        raise ValueError(f"the train step was captured for a {held.dtype} {tuple(held.shape)} "
+                         f"input, got {given.dtype} {tuple(given.shape)}")
+    held.copy_(given.detach())
+
+
+def _call_site(exc: BaseException) -> str:
+    """The innermost line of exc's traceback outside torch: the call of the
+    operator that raised."""
+    torch_dir = pathlib.Path(torch.__file__).resolve().parent
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if not pathlib.Path(f.filename).resolve().is_relative_to(torch_dir)]
+    f = frames[-1]
+    return f"{f.filename}:{f.lineno} ({f.line})"
+
+
+@contextlib.contextmanager
+def _no_sync():
+    """Inside a capture: an operator that would synchronise with the host
+    (a pageable copy, .item(), nonzero) raises at once, and any failure is
+    raised again naming the line that called it."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    except RuntimeError as exc:
+        raise RuntimeError(f"make_train_step: the step could not be captured as a CUDA graph: "
+                           f"{_call_site(exc)} synchronised with the host or failed: "
+                           f"{exc}") from exc
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+class _Graphed:
+    """A train step on one card, captured as two CUDA graphs that share one
+    memory pool and replayed once a step: the forward (the positions'
+    losses under autograd), then the rest (torch.autograd.grad, the
+    filter, the reduction, the optimiser and the rejection).
+
+    Built from the first step's inputs: they are copied into the graphs'
+    own input buffers, the step runs once eagerly on a side stream (the
+    warm-up: lazily built constants and per-stream buffers come to exist
+    outside the capture; its results are dropped, the caller's tensors
+    are only read), and the two halves are captured on that stream. Each
+    call then writes its inputs into those buffers (copies on the card;
+    the step's key words through a pinned host slot and one asynchronous
+    copy), replays both graphs and returns copies of their outputs, never
+    the graphs' own buffers. The graphs keep the shapes, dtypes and
+    structure of the first call's inputs; another raises."""
+
+    SLOTS = 4  # pinned slots for the key words, used in turn
+
+    def __init__(self, home, forward, rest, params, opt_state, target, words):
+        self.home = home
+        held = lambda x: x.detach().to(home).clone()
+        self.params, self.state = _map(held, params), _map(held, opt_state)
+        self.target = held(target)
+        self.words = torch.empty(words.shape, dtype=torch.int32, device=home)
+        self.slots = [(torch.empty(words.size, dtype=torch.int32, pin_memory=True),
+                       torch.cuda.Event()) for _ in range(self.SLOTS)]
+        self.turn = 0
+        with torch.cuda.device(home):
+            self._write_words(words)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                rest(forward(self.params, self.target, self.words), self.params, self.state)
+            torch.cuda.current_stream().wait_stream(side)
+            self.forward_graph, self.rest_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.forward_graph, stream=side), _no_sync():
+                fwd = forward(self.params, self.target, self.words)
+            with torch.cuda.graph(self.rest_graph, pool=self.forward_graph.pool(),
+                                  stream=side), _no_sync():
+                self.out = rest(fwd, self.params, self.state)
+        profiling.count("train.graph_captures")
+
+    def _write_words(self, words: np.ndarray) -> None:
+        """The step's key words to the card: into the next pinned slot once
+        its last copy has left it, then one asynchronous copy."""
+        slot, done = self.slots[self.turn]
+        self.turn = (self.turn + 1) % len(self.slots)
+        done.synchronize()
+        slot.numpy()[:] = words.reshape(-1)
+        self.words.view(-1).copy_(slot, non_blocking=True)
+        done.record()
+
+    def __call__(self, params, opt_state, target, words):
+        with torch.cuda.device(self.home):
+            _map(_copy_into, self.params, params)
+            _map(_copy_into, self.state, opt_state)
+            _copy_into(self.target, target)
+            self._write_words(words)
+            with profiling.span("plu.train.forward"):
+                self.forward_graph.replay()
+            with profiling.span("plu.train.backward"):
+                self.rest_graph.replay()
+            profiling.count("train.graph_replays")
+            return _map(torch.clone, self.out)
 
 
 def make_train_step(
@@ -203,6 +327,14 @@ def make_train_step(
     closest-hit query still runs K1): the kernel path's backward re-runs
     the plain path anyway (render/integrator.KernelRadiance).
 
+    On one card (every position of `mesh` on the scene's CUDA device, in
+    this process) the first call of step or step.many captures the step
+    as CUDA graphs at that call's shapes and every call replays them
+    (``_Graphed``): later calls must hand in parameters, state and target
+    of the same shapes and dtypes. A capture that fails raises, naming
+    the line that synchronised. Elsewhere the step runs eagerly; both
+    give the same bits.
+
     step.init(params) -> optimiser state. step.many(params, opt_state,
     target_flat, key0, start, k) -> (params, opt_state, losses (k,),
     nonfinite fractions (k,)): steps start..start+k-1, step i keyed
@@ -210,7 +342,7 @@ def make_train_step(
     step.ab_loss(xa, xb, target_rows) is a position's ab loss of two passes.
     step.loss_and_grads(params, target_flat, key, stratum) -> (loss, grads,
     nonfinite fraction) and step.apply(params, opt_state, grads, nf_frac)
-    -> (params, opt_state) are the step's two halves.
+    -> (params, opt_state) are the step's two halves, always eager.
     """
     optimizer = optimizer if optimizer is not None else Adam(1e-2)
     options = options.replace(integrator_backend="plain")
@@ -249,31 +381,36 @@ def make_train_step(
         da, db = xa - tl, xb - tl
         return over(torch.sum(da * db), da.shape[0] * 3 * d_tiles)
 
-    def position_loss(sc, px, tl, k, stratum):
+    def position_loss(sc, px, tl, trace):
+        """A position's loss; trace(sc, px, j) is its pass j (two for "ab")."""
         if loss_space == "ab":
-            ka, kb = rng.split(k)
-            return ab_loss(_trace_stratum(sc, px, ka, stratum, n, options),
-                           _trace_stratum(sc, px, kb, stratum, n, options), tl)
-        c, tl = clampf(_trace_stratum(sc, px, k, stratum, n, options)), clampf(tl)
+            return ab_loss(trace(sc, px, 0), trace(sc, px, 1), tl)
+        c, tl = clampf(trace(sc, px, 0)), clampf(tl)
         if loss_space == "log":
             c, tl = torch.log1p(torch.clamp(c, min=0.0)), torch.log1p(torch.clamp(tl, min=0.0))
         dc = c - tl
         return over(torch.sum(dc * dc), rows * d_tiles * 3)
 
-    def position_grads(params, target_pad, key, stratum, ti, si, dev):
-        """A position's loss, its filtered, masked and sanitised gradients,
-        and their non-finite count."""
+    def pass_keys(key, ti, si):
+        """The keys of a position's passes: its key, split in two for "ab"."""
         k = rng.fold_in(rng.fold_in(key, ti), si)
+        return list(rng.split(k)) if loss_space == "ab" else [k]
+
+    def position_forward(params, target_pad, trace, ti, dev):
+        """A position's leaves and its loss under autograd."""
         leaves = {f: params[f].detach().to(dev).requires_grad_(f in trainable) for f in fields}
         sc = apply_params(scenes[dev], leaves)
         tile = slice(ti * rows, (ti + 1) * rows)
-        with torch.enable_grad(), _deterministic():
-            with profiling.span("plu.train.forward"):
-                loss = position_loss(sc, px_pad[dev][tile], target_pad[tile].to(dev), k, stratum)
-            wrt = [leaves[f] for f in fields if f in trainable]
-            with profiling.span("plu.train.backward"):
-                got = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
-                                               materialize_grads=True) if wrt else ())
+        with torch.enable_grad(), _deterministic(), profiling.span("plu.train.forward"):
+            return leaves, position_loss(sc, px_pad[dev][tile], target_pad[tile].to(dev), trace)
+
+    def position_backward(leaves, loss, dev):
+        """A position's loss, its filtered, masked and sanitised gradients,
+        and their non-finite count."""
+        wrt = [leaves[f] for f in fields if f in trainable]
+        with torch.enable_grad(), _deterministic(), profiling.span("plu.train.backward"):
+            got = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
+                                           materialize_grads=True) if wrt else ())
         with profiling.span("plu.train.filter"):
             grads = {f: next(got) if f in trainable else torch.zeros_like(leaves[f])
                      for f in fields}
@@ -284,10 +421,7 @@ def make_train_step(
                      for f, g in grads.items()}
         return loss.detach(), grads, nf_count
 
-    def loss_and_grads(params, target, key, stratum):
-        target_pad = _pad_rows(target, d_tiles)
-        partials = {(ti, si): position_grads(params, target_pad, key, stratum, ti, si, dev)
-                    for ti, si, dev in mesh.local()}
+    def reduce(partials):
         with profiling.span("plu.train.reduce"):
             # one float32 vector a position: loss, non-finite count, gradients
             flat = {p: torch.cat([loss.reshape(1), nf.reshape(1),
@@ -295,16 +429,26 @@ def make_train_step(
                     for p, (loss, g, nf) in partials.items()}
             parts = gather(mesh, flat, (2 + n_entries,), home)
 
-            def reduce(xs):
+            def over_mesh(xs):
                 # summed over tiles in ti order, then averaged over spp
                 return over(_sum([_sum(xs[si::d_spp]) for si in range(d_spp)]), d_spp)
 
             cols = torch.stack(parts).split([1, 1, *sizes], dim=1)
-            loss = reduce(list(cols[0][:, 0]))
-            grads = {f: reduce(list(c)).reshape(getattr(scene, f).shape)
+            loss = over_mesh(list(cols[0][:, 0]))
+            grads = {f: over_mesh(list(c)).reshape(getattr(scene, f).shape)
                      for f, c in zip(fields, cols[2:])}
             nf_count = _sum(list(cols[1][:, 0]))
             return loss, grads, over(nf_count, n_entries * d_tiles * d_spp)
+
+    def loss_and_grads(params, target, key, stratum):
+        target_pad = _pad_rows(target, d_tiles)
+        partials = {}
+        for ti, si, dev in mesh.local():
+            keys = pass_keys(key, ti, si)
+            trace = lambda sc, px, j: _trace_stratum(sc, px, keys[j], stratum, n, options)
+            leaves, loss = position_forward(params, target_pad, trace, ti, dev)
+            partials[(ti, si)] = position_backward(leaves, loss, dev)
+        return reduce(partials)
 
     def apply(params, opt_state, grads, nf_frac):
         with profiling.span("plu.train.optimizer"):
@@ -317,11 +461,46 @@ def make_train_step(
             bad = nf_frac > 0.0
             return _keep(bad, params, new_params), _keep(bad, opt_state, new_state)
 
+    # the graph's halves: the positions' forwards reading their key words
+    # from a table on the card (renderer.trace_stratum_table: the same
+    # draws as _trace_stratum), then everything after them
+    def graph_forward(params, target, words):
+        target_pad = _pad_rows(target, d_tiles)
+        out = {}
+        for p, (ti, si, dev) in enumerate(mesh.local()):
+            trace = lambda sc, px, j, w=words[p]: trace_stratum_table(sc, px, w[j], n, options)
+            out[(ti, si)] = (dev, *position_forward(params, target_pad, trace, ti, dev))
+        return out
+
+    def graph_rest(fwd, params, opt_state):
+        loss, grads, nf_frac = reduce({p: position_backward(leaves, loss, dev)
+                                       for p, (dev, leaves, loss) in fwd.items()})
+        return (*apply(params, opt_state, grads, nf_frac), loss, nf_frac)
+
+    def step_words(key, stratum):
+        """The int32 key words of a step, (positions, passes, words a pass),
+        derived on the host."""
+        return np.array([[stratum_words(k, stratum, options.max_bounces)
+                          for k in pass_keys(key, ti, si)] for ti, si, _ in mesh.local()],
+                        dtype=np.int32)
+
+    # one card holds every position, in this process: the step is captured
+    # once and replayed
+    graphed = (home.type == "cuda" and not mesh.distributed
+               and all(dev == home for _, _, dev in mesh.local()))
+    graph = []
+
     def one(params, opt_state, target, key, stratum):
         with profiling.span("plu.train.step", request=True):
-            loss, grads, nf_frac = loss_and_grads(params, target, key, stratum)
-            params, opt_state = apply(params, opt_state, grads, nf_frac)
-            return params, opt_state, loss, nf_frac
+            if not graphed:
+                loss, grads, nf_frac = loss_and_grads(params, target, key, stratum)
+                params, opt_state = apply(params, opt_state, grads, nf_frac)
+                return params, opt_state, loss, nf_frac
+            words = step_words(key, stratum)
+            if not graph:
+                graph.append(_Graphed(home, graph_forward, graph_rest, params, opt_state,
+                                      target, words))
+            return graph[0](params, opt_state, target, words)
 
     def step(params, opt_state, target_flat, key, stratum: int):
         params, opt_state, loss, _ = one(params, opt_state, target_flat, key, int(stratum))
@@ -339,7 +518,7 @@ def make_train_step(
     step.init = optimizer.init
     step.many = many
     step.ab_loss = ab_loss
-    # the two halves of a step, for timing them apart
+    # the two halves of a step, eager, for timing them apart
     step.loss_and_grads = loss_and_grads
     step.apply = apply
     return step

@@ -36,6 +36,12 @@ ints), ``plu.render.draws`` (R1's wrapper), ``plu.render.rays`` (R2's),
 ``plu.render.radiance`` (K1's primary hit and K2 or K3, with the table
 build ``plu.tables.pack``), ``plu.render.accumulate``, then
 ``plu.render.finalize``.
+
+``trace_stratum_table`` traces one stratum as ``_trace_stratum`` does,
+its keys read from a table of words on the device (``stratum_words``)
+rather than derived on the host: R1 and R2 read them there on a card, so
+a captured CUDA graph (the train step's, parallel/sharded) draws anew at
+each replay from the words written before it.
 """
 
 from __future__ import annotations
@@ -118,9 +124,15 @@ def jittered_rays(cam, px0, jit, strata, n: int):
     and the jitter jit[:, j] of a jitter_plain block, at rows j*B..(j+1)*B;
     the strata computed together. Each ray's operations are _camera_rays',
     so the rays equal torch.cat of _camera_rays over the launch."""
-    S, B = len(strata), px0.shape[0]
     cell = torch.tensor([[s % n, s // n] for s in strata], dtype=torch.float32,
-                        device=px0.device)[:, None]
+                        device=px0.device)
+    return _rays_of_cells(cam, px0, jit, cell, n)
+
+
+def _rays_of_cells(cam, px0, jit, cell, n: int):
+    """jittered_rays from the strata's (S, 2) float32 cells (x, y)."""
+    S, B = cell.shape[0], px0.shape[0]
+    cell = cell[:, None]
     px = px0 + over(cell + jit[0] * 0.999, n)
     lens = over(cell + jit[1] * 0.999, n)
     return generate_rays(cam, px.reshape(S * B, 2), lens.reshape(S * B, 2))
@@ -148,6 +160,61 @@ def launch_rays(scene, px0, keys, strata, n: int):
         if dev.type != "cpu":
             raise ValueError(f"launch_rays: no camera rays for device {dev}")
         return camera_rays_plain(scene.camera, px0, keys, strata, n)
+
+
+def stratum_words(key, stratum: int, max_bounces: int):
+    """The int32 bit patterns of the words one stratum keyed `key` draws
+    from, in the layout trace_stratum_table reads: the max_bounces path
+    keys (k1, k2) of R1's block, then the stratum's cell and its jitter
+    keys' words (k_px's, then k_lens's), the row R2 reads
+    (ops/cuda/camera_kernel.STRATUM_WORDS). The keys are launch_draws'
+    for the one stratum, derived on the host."""
+    trip = rng.split_words(rng.key_words(key), 3)
+    path = [w for i in range(max_bounces) for w in rng.fold_in_words(trip[2], i)]
+    words = path + [int(stratum), *trip[0], *trip[1]]
+    return [w - 2**32 if w >= 2**31 else w for w in words]
+
+
+def camera_rays_table_plain(cam, px0, table, n: int):
+    """(o, d), (S*B, 3) each: camera_rays_plain of the strata whose cells
+    and jitter key words are the rows of `table`, (S, STRATUM_WORDS) int32
+    (stratum_words' last five), read as tensors on px0's device: the plain
+    twin of R2's table entry (ops/cuda/camera_kernel.camera_rays_table_cuda)."""
+    w = table.to(torch.int64) & 0xFFFFFFFF
+    jit = rng.uniform_block_plain(torch.cat([w[:, 1:3], w[:, 3:5]]), 2 * px0.shape[0],
+                                  px0.device)
+    c = w[:, 0]
+    cell = torch.stack([c % n, c // n], -1).to(torch.float32)
+    return _rays_of_cells(cam, px0, jit.reshape(2, table.shape[0], px0.shape[0], 2), cell, n)
+
+
+def launch_rays_table(scene, px0, table, n: int):
+    """launch_rays with the strata's cells and jitter keys read from
+    `table` (camera_rays_table_plain's contract): one launch of R2's table
+    entry on a CUDA device, reading the table on the card; the plain twin
+    on the CPU; any other device raises."""
+    dev = px0.device
+    with profiling.span("plu.render.rays"):
+        if dev.type == "cuda":
+            from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_table_cuda
+
+            return camera_rays_table_cuda(scene.camera, px0, table, n)
+        if dev.type != "cpu":
+            raise ValueError(f"launch_rays_table: no camera rays for device {dev}")
+        return camera_rays_table_plain(scene.camera, px0, table, n)
+
+
+def trace_stratum_table(scene, px0, words, n: int, options: RenderOptions):
+    """_trace_stratum with its keys read from `words`, stratum_words'
+    layout as an int32 tensor on px0's device: the same rays, uniforms and
+    radiance, bit for bit, with nothing derived or copied from the host
+    (on a card: one R1 and one R2 launch reading the words where they
+    lie), so a CUDA graph can capture it."""
+    B, mb = px0.shape[0], options.max_bounces
+    with profiling.span("plu.render.draws"):
+        u = rng.uniform_block_words(words[:2 * mb].view(mb, 2), 12 * B)
+    o, d = launch_rays_table(scene, px0, words[2 * mb:].view(1, -1), n)
+    return radiance_of_uniforms(scene, o, d, u.reshape(mb, B, 12), options)
 
 
 def _stratum_rays(scene, px0, key, stratum: int, n: int, options: RenderOptions):

@@ -17,7 +17,10 @@ launch of the R1 kernel (csrc/threefry.cu, ops/cuda/rng_kernel.py); on
 the CPU it is ``uniform_block_plain``, the same hash on int64 tensors
 (torch's uint32 lacks most arithmetic, so every uint32 word is held in an
 int64 tensor and masked back to 32 bits after each add or shift).
-``uniform`` is a block of one key.
+``uniform`` is a block of one key. ``uniform_block_words(words, n)`` is
+the same block from a table of key words that already lies on the
+device ((K, 2) int32 bit patterns): R1 reading it where it lies on a
+card, ``uniform_block_plain`` of the same words on the CPU.
 """
 
 from __future__ import annotations
@@ -157,6 +160,21 @@ def uniform_block(keys, n: int, device="cpu") -> torch.Tensor:
     if dev.type != "cpu":
         raise ValueError(f"uniform_block: no draw for device {dev}")
     return uniform_block_plain(keys, n, dev)
+
+
+def uniform_block_words(words: torch.Tensor, n: int) -> torch.Tensor:
+    """uniform_block of the keys whose uint32 words are the int32 bit
+    patterns of `words`, (K, 2), on words' device: one R1 launch reading
+    the table on a card (ops/cuda/rng_kernel.uniform_block_words: no copy,
+    so a CUDA graph can capture it), uniform_block_plain on the CPU; any
+    other device raises."""
+    if words.device.type == "cuda":
+        from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_words as launch
+
+        return launch(words, n)
+    if words.device.type != "cpu":
+        raise ValueError(f"uniform_block_words: no draw for device {words.device}")
+    return uniform_block_plain(words.to(torch.int64) & _MASK, n, words.device)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], device="cpu") -> torch.Tensor:

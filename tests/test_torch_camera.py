@@ -274,6 +274,57 @@ def test_r2_wrapper_checks(card_env):
     assert [name for name, _, _ in lib.calls] == ["plu_camera_rays"]
 
 
+def table_of(keys, strata):
+    """The (S, 5) int32 table of R2's table entry: each stratum's cell,
+    then its jitter keys' words as int32 bit patterns."""
+    rows = torch.tensor([[c, *k_px, *k_lens] for c, (k_px, k_lens) in zip(strata, keys)],
+                        dtype=torch.int64)
+    return torch.where(rows >= 2**31, rows - 2**32, rows).to(torch.int32)
+
+
+@pytest.mark.parametrize("name", ["demo-box", "dof"])
+@pytest.mark.parametrize("S,order", [(1, "in order"), (4, "shuffled"), (16, "shuffled")])
+@pytest.mark.parametrize("seed", [3, 2**31 + 5])
+def test_table_plain_equals_camera_rays_plain(name, S, order, seed):
+    """R2's table path in plain PyTorch (camera_rays_table_plain: the cells
+    and key words read from a tensor, as the kernel reads them on the
+    card) equals camera_rays_plain of the same keys and cells, bit for
+    bit; launch_rays_table on the CPU is that plain twin."""
+    s, n = scene(name), 5
+    strata = list(range(S)) if order == "in order" else random.Random(S).sample(range(n * n), S)
+    px0, keys = renderer.pixel_centers(W, H), launch(S, seed)
+    table = table_of(keys, strata)
+    o, d = renderer.camera_rays_table_plain(s.camera, px0, table, n)
+    po, pd = renderer.camera_rays_plain(s.camera, px0, keys, strata, n)
+    assert bits_equal(o, po) and bits_equal(d, pd)
+    lo, ld = renderer.launch_rays_table(s, px0, table, n)
+    assert bits_equal(lo, po) and bits_equal(ld, pd)
+
+
+def test_r2_table_wrapper_checks(card_env):
+    """R2's table entry refuses CPU tensors, a table of another shape or
+    dtype, or on another card, and a launch of more than 16 strata, before
+    any launch; a sound call is one launch of plu_camera_rays_table with
+    the table's pointer."""
+    _, lib = card_env
+    s = scene("dof")
+    px0, table = renderer.pixel_centers(W, H), table_of(launch(2), [0, 3])
+    run = camera_kernel.camera_rays_table_cuda
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        run(s.camera, px0, table, 2)
+    cs, cpx, ct = s.to(CARD), px0.to(CARD), table.to(CARD)
+    with pytest.raises(ValueError, match=r"must be \(S, 5\)"):
+        run(cs.camera, cpx, ct[:, :4].contiguous(), 2)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        run(cs.camera, cpx, ct.to(torch.int64), 2)
+    with pytest.raises(ValueError, match="1 to 16 strata"):
+        run(cs.camera, cpx, ct.repeat(9, 1), 5)
+    assert lib.calls == []
+    o, d = run(cs.camera, cpx, ct, 2)
+    assert [name for name, _, _ in lib.calls] == ["plu_camera_rays_table"]
+    assert o.shape == d.shape == (2 * W * H, 3)
+
+
 def test_camera_table_built_once_a_camera():
     """The camera table: the layout csrc/camera.cu reads, built once a
     camera and again when a camera tensor changes."""

@@ -44,6 +44,7 @@ radiance within 1e-6 of its largest entry.
 
 import dataclasses
 import pathlib
+import time
 
 import numpy as np
 import pytest
@@ -1209,8 +1210,8 @@ def test_profile_trace_holds_k2_launches(dev, tmp_path):
 # (csrc/*.cu), and the launches.* counter that counts it
 LIBRARY_KERNELS = {"closest_hit_ring": "k1", "closest_hit_bvh_kernel": "k1_bvh",
                    "megakernel": "k2", "megakernel_stream": "k3", "megakernel_onebounce": "k4",
-                   "threefry_uniform": "r1", "camera_rays": "r2", "row_grad": "g1",
-                   "row_grad_sorted": "g1"}
+                   "threefry_uniform": "r1", "camera_rays": "r2", "camera_rays_table": "r2",
+                   "row_grad": "g1", "row_grad_sorted": "g1"}
 
 
 def library_kernel(name):
@@ -1223,6 +1224,13 @@ def library_kernel(name):
     return keys[0] if keys else None
 
 
+# idle host time at each edge of a profile's active window: kineto drops
+# the device records whose timestamps fall outside the window, and a
+# trace's device timestamps have come out up to 116 ms before the host
+# clock (tools/experiments/graph_records.py)
+PROFILE_MARGIN_S = 0.5
+
+
 @pytest.mark.parametrize("name,tier", [("demo-box", "k2"), ("mesh1", "k3")])
 def test_profiled_render_counts_every_library_kernel(dev, name, tier):
     """A 256x256 25-spp render under torch.profiler on the card (7 launches
@@ -1232,7 +1240,7 @@ def test_profiled_render_counts_every_library_kernel(dev, name, tier):
     device records, each within 1 ms of the span the registry recorded, and
     on their clock: each path kernel's and R1's record starts after the
     start of the plu.render.radiance / plu.render.draws span that launched
-    it."""
+    it. PROFILE_MARGIN_S of idle host time at the window's edges."""
     from torch.profiler import ProfilerActivity, profile
 
     s = compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"),
@@ -1242,8 +1250,10 @@ def test_profiled_render_counts_every_library_kernel(dev, name, tier):
     torch.cuda.synchronize()
     profiling.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         render(s, 256, 256, 5, rng.PRNGKey(2))
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     rec = profiling.recorded()
     kernels, spans = {}, {}
     for e in prof.profiler.kineto_results.events():
@@ -1424,3 +1434,337 @@ def test_g1_train_steps_equal_across_processes(dev, tmp_path):
         assert torch.equal(run["loss"], runs[0]["loss"])
         for k, v in runs[0]["params"].items():
             assert torch.equal(run["params"][k], v), k
+
+
+# R1 and R2 reading their keys from tables on the card: the entries a
+# captured graph launches, bit-equal to the entries that take the keys
+# from the host
+
+
+def table_rows(keys, strata):
+    """The (S, 5) int32 R2 table of a launch's cells and jitter keys."""
+    rows = [[c, *k_px, *k_lens] for c, (k_px, k_lens) in zip(strata, keys)]
+    return torch.tensor(rows, dtype=torch.int64).to(torch.int32)
+
+
+@pytest.mark.parametrize("name", ["demo-box", "dof"])
+@pytest.mark.parametrize("S", [1, 4, 16])
+@pytest.mark.parametrize("B", [64 * 48, 1, 127])
+def test_r1_r2_table_entries_equal_by_value(dev, name, S, B):
+    """R2's table entry (cells and key words read on the card) gives the
+    by-value entry's o and d and its plain twin's, bit for bit, in one
+    launch (pinhole and thin lens, shuffled cells, ragged B); R1 on a
+    word table already on the card gives uniform_block_cuda's block."""
+    import random
+
+    from plutracer_tpu_torch.ops.cuda.camera_kernel import (
+        camera_rays_cuda, camera_rays_table_cuda,
+    )
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda, uniform_block_words
+    from plutracer_tpu_torch.render.renderer import camera_rays_table_plain
+
+    n = 5
+    strata = random.Random(S + B).sample(range(n * n), S)
+    s, px0, keys = r2_launch(name, 64, 48, S, B, dev)
+    table = table_rows(keys, strata).to(dev)
+    before = launches("r2")
+    o, d = camera_rays_table_cuda(s.camera, px0, table, n)
+    assert launches("r2") == before + 1
+    for po, pd in (camera_rays_cuda(s.camera, px0, keys, strata, n),
+                   camera_rays_table_plain(s.camera, px0, table, n)):
+        assert torch.equal(int_bits(o), int_bits(po)) and torch.equal(int_bits(d), int_bits(pd))
+    words = rng.key_table([k for pair in keys for k in pair])
+    signed = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32).to(dev)
+    got = uniform_block_words(signed, 12 * B)
+    assert torch.equal(int_bits(got), int_bits(uniform_block_cuda(words, 12 * B, dev)))
+
+
+# the train step on one card: captured as two CUDA graphs at its first
+# call and replayed (parallel/sharded._Graphed), every step bit-equal to
+# the eager step (step.loss_and_grads, then step.apply)
+
+
+def bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def assert_same(a, b):
+    """Two trees of tensors (dicts, NamedTuples) equal bit for bit."""
+    from plutracer_tpu_torch.parallel.sharded import _map
+
+    pairs = []
+    _map(lambda x, y: pairs.append((x, y)), a, b)
+    assert pairs and all(x.shape == y.shape and torch.equal(bits(x), bits(y)) for x, y in pairs)
+
+
+def copied(tree):
+    from plutracer_tpu_torch.parallel.sharded import _map
+
+    return _map(torch.clone, tree)
+
+
+def eager_steps(step, params, state, target, key0, start, k, n):
+    """k steps through the step's eager halves, keyed and placed as
+    step.many does: (params, state, losses, nonfinite fractions)."""
+    losses, nfs = [], []
+    for i in range(start, start + k):
+        loss, grads, nf = step.loss_and_grads(params, target, rng.fold_in(key0, i), i % (n * n))
+        params, state = step.apply(params, state, grads, nf)
+        losses.append(loss)
+        nfs.append(nf)
+    return params, state, torch.stack(losses), torch.stack(nfs)
+
+
+def train_scene(name, w, h, dev):
+    s = compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"), ["/res", f"{w}x{h}"]),
+                      device=dev)
+    return s, render(s, w, h, 4, rng.PRNGKey(11)).reshape(-1, 3)
+
+
+def flagship_case(dev):
+    """The train cell's settings (log loss, n = 2, per-field Adams, the
+    emission's rate decaying to a tenth over 600 steps, diffuse albedo
+    from 0.25 and a quarter of the emission, the other materials frozen)
+    on demo-box at 128^2, 9 steps."""
+    from plutracer_tpu_torch.diff.optim import Adam, MultiTransform, exponential_decay
+    from plutracer_tpu_torch.parallel.sharded import get_params
+    from plutracer_tpu_torch.scene.types import MAT_DIFFUSE
+
+    s, target = train_scene("demo-box", 128, 128, dev)
+    diffuse = s.mat_type == MAT_DIFFUSE
+    params = dict(get_params(s))
+    params["mat_color"] = torch.where(diffuse[:, None], 0.25, params["mat_color"])
+    params["light_intensity"] = params["light_intensity"] * 0.25
+    opt = MultiTransform({"albedo": Adam(3e-2), "emission": Adam(exponential_decay(1.0, 600, 0.1))},
+                         {"mat_color": "albedo", "light_intensity": "emission",
+                          "tex_c0": "albedo", "tex_c1": "albedo"})
+    kw = dict(optimizer=opt, loss_space="log", trainable=("mat_color", "light_intensity"),
+              grad_mask={"mat_color": diffuse.to(torch.float32)[:, None]})
+    return s, (128, 128, 2), target, params, kw, 9
+
+
+def half_albedo(s):
+    from plutracer_tpu_torch.parallel.sharded import get_params
+
+    params = dict(get_params(s))
+    params["mat_color"] = params["mat_color"] * 0.5
+    return params
+
+
+def ab_pooled_case(dev):
+    """demo-box, the ab loss pooled over 2 x 2 blocks, Adam(1e-2),
+    parameters projected to non-negative values."""
+    s, target = train_scene("demo-box", 64, 48, dev)
+    return (s, (64, 48, 2), target, half_albedo(s),
+            dict(loss_space="ab", loss_downsample=2, project_nonnegative=True), 4)
+
+
+def grad_mask_case(dev):
+    """dof, the linear loss, every other material row masked out."""
+    s, target = train_scene("dof", 64, 48, dev)
+    mask = (torch.arange(s.mat_type.shape[0], device=dev) % 2).to(torch.float32)[:, None]
+    return (s, (64, 48, 2), target, half_albedo(s),
+            dict(loss_space="linear", grad_mask={"mat_color": mask}), 3)
+
+
+def phase2_case(dev):
+    """The flagship's phase 2 variant: ab, clamped at 20, pooled over 4 x 4
+    blocks, every bounce recomputed in the backward (remat_bounces)."""
+    s, target = train_scene("demo-box", 64, 48, dev)
+    return (s, (64, 48, 2), target, half_albedo(s),
+            dict(loss_space="ab", loss_clamp=20.0, loss_downsample=4, trainable=("mat_color",),
+                 options=DEFAULT_OPTIONS.replace(remat_bounces=True)), 3)
+
+
+def mesh_case(dev):
+    """A (2, 2) mesh of one card's positions: four positions in one graph."""
+    from plutracer_tpu_torch.parallel import make_mesh
+
+    s, target = train_scene("demo-box", 32, 24, dev)
+    return (s, (32, 24, 2), target, half_albedo(s),
+            dict(mesh=make_mesh((2, 2), devices=[dev] * 4), loss_space="log"), 3)
+
+
+def wide_table_case(dev):
+    """demo-box with its material table padded to 200 rows (2,400 floats,
+    past a warp's slice): the albedo gathers' backward is G1's sorted
+    path, the rays sorted by row with torch.sort."""
+    from plutracer_tpu_torch.ops.cuda.row_grad_kernel import plan
+    from plutracer_tpu_torch.ops.tables import TABLE_W
+
+    s, target = train_scene("demo-box", 64, 48, dev)
+    M = s.mat_type.shape[0]
+    pad = lambda x: torch.cat([x, x[:1].expand(200 - M, *x.shape[1:])])
+    s = dataclasses.replace(s, **{f: pad(getattr(s, f)) for f in
+                                  ("mat_type", "mat_color", "mat_tex", "mat_eta", "mat_k")})
+    assert plan(64 * 48, 200, TABLE_W.mat).sorted
+    return (s, (64, 48, 2), target, half_albedo(s),
+            dict(loss_space="log", trainable=("mat_color",)), 3)
+
+
+GRAPH_CASES = {"flagship log 128^2": flagship_case, "ab pooled": ab_pooled_case,
+               "grad_mask": grad_mask_case, "phase 2 (remat)": phase2_case,
+               "(2, 2) mesh on one card": mesh_case, "G1 sorted table": wide_table_case}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graphed_steps_equal_eager_steps(dev, case):
+    """step.many on one card (one step, then the rest): captured once,
+    replayed every step (train.graph_captures 1, train.graph_replays the
+    steps), each step's loss, non-finite fraction, parameters and
+    optimiser state bit-equal to the eager step's from the same state; the
+    tensors a call returned survive the later replays."""
+    from plutracer_tpu_torch.parallel.sharded import make_train_step
+
+    s, (w, h, n), target, params, kw, k = GRAPH_CASES[case](dev)
+    step = make_train_step(s, w, h, n, **kw)
+    key0 = rng.PRNGKey(21)
+    st0 = step.init(params)
+    profiling.reset()
+    p1, st1, l1, nf1 = step.many(params, st0, target, key0, 0, 1)
+    held = copied((p1, st1))
+    p, st, losses, nfs = step.many(p1, st1, target, key0, 1, k - 1)
+    assert profiling.counter("train.graph_captures") == 1
+    assert profiling.counter("train.graph_replays") == k
+    assert_same((p1, st1), held)
+    ep, est, el, enf = eager_steps(step, params, st0, target, key0, 0, k, n)
+    assert_same(torch.cat([l1, losses]), el)
+    assert_same(torch.cat([nf1, nfs]), enf)
+    assert_same(p, ep)
+    assert_same(st, est)
+    assert torch.isfinite(el).all() and not enf.any()
+    assert not torch.equal(p["mat_color"], params["mat_color"])
+
+
+def test_graphed_step_rejects_nonfinite_gradients(dev):
+    """A replayed step whose gradients are not finite (a NaN target pixel)
+    is rejected whole, parameters and Adam's count unchanged, bit-equal to
+    the eager step; the next step, against the sound target, trains as the
+    eager one does."""
+    from plutracer_tpu_torch.parallel.sharded import make_train_step
+
+    s, target = train_scene("demo-box", 64, 48, dev)
+    params = half_albedo(s)
+    bad = target.clone()
+    bad[100, 1] = float("nan")
+    step = make_train_step(s, 64, 48, 2, loss_space="log",
+                           trainable=("mat_color", "light_intensity"))
+    st0 = step.init(params)
+    key0 = rng.PRNGKey(4)
+    p1, st1, loss1, nf1 = step.many(params, st0, bad, key0, 1, 1)
+    assert_same(p1, params)
+    assert int(st1.count) == 0 and nf1[0] > 0 and torch.isnan(loss1[0])
+    e1, est1, eloss1, enf1 = eager_steps(step, params, st0, bad, key0, 1, 1, 2)
+    assert_same((p1, st1, loss1, nf1), (e1, est1, eloss1, enf1))
+    p2, st2, loss2, nf2 = step.many(p1, st1, target, key0, 2, 1)
+    e2, est2, eloss2, enf2 = eager_steps(step, e1, est1, target, key0, 2, 1, 2)
+    assert int(st2.count) == 1 and torch.isfinite(loss2).all() and not nf2.any()
+    assert_same((p2, st2, loss2, nf2), (e2, est2, eloss2, enf2))
+
+
+def test_failed_capture_raises_naming_the_line(dev):
+    """A step whose optimiser copies a value to the host cannot be captured:
+    every call raises, naming the line of that copy (no eager step runs in
+    its place), and nothing is counted as captured or replayed."""
+    from plutracer_tpu_torch.diff.optim import Adam
+    from plutracer_tpu_torch.parallel.sharded import make_train_step
+
+    class Syncing(Adam):
+        def update(self, grads, state):
+            if float(state.count) < 0:  # a copy to the host
+                raise AssertionError("a negative count")
+            return super().update(grads, state)
+
+    s, target = train_scene("demo-box", 32, 24, dev)
+    params = half_albedo(s)
+    step = make_train_step(s, 32, 24, 2, optimizer=Syncing(1e-2), loss_space="log")
+    profiling.reset()
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=r"could not be captured as a CUDA graph: "
+                           r".*test_torch_cuda\.py:\d+ \(if float\(state\.count\) < 0:"):
+            step(params, step.init(params), target, rng.PRNGKey(1), 0)
+    assert profiling.counter("train.graph_captures") == 0
+    assert profiling.counter("train.graph_replays") == 0
+
+
+@pytest.mark.parametrize("loss_space", ["log", "ab"])
+def test_graphed_step_equals_plain_camera_and_draws(dev, loss_space, monkeypatch):
+    """The captured step's R1 and R2 launches (their table entries, reading
+    the step's key words on the card) against their plain twins captured
+    in their place: three replayed steps bit-equal with the plain camera
+    rays (no R2 launch) and with plain-drawn uniforms (no R1 launch)."""
+    from plutracer_tpu_torch.parallel.sharded import make_train_step
+    from plutracer_tpu_torch.render import renderer
+
+    s, target = train_scene("demo-box", 64, 48, dev)
+    params = half_albedo(s)
+    passes = 2 if loss_space == "ab" else 1
+
+    def run():
+        step = make_train_step(s, 64, 48, 2, loss_space=loss_space,
+                               trainable=("mat_color", "light_intensity"))
+        return step.many(params, step.init(params), target, rng.PRNGKey(8), 0, 3)
+
+    profiling.reset()
+    got = run()
+    # the warm-up's and the capture's launches; the replays call no C entry
+    assert launches("r1") == launches("r2") == 2 * passes
+    assert profiling.counter("train.graph_replays") == 3
+    twins = {"the plain camera rays": (renderer, "launch_rays_table", "r2", lambda sc, px0, table,
+                                       n: renderer.camera_rays_table_plain(sc.camera, px0, table,
+                                                                           n)),
+             "plain-drawn uniforms": (rng, "uniform_block_words", "r1", lambda words, n: (
+                 rng.uniform_block_plain(words.to(torch.int64) & 0xFFFFFFFF, n, words.device)))}
+    for what, (module, name, kernel, twin) in twins.items():
+        profiling.reset()
+        with monkeypatch.context() as m:
+            m.setattr(module, name, twin)
+            want = run()
+        assert launches(kernel) == 0, what
+        assert profiling.counter("train.graph_replays") == 3, what
+        assert_same(got, want)
+
+
+def test_profiled_graphed_steps(dev):
+    """Two replayed steps under torch.profiler, after one warm-up step of
+    the profiler's schedule: no C entry is called (every launches.*
+    counter reads 0), train.graph_replays reads 2, one plu.train.forward
+    and one plu.train.backward span a step, and the trace holds the
+    replays' graph kernels under their names, twice the library kernels
+    an eager step launches, kind by kind (PROFILE_MARGIN_S of idle host
+    time at the window's edges)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    step, params, target = g1_step(dev)
+    key = rng.PRNGKey(6)
+    profiling.reset()
+    step.loss_and_grads(params, target, key, 1)
+    eager = {k[len("launches."):]: v for k, v in profiling.recorded()["counters"].items()
+             if k.startswith("launches.")}
+    st = step.init(params)
+    p, st, _ = step(params, st, target, key, 0)  # captured
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=2, repeat=1)) as prof:
+        for i in (1, 2, 3):
+            p, st, _ = step(p, st, target, rng.fold_in(key, i), i)
+            torch.cuda.synchronize()
+            if i == 3:
+                time.sleep(PROFILE_MARGIN_S)
+            prof.step()
+            if i == 1:
+                time.sleep(PROFILE_MARGIN_S)
+                profiling.reset()  # the warm-up step is not counted
+    rec = profiling.recorded()
+    assert not any(k.startswith("launches.") for k in rec["counters"]), rec["counters"]
+    assert rec["counters"]["train.graph_replays"] == 2
+    assert rec["spans"]["plu.train.forward"]["count"] == 2
+    assert rec["spans"]["plu.train.backward"]["count"] == 2
+    kernels = collections.Counter(library_kernel(e.name())
+                                  for e in prof.profiler.kineto_results.events()
+                                  if "CUDA" in str(e.device_type()))
+    del kernels[None]
+    assert set(eager) == {"k1", "r1", "r2", "g1"}, eager
+    assert kernels == {k: 2 * v for k, v in eager.items()}, (kernels, eager)

@@ -179,6 +179,17 @@ def r2(name):
                                           2)
 
 
+def r1_words(_name):
+    words = torch.tensor([[0, -1], [7, 2**31 - 1]], dtype=torch.int32).to(CARD)
+    return rng_kernel.uniform_block_words(words, 24)
+
+
+def r2_table(name):
+    s, _, _, _ = _scene(name)
+    table = torch.tensor([[2, 1, 2, 3, 4], [0, -5, 6, -7, 8]], dtype=torch.int32).to(CARD)
+    return camera_kernel.camera_rays_table_cuda(s.camera, pixel_centers(8, 8).to(CARD), table, 2)
+
+
 def g1(_name):
     idx = torch.arange(5000).remainder(7).to(CARD)  # two chunks: partials and arrivals
     return row_grad_kernel.row_grad_cuda(idx, torch.zeros(5000, 12).to(CARD), (7, 12))
@@ -204,6 +215,8 @@ WRAPPERS = {
     "K4": (k4, "sphere-grid", ["plu_megakernel_onebounce"]),
     "R1": (r1, None, ["plu_threefry_uniform"]),
     "R2": (r2, "dof", ["plu_camera_rays"]),
+    "R1 words": (r1_words, None, ["plu_threefry_uniform"]),
+    "R2 table": (r2_table, "dof", ["plu_camera_rays_table"]),
     "G1": (g1, None, ["plu_row_grad"]),
     "G1 sorted": (g1_sorted, None, ["plu_row_grad_sorted"]),
 }
@@ -291,5 +304,6 @@ def test_every_c_call_inside_the_launch_helper():
                 c_calls += 1
                 assert _inside_on_device(node, parents), (
                     f"{path.name}:{node.lineno}: {node.attr} called outside build.on_device")
-    # K1's plan and launch, the K3 query, K2, K3, K4, R1, R2, G1 and its sorted kernel
-    assert c_calls == len(build._SIGNATURES) == 10
+    # K1's plan and launch, the K3 query, K2, K3, K4, R1, R2 and its table entry, G1 and
+    # its sorted kernel
+    assert c_calls == len(build._SIGNATURES) == 11
