@@ -126,18 +126,18 @@ both main paths of the port on the card:
      draw_uniforms(key)'s uniforms; (e) render.elastic.pass_stack on a
      (1, 1) mesh of the card: its rows bit-equal to render_passes and,
      summed in stratum order, to render_elastic's image.
-21.  R1, the threefry draw kernel: bit-equal to its plain version
-     (rng.uniform_block_plain, int64 tensor ops on the card) at a
+21.  R1, the threefry draw kernel (uniform_block_words: the key words
+     on the card, sent by rng.device_words): bit-equal to its plain
+     version (rng.uniform_block_plain, int64 tensor ops on the card) at a
      demo-box 512x512 stratum's path uniforms (8, 262,144, 12), a 4-strata
      mesh1 launch's (8, 4 x 65,536, 12), both launches' jitter blocks,
      ragged B (1, 127, 1,000,003) and blocks past 2^24 words, one launch
-     a call, and there its table entry (uniform_block_words: the key
-     words already on the card) too; kernel-only (torch.profiler) and
-     wrapper times beside the plain version's and the bound; demo-box
-     512x512 and mesh1 256x256 renders, a demo-box 256x256 train step
-     (loss and gradients; and captured, three replays) and a 1x1-mesh
-     render_sharded through R1 bit-equal to the same with plain-drawn
-     uniforms (the draws before R1), R1 launches counted.
+     a call; kernel-only (torch.profiler) and wrapper times beside the
+     plain version's and the bound; demo-box 512x512 and mesh1 256x256
+     renders, a demo-box 256x256 train step (loss and gradients; and
+     captured, three replays) and a 1x1-mesh render_sharded through R1
+     bit-equal to the same with plain-drawn uniforms (the draws before
+     R1), R1 launches counted.
 22.  launch devices: (a) over demo-box and mesh1 renders at 64x64, n = 2
      (K1 + K2, K3, and K4 under stream_wavefront; R1 and R2), a K3 query, K2's and
      K3's K5 launches and an R1 block, the launch helper
@@ -150,27 +150,21 @@ both main paths of the port on the card:
      mesh0 with cuda:1's tensors, each bit-equal to the same on cuda:0
      (with one card it prints that (b) was not run, and why).
 23.  R2, the camera-stage kernel (the pixel and lens jitter drawn inside
-     from keys passed by value, then the rays): bit-equal to its plain
-     version (renderer.camera_rays_plain: the jitter by
+     from each stratum's cell and key words, read from rows on the card,
+     then the rays): bit-equal to its plain twin
+     (renderer.camera_rays_table_plain: the jitter by
      rng.uniform_block_plain, then eager torch ops, on the card) on every
      lane of a demo-box 512x512 stratum, a dof 640x480 stratum (the thin
      lens), a 4-strata and a 16-strata mesh1 256x256 launch (cells out of
-     order) and ragged B (1, 127, B - 77); kernel-only (torch.profiler)
-     and wrapper times beside the plain version's and the bound; R2's
-     table entry (camera_rays_table_cuda: cells and key words read from
-     a table on the card, the captured train step's) bit-equal to its
-     plain twin and to the by-value entry at each of those launches and
-     at the Cornell train cell's 512x512 stratum, timed beside the
-     by-value entry; the renders of demo-box, dof and mesh1, a demo-box
-     train step (log and ab: eager, and captured for one step and a
-     many of three), render_sharded on a 1x1 mesh and render_elastic
-     through R2 bit-equal to the same with the plain camera rays (the
-     captured step's plain twin captured as R2 is), each with one R2
+     order), the Cornell train cell's 512x512 stratum and ragged B (1,
+     127, B - 77); kernel-only (torch.profiler) and wrapper times beside
+     the plain twin's and the bound; the renders of demo-box, dof and
+     mesh1, a demo-box train step (log and ab: eager, and captured for one
+     step and a many of three), render_sharded on a 1x1 mesh and
+     render_elastic through R2 bit-equal to the same with the plain camera
+     rays (the captured step's twin captured as R2 is), each with one R2
      launch a pass-loop launch (as many as its R1 launches) and no eager
-     camera op. With an earlier checkout unpacked in _checkout/parent,
-     the camera stage (launch_draws + launch_rays at R2's cases) and the
-     CLI renders of phases 5 and 10 timed in both trees, each in its own
-     process, in turns (parent, this tree, this tree, parent).
+     camera op.
 24.  G1, the table-row gather's backward (csrc/row_grad.cu): bit-equal to
      its plain twin (row_grad_kernel.row_grad_plain, int32 views) at
      every width (1, 8, 12, 32) over 1 to 20,000 rows and 0 to 262,144
@@ -300,14 +294,13 @@ R2_RAY_OPS = (46, 46 + 20 + 24)  # pinhole, lens
 # registers); each pixel position (8 bytes) and the camera table (68
 # bytes) are read once a launch
 R2_RAY_BYTES = 24
-# phase 23: the launches held against the plain version, (scene,
-# resolution, strata, n): the main paths' (demo-box and dof one stratum a
-# launch, mesh1 4), and the most strata a launch takes
+# phase 23: the launches held against the plain twin, (scene, resolution,
+# strata, n): the main paths' (demo-box and dof one stratum a launch, mesh1
+# 4), the most strata a launch takes, and the train cell's launch (one
+# stratum of the Cornell box at 512x512, n = 2)
 R2_CASES = (("demo-box", (512, 512), 1, 8), ("dof", (640, 480), 1, 8),
-            ("mesh1", (256, 256), 4, 4), ("mesh1", (256, 256), 16, 4))
-# and R2's table entry (the captured train step's) also at the train cell's
-# launch: one stratum of the Cornell box at 512x512, n = 2
-R2_TABLE_CASES = R2_CASES + (("cornell-box", (512, 512), 1, 2),)
+            ("mesh1", (256, 256), 4, 4), ("mesh1", (256, 256), 16, 4),
+            ("cornell-box", (512, 512), 1, 2))
 R2_RENDERS = (("demo-box", 512, 512, 2), ("dof", 640, 480, 2), ("mesh1", 256, 256, 4))
 RAGGED = 77  # rays short of a whole block tile in phase 3's ragged batches
 PLAIN_CHUNK = 4096  # rays per closest_hit_plain call: it builds a (B, P) matrix
@@ -635,7 +628,8 @@ def main() -> int:
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
     from plutracer_tpu_torch.render.integrator import draw_uniforms, ray_color_plain
     from plutracer_tpu_torch.render.renderer import (
-        camera_rays_plain, launch_draws, launch_rays, pixel_centers, render,
+        camera_rays_table_plain, launch_inputs, launch_rays_table, launch_words, pixel_centers,
+        render,
     )
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
@@ -748,16 +742,18 @@ def main() -> int:
     # one pass of that render by stage (CUDA events), to see where the time goes
     words = rng.key_words(key)
     path_keys = [rng.fold_in_words(rng.key_words(k_path), i) for i in range(8)]
-    px0, keys1 = pixel_centers(W, H, dev), launch_draws([words], B, 0, dev)[0]
+    px0 = pixel_centers(W, H, dev)
+    rows1 = torch.from_numpy(launch_words([words], [0], 0)).view(1, -1).to(dev)
     stages = {
         "threefry uniforms (8, B, 12), R1": lambda: draw_uniforms(k_path, B, 8, dev),
         "threefry uniforms (8, B, 12), plain (eager int64, the draw before R1)": lambda: (
             rng.uniform_block_plain(path_keys, 12 * B, dev)),
-        "launch_draws (host keys + the R1 launch)": lambda: launch_draws([words], B, 8, dev),
-        "camera stage, R2 (launch_rays: jitter and rays, one launch)": lambda: launch_rays(
-            scene, px0, keys1, [0], 8),
-        "camera stage, plain (camera_rays_plain: the plain jitter draw, then the eager ops)": (
-            lambda: camera_rays_plain(scene.camera, px0, keys1, [0], 8)),
+        "launch_inputs (host words, their copy, the R1 and R2 launches)": lambda: launch_inputs(
+            scene, px0, launch_words([words], [0], 8), 1, 8, DEFAULT_OPTIONS),
+        "camera stage, R2 (launch_rays_table: jitter and rays, one launch)": lambda: (
+            launch_rays_table(scene, px0, rows1, 8)),
+        "camera stage, plain (camera_rays_table_plain: the plain jitter draw, then the eager "
+        "ops)": lambda: camera_rays_table_plain(scene.camera, px0, rows1, 8),
         "K1 primary hit + K2": lambda: ray_color_cuda(scene, o, d, u, DEFAULT_OPTIONS),
     }
     for what, fn in stages.items():
@@ -835,7 +831,7 @@ def main() -> int:
         big[1],
         k5,
         r1,
-        *r2,
+        r2,
         g1,
     ]
     print(json.dumps({"kernels": kernels}))
@@ -990,7 +986,8 @@ def big_scene_phases(phase, dev, card):
     from plutracer_tpu_torch.ops.sampling import uniform_sphere_sample
     from plutracer_tpu_torch.render.integrator import draw_uniforms, kernel_tier, ray_color_plain
     from plutracer_tpu_torch.render.renderer import (
-        camera_rays_plain, launch_draws, launch_rays, pixel_centers, render, strata_per_launch,
+        camera_rays_table_plain, launch_inputs, launch_rays_table, launch_words, pixel_centers,
+        render, strata_per_launch,
     )
     from plutracer_tpu_torch.render.wavefront import SORTS, ray_color_wavefront
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
@@ -1160,19 +1157,20 @@ def big_scene_phases(phase, dev, card):
     B1 = o.shape[0]
     launch_keys = [rng.fold_in_words(rng.key_words(rng.PRNGKey(7)), s) for s in range(per)]
     path_keys = [rng.fold_in_words(rng.key_words(k_path), i) for i in range(mb)]
-    px0, keys4 = pixel_centers(256, 256, dev), launch_draws(launch_keys, B1, 0, dev)[0]
+    px0 = pixel_centers(256, 256, dev)
+    rows4 = torch.from_numpy(launch_words(launch_keys, range(per), 0)).view(per, -1).to(dev)
     stages = {
         f"threefry uniforms (8, B, 12), one stratum, R1": lambda: draw_uniforms(
             k_path, B1, mb, dev),
         f"threefry uniforms (8, B, 12), one stratum, plain (the draw before R1)": lambda: (
             rng.uniform_block_plain(path_keys, 12 * B1, dev)),
-        f"launch_draws, {per} strata (host keys + the R1 launch)": lambda: launch_draws(
-            launch_keys, B1, mb, dev),
-        f"camera stage, {per} strata, R2 (launch_rays: jitter and rays, one launch)": lambda: (
-            launch_rays(mesh1, px0, keys4, list(range(per)), 4)),
-        f"camera stage, {per} strata, plain (camera_rays_plain: the plain jitter draw, then "
-        "the eager ops)": lambda: camera_rays_plain(mesh1.camera, px0, keys4, list(range(per)),
-                                                    4),
+        f"launch_inputs, {per} strata (host words, their copy, the R1 and R2 launches)": (
+            lambda: launch_inputs(mesh1, px0, launch_words(launch_keys, range(per), mb), per, 4,
+                                  DEFAULT_OPTIONS)),
+        f"camera stage, {per} strata, R2 (launch_rays_table: jitter and rays, one launch)": (
+            lambda: launch_rays_table(mesh1, px0, rows4, 4)),
+        f"camera stage, {per} strata, plain (camera_rays_table_plain: the plain jitter draw, "
+        "then the eager ops)": lambda: camera_rays_table_plain(mesh1.camera, px0, rows4, 4),
         f"K3 (primary hit in the kernel), {per} strata": lambda: ray_color_stream_cuda(
             mesh1, bo, bd, bu, DEFAULT_OPTIONS),
     }
@@ -2456,9 +2454,9 @@ def api_phase(phase, dev, card):
 def loss_and_grads_ms(sharded, fn):
     """(ms, forward-trace ms) of one call of fn, a train step's
     loss_and_grads: CUDA events around the call and around each call of
-    the step's _trace_stratum inside it."""
+    the step's trace_launch inside it."""
     events = []
-    trace = sharded._trace_stratum
+    trace = sharded.trace_launch
 
     def timed(*args):
         start = torch.cuda.Event(enable_timing=True)
@@ -2469,37 +2467,38 @@ def loss_and_grads_ms(sharded, fn):
         events.append((start, end))
         return out
 
-    sharded._trace_stratum = timed
+    sharded.trace_launch = timed
     try:
         total = time_ms(fn, 1, 0)
     finally:
-        sharded._trace_stratum = trace
+        sharded.trace_launch = trace
     return total, sum(s.elapsed_time(e) for s, e in events)
 
 
 @contextlib.contextmanager
 def plain_draws():
-    """rng.uniform_block drawing with its plain version on every device:
-    the pass loop's, the train step's and render_sharded's draws as they
-    were before R1 (eager int64 tensor ops), for bit-equality checks."""
+    """rng.uniform_block_words drawing with its plain twin on every device:
+    the pass loop's, the train step's (eager and captured: only device
+    ops, so the plain draw is captured as R1 is) and render_sharded's
+    draws as they were before R1 (eager int64 tensor ops), for
+    bit-equality checks."""
     from plutracer_tpu_torch import rng
 
-    real = rng.uniform_block, rng.uniform_block_words
-    rng.uniform_block = lambda keys, n, device="cpu": rng.uniform_block_plain(keys, n, device)
-    # the captured train step's draws from its key words on the card (only
-    # device ops, so the plain draw is captured as R1 is)
+    real = rng.uniform_block_words
     rng.uniform_block_words = lambda words, n: rng.uniform_block_plain(
         words.to(torch.int64) & 0xFFFFFFFF, n, words.device)
     try:
         yield
     finally:
-        rng.uniform_block, rng.uniform_block_words = real
+        rng.uniform_block_words = real
 
 
-def signed_words(table: torch.Tensor, dev) -> torch.Tensor:
-    """A (K, 2) int64 table of uint32 key words as the int32 bit patterns
-    on `dev` that R1's table entry (uniform_block_words) reads."""
-    return torch.where(table >= 2**31, table - 2**32, table).to(torch.int32).to(dev)
+def card_words(table: torch.Tensor, dev) -> torch.Tensor:
+    """A (K, 2) int64 table of uint32 key words on `dev` as the int32 bit
+    patterns R1 reads, sent as every launch's are (rng.device_words)."""
+    from plutracer_tpu_torch import rng
+
+    return rng.device_words(table.numpy().astype(np.uint32).view(np.int32), dev)
 
 
 def same_tree(a, b) -> bool:
@@ -2554,16 +2553,15 @@ def r2_bound(rays: int, pixels: int, lens: bool):
 def r1_times(keys, n, what, card, reps=20):
     """(kernel-only ms, wrapper ms, plain ms, bound) of an R1 block: the
     kernel's device time a launch from torch.profiler, CUDA events around
-    calls of the wrapper (the key table's copy, the checks, the launch)
-    and of the plain version."""
+    calls of rng.uniform_block (the key words' copy, the checks, the
+    launch) and of the plain version."""
     from torch.profiler import ProfilerActivity, profile
 
     from plutracer_tpu_torch import rng
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
 
     dev = torch.device("cuda")
     table = rng.key_table(keys)
-    call = lambda: uniform_block_cuda(table, n, dev)
+    call = lambda: rng.uniform_block(table, n, dev)
     wrapper = time_ms(call, reps)
     plain = time_ms(lambda: rng.uniform_block_plain(table, n, dev), reps=3, warmup=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2589,7 +2587,7 @@ def rng_phase(phase, dev, card, main_launches):
     uniforms. Returns R1's kernels-line entry (launches: main_launches,
     the CLI renders' of phases 5 and 10)."""
     from plutracer_tpu_torch import rng
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda, uniform_block_words
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_words
     from plutracer_tpu_torch.parallel import make_mesh, render_sharded, sharded
     from plutracer_tpu_torch.render.renderer import render
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
@@ -2601,7 +2599,8 @@ def rng_phase(phase, dev, card, main_launches):
 
     def launch_tables(strata, B):
         """(path keys, jitter keys, path words a key, jitter words a key) of
-        a pass-loop launch of `strata` strata of B rays (renderer.launch_draws)."""
+        a pass-loop launch of `strata` strata of B rays (renderer.launch_words'
+        keys; R2 draws the jitter words itself)."""
         trip = [rng.split_words(rng.fold_in_words(base, j), 3) for j in range(strata)]
         path = [rng.fold_in_words(t[2], i) for i in range(mb) for t in trip]
         return path, [t[0] for t in trip] + [t[1] for t in trip], 12 * B, 2 * B
@@ -2626,19 +2625,16 @@ def rng_phase(phase, dev, card, main_launches):
         table = rng.key_table(keys)
         with counting():
             before = launched("r1")
-            got = uniform_block_cuda(table, n, dev)
-            # the table entry (the captured train step's): the words on the card
-            from_words = uniform_block_words(signed_words(table, dev), n)
-            assert launched("r1") == before + 2, what  # one launch a call
+            got = uniform_block_words(card_words(table, dev), n)
+            assert launched("r1") == before + 1, what  # one launch a call
         want = rng.uniform_block_plain(table, n, dev)
         torch.cuda.synchronize()
-        assert got.shape == want.shape == from_words.shape == (table.shape[0], n), what
-        differ = [int((x.view(torch.int32) != want.view(torch.int32)).sum())
-                  for x in (got, from_words)]
-        assert differ == [0, 0], f"R1 vs plain ({what}): {differ} words differ (by value, table)"
-        print(f"R1 {what}: {table.shape[0] * n} words bit-equal to plain, from the key table "
-              f"and from words on the card, mean {got.double().mean().item():.6f}")
-        del got, want, from_words
+        assert got.shape == want.shape == (table.shape[0], n), what
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        assert differ == 0, f"R1 vs plain ({what}): {differ} words differ"
+        print(f"R1 {what}: {table.shape[0] * n} words bit-equal to plain, mean "
+              f"{got.double().mean().item():.6f}")
+        del got, want
     r1_ms, _, r1_plain_ms, bound = r1_times(demo[0], demo[2], "demo-box stratum path uniforms",
                                            card)
     r1_times(demo[1], demo[3], "demo-box stratum jitter", card)
@@ -2847,49 +2843,44 @@ def launch_devices_phase(phase, card):
 
 @contextlib.contextmanager
 def plain_camera():
-    """renderer.launch_rays computing with camera_rays_plain and
-    launch_rays_table with camera_rays_table_plain on every device: the
-    pass loop's, the train step's (eager and captured) and the sharded and
-    elastic renders' camera rays as they were before R2, for bit-equality
-    checks."""
+    """renderer.launch_rays_table computing with camera_rays_table_plain on
+    every device: the pass loop's, the train step's (eager and captured:
+    only device ops, so the twin is captured as R2 is) and the sharded
+    and elastic renders' camera rays as they were before R2, for
+    bit-equality checks."""
     from plutracer_tpu_torch.render import renderer
 
-    real = renderer.launch_rays, renderer.launch_rays_table
-    renderer.launch_rays = lambda scene, px0, keys, strata, n: renderer.camera_rays_plain(
-        scene.camera, px0, keys, strata, n)
-    # the captured train step's, from its cells and key words on the card
-    # (only device ops, so the plain version is captured as R2 is)
+    real = renderer.launch_rays_table
     renderer.launch_rays_table = lambda scene, px0, table, n: renderer.camera_rays_table_plain(
         scene.camera, px0, table, n)
     try:
         yield
     finally:
-        renderer.launch_rays, renderer.launch_rays_table = real
+        renderer.launch_rays_table = real
 
 
 @contextlib.contextmanager
 def no_eager_camera():
-    """Fail if the plain camera stage runs: its jitter draw
-    (renderer.jitter_plain) or its eager ops (renderer.generate_rays,
-    which camera_rays_plain and the per-stratum _camera_rays call)."""
+    """Fail if the plain camera stage's eager ops run
+    (renderer.generate_rays, which camera_rays_table_plain calls)."""
     from plutracer_tpu_torch.render import renderer
 
-    real = renderer.generate_rays, renderer.jitter_plain
+    real = renderer.generate_rays
 
     def refuse(*_args):
         raise AssertionError("an eager camera op ran on the card")
 
-    renderer.generate_rays = renderer.jitter_plain = refuse
+    renderer.generate_rays = refuse
     try:
         yield
     finally:
-        renderer.generate_rays, renderer.jitter_plain = real
+        renderer.generate_rays = real
 
 
 def r2_equal(o, d, po, pd, what):
-    """R2's rays against the plain version's, every lane bit for bit
-    (int32 views: signed zeros and NaN payloads count). Returns the
-    largest difference (0.0)."""
+    """R2's rays against the plain twin's, every lane bit for bit (int32
+    views: signed zeros and NaN payloads count). Returns the largest
+    difference (0.0)."""
     torch.cuda.synchronize()
     differ = [int((a.view(torch.int32) != b.view(torch.int32)).any(-1).sum())
               for a, b in ((o, po), (d, pd))]
@@ -2899,37 +2890,29 @@ def r2_equal(o, d, po, pd, what):
     return max((o - po).abs().max().item(), (d - pd).abs().max().item())
 
 
-def r2_table(keys, strata, dev) -> torch.Tensor:
-    """The (S, 5) int32 table R2's table entry reads: each stratum's cell,
-    then its jitter keys' (k_px, k_lens) words as int32 bit patterns."""
-    rows = torch.tensor([[c, *k_px, *k_lens] for c, (k_px, k_lens) in zip(strata, keys)],
-                        dtype=torch.int64)
-    return signed_words(rows, dev)
+def r2_rows(keys, strata, dev) -> torch.Tensor:
+    """The (S, 5) int32 rows R2 reads on the card: launch_words of the
+    strata's keys and cells with no bounces, sent by rng.device_words."""
+    from plutracer_tpu_torch import rng
+    from plutracer_tpu_torch.render.renderer import launch_words
+
+    return rng.device_words(launch_words(keys, strata, 0), dev).view(len(strata), -1)
 
 
-def r2_times(scene, px0, keys, strata, n, what, card, reps=50, table=None):
+def r2_times(scene, px0, table, n, what, card, reps=50):
     """(kernel-only ms, wrapper ms, plain ms, bound) of an R2 launch: the
     kernel's device time a launch from torch.profiler, CUDA events around
-    calls of launch_rays (the checks, the output's allocation, the launch)
-    and of camera_rays_plain (the plain jitter draw and the eager ops);
-    the bound from the bytes this launch moves and its rays' integer and
-    float operations. With `table` (r2_table of keys and strata on the
-    card), the same of the table entry and its plain twin."""
+    calls of launch_rays_table (the checks, the output's allocation, the
+    launch) and of camera_rays_table_plain (the plain jitter draw and the
+    eager ops); the bound from the bytes this launch moves and its rays'
+    integer and float operations."""
     from torch.profiler import ProfilerActivity, profile
 
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_table_cuda
-    from plutracer_tpu_torch.render.renderer import (
-        camera_rays_plain, camera_rays_table_plain, launch_rays,
-    )
+    from plutracer_tpu_torch.render.renderer import camera_rays_table_plain, launch_rays_table
 
-    if table is None:
-        call = lambda: launch_rays(scene, px0, keys, strata, n)
-        twin = lambda: camera_rays_plain(scene.camera, px0, keys, strata, n)
-    else:
-        call = lambda: camera_rays_table_cuda(scene.camera, px0, table, n)
-        twin = lambda: camera_rays_table_plain(scene.camera, px0, table, n)
+    call = lambda: launch_rays_table(scene, px0, table, n)
     wrapper = time_ms(call, reps)
-    plain = time_ms(twin, reps=10)
+    plain = time_ms(lambda: camera_rays_table_plain(scene.camera, px0, table, n), reps=10)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             call()
@@ -2939,11 +2922,10 @@ def r2_times(scene, px0, keys, strata, n, what, card, reps=50, table=None):
                  for ev in evs)
     kernel = dev_us / 1e3 / sum(ev.count for ev in evs) if dev_us > 0 else wrapper
     how = "torch.profiler" if dev_us > 0 else "the profiler recorded none: wrapper time"
-    rays = len(strata) * px0.shape[0]
+    S = table.shape[0]
     lens = bool(scene.camera.lens_radius.item() > 0.0)
-    bound = r2_bound(rays, px0.shape[0], lens)
-    entry_name = "by value" if table is None else "table entry"
-    print(f"R2 time {what}, {entry_name} ({len(strata)} strata x {px0.shape[0]} pixels, "
+    bound = r2_bound(S * px0.shape[0], px0.shape[0], lens)
+    print(f"R2 time {what} ({S} strata x {px0.shape[0]} pixels, "
           f"{'lens' if lens else 'pinhole'}): kernel-only {kernel:.4f} ms ({how}), wrapper "
           f"{wrapper:.4f} ms a call, plain {plain:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}) "
           f"({card})")
@@ -2951,26 +2933,20 @@ def r2_times(scene, px0, keys, strata, n, what, card, reps=50, table=None):
 
 
 def camera_phase(phase, dev, card, main_launches):
-    """Phase 23: R2 (keys to rays) against camera_rays_plain (the plain
-    jitter draw, then the eager ops) on every lane at the main paths'
-    launches, the most strata a launch takes and ragged B, and its table
-    entry (camera_rays_table_cuda: cells and key words read on the card)
-    against its plain twin and the by-value entry there and at the train
-    cell's Cornell stratum; both entries' times; renders, eager and
-    captured train steps and the sharded and elastic renders through R2
-    against the same with the plain camera rays, one R2 launch a
-    pass-loop launch (as many as R1's) and no eager camera op; with
-    _checkout/parent, the camera stage and the CLI renders in both trees,
-    in turns (camera_stage_turns). Returns the kernels-line entries of R2
-    (launches: main_launches, the CLI renders' of phases 5 and 10) and of
-    its table entry."""
+    """Phase 23: R2 (its rows, read on the card, to rays) against
+    camera_rays_table_plain (the plain jitter draw, then the eager ops) on
+    every lane at the main paths' launches, the most strata a launch
+    takes, the train cell's Cornell stratum and ragged B; its times;
+    renders, eager and captured train steps and the sharded and elastic
+    renders through R2 against the same with the plain camera rays, one
+    R2 launch a pass-loop launch (as many as R1's) and no eager camera
+    op. Returns R2's kernels-line entry (launches: main_launches, the CLI
+    renders' of phases 5 and 10)."""
     from plutracer_tpu_torch import rng
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import camera_rays_table_cuda
     from plutracer_tpu_torch.parallel import make_mesh, render_sharded, sharded
     from plutracer_tpu_torch.render.elastic import render_elastic
     from plutracer_tpu_torch.render.renderer import (
-        camera_rays_plain, camera_rays_table_plain, launch_draws, launch_rays, pixel_centers,
-        render,
+        camera_rays_table_plain, launch_rays_table, pixel_centers, render,
     )
     from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
@@ -2981,40 +2957,30 @@ def camera_phase(phase, dev, card, main_launches):
         return compile_scene(load_scene_file(str(scene_file(name)), ["/res", f"{w}x{h}"]),
                              device=dev)
 
-    err, table_err, times, table_times = 0.0, 0.0, {}, {}
-    for name, (w, h), S, n in R2_TABLE_CASES:
+    err, times = 0.0, {}
+    for name, (w, h), S, n in R2_CASES:
         sc = load(name, w, h)
         # the cells out of order: 5j + 3 mod n^2 (a permutation at S = n^2)
         strata = [(5 * j + 3) % (n * n) for j in range(S)]
+        table = r2_rows([rng.fold_in_words(base, j) for j in range(S)], strata, dev)
         for B in (w * h, 1, 127, w * h - RAGGED):
             what = f"{name} {w}x{h}, {S} strata, B={B}"
             px0 = pixel_centers(w, h, dev)[:B].contiguous()
-            keys, _ = launch_draws([rng.fold_in_words(base, j) for j in range(S)], B, 0, dev)
-            table = r2_table(keys, strata, dev)
             with counting():
                 before = launched("r2")
-                o, d = launch_rays(sc, px0, keys, strata, n)
-                to, td = camera_rays_table_cuda(sc.camera, px0, table, n)
-                assert launched("r2") == before + 2  # one launch a call
-            err = max(err, r2_equal(o, d, *camera_rays_plain(sc.camera, px0, keys, strata, n),
+                o, d = launch_rays_table(sc, px0, table, n)
+                assert launched("r2") == before + 1  # one launch a call
+            err = max(err, r2_equal(o, d, *camera_rays_table_plain(sc.camera, px0, table, n),
                                     what))
-            # the table entry against its plain twin and against the by-value entry
-            table_err = max(table_err,
-                            r2_equal(to, td, *camera_rays_table_plain(sc.camera, px0, table, n),
-                                     f"table entry {what}"),
-                            r2_equal(to, td, o, d, f"table entry against by value, {what}"))
-        px0 = pixel_centers(w, h, dev)
-        keys, _ = launch_draws([rng.fold_in_words(base, j) for j in range(S)], w * h, 0, dev)
-        times[(name, S)] = r2_times(sc, px0, keys, strata, n, f"{name} {w}x{h}", card)
-        table_times[(name, S)] = r2_times(sc, px0, keys, strata, n, f"{name} {w}x{h}", card,
-                                          table=r2_table(keys, strata, dev))
-        del sc, px0, o, d, to, td
+        times[(name, S)] = r2_times(sc, pixel_centers(w, h, dev), table, n, f"{name} {w}x{h}",
+                                    card)
+        del sc, px0, o, d
 
     def through_r2(what, run, path_launches=None, replayed=0):
         """run() through R2 (counted, no eager camera op) and with the plain
         camera rays; the outputs bit-equal; one R2 launch a pass-loop launch
         (as many as the R1 launches, and path_launches where given), and
-        `replayed` captured train steps replayed. Returns the R2 launches."""
+        `replayed` captured train steps replayed."""
         with counting():
             with no_eager_camera():
                 got = run()
@@ -3029,7 +2995,6 @@ def camera_phase(phase, dev, card, main_launches):
         assert same_tree(got, want), what
         print(f"R2 {what}: bit-equal to the plain camera rays, R2 launches {made} (R1 {draws}), "
               f"{replays_made} replays, no eager camera op")
-        return made
 
     for name, w, h, n in R2_RENDERS:
         sc = load(name, w, h)
@@ -3039,7 +3004,6 @@ def camera_phase(phase, dev, card, main_launches):
     sc = load("demo-box", TRAIN_RES, TRAIN_RES)
     target = render(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(11)).reshape(-1, 3)
     params = sharded.get_params(sc)
-    table_launches = 0
     for loss_space, traced in (("log", 1), ("ab", 2)):
         step = sharded.make_train_step(sc, TRAIN_RES, TRAIN_RES, 2, loss_space=loss_space,
                                        trainable=("mat_color", "light_intensity"))
@@ -3047,8 +3011,8 @@ def camera_phase(phase, dev, card, main_launches):
                    lambda: step.loss_and_grads(params, target, rng.PRNGKey(3), 1), traced)
 
         # the captured step (a new one a run: each captures at its first call),
-        # one step and a many of 3: R2's table entry, in its warm-up and its
-        # capture, and nothing launched by the replays
+        # one step and a many of 3: R2 in its warm-up and its capture, and
+        # nothing launched by the replays
         def captured(k, loss_space=loss_space):
             fresh = sharded.make_train_step(sc, TRAIN_RES, TRAIN_RES, 2, loss_space=loss_space,
                                             trainable=("mat_color", "light_intensity"))
@@ -3058,133 +3022,21 @@ def camera_phase(phase, dev, card, main_launches):
             return fresh.many(params, state, target, rng.PRNGKey(3), 0, k)
 
         for k in (1, 3):
-            table_launches += through_r2(
-                f"demo-box {TRAIN_RES}x{TRAIN_RES} {loss_space} train step captured, "
-                f"{k} replay(s) (parameters, Adam's state, loss)", lambda: captured(k),
-                2 * traced, k)
+            through_r2(f"demo-box {TRAIN_RES}x{TRAIN_RES} {loss_space} train step captured, "
+                       f"{k} replay(s) (parameters, Adam's state, loss)", lambda: captured(k),
+                       2 * traced, k)
     mesh = make_mesh((1, 1), devices=[dev])
     through_r2(f"render_sharded demo-box {TRAIN_RES}x{TRAIN_RES} 4 spp on a 1x1 mesh",
                lambda: render_sharded(sc, TRAIN_RES, TRAIN_RES, 2, rng.PRNGKey(5), mesh), 1)
     through_r2(f"render_elastic demo-box {TRAIN_RES}x{TRAIN_RES} 4 spp on [{dev}]",
                lambda: render_elastic(sc, TRAIN_RES, TRAIN_RES, 2, 5, devices=[dev]), 1)
-    for (name, S), (kernel, wrapper, plain, bound) in table_times.items():
-        by_value = times[(name, S)]
-        print(f"R2 {name} launch of {S} strata: by value kernel-only / bound "
-              f"{by_value[0] / by_value[3][0]:.4f}, plain / wrapper "
-              f"{by_value[2] / by_value[1]:.4f}; table entry kernel-only / bound "
-              f"{kernel / bound[0]:.4f}, table / by value: kernel-only {kernel / by_value[0]:.4f}, "
-              f"wrapper {wrapper / by_value[1]:.4f} ({card})")
-    parent = ROOT / "_checkout" / "parent"
-    if (parent / "plutracer_tpu_torch").is_dir():
-        camera_stage_turns(parent, card)
-    else:
-        print("R2 against an earlier tree: not run (no _checkout/parent)")
+    for (name, S), (kernel, wrapper, plain, bound) in times.items():
+        print(f"R2 {name} launch of {S} strata: kernel-only / bound {kernel / bound[0]:.4f}, "
+              f"plain / wrapper {plain / wrapper:.4f} ({card})")
     r2_ms, _, r2_plain_ms, bound = times[("demo-box", 1)]
-    table_ms, _, table_plain_ms, table_bound = table_times[("cornell-box", 1)]
-    return (entry("R2 camera stage, jitter and rays (ms: kernel-only, a demo-box 512x512 "
-                  "stratum; launches: the CLI renders of demo-box, mesh1 and mesh2)", R2_SOURCE,
-                  R2_REPLACES, main_launches, err, r2_ms, r2_plain_ms, bound),
-            entry("R2 table entry camera_rays_table, cells and key words read on the card (ms: "
-                  "kernel-only, the Cornell train cell's 512x512 stratum; launches: phase 23's "
-                  "captured train steps, their warm-ups and captures)", R2_SOURCE, R2_REPLACES,
-                  table_launches, table_err, table_ms, table_plain_ms, table_bound))
-
-
-STAGE_REPS = 50  # calls of the camera stage timed a case (camera_stage_figures)
-STAGE_RENDERS = (("demo-box", 512 * 512 * 64), ("mesh1", 256 * 256 * 16),
-                 ("mesh2", 256 * 256 * 16))  # the CLI renders of phases 5 and 10, samples
-STAGE_RENDER_REPS = 3
-
-
-def camera_stage_figures(tree: pathlib.Path) -> int:
-    """``chip_smoke.py --camera-stage TREE``: the pass loop's camera stage
-    of the package at TREE (an earlier one, or this one), measured in this
-    process through the entry points every version has. For each of
-    R2_CASES: launch_draws(keys, B, 0) + launch_rays (the jitter and the
-    rays, whatever kernels the tree splits them into), CUDA events around
-    STAGE_REPS calls; the device time of its R1 and R2 kernels a call
-    (torch.profiler); the same stage with rng.uniform_block and
-    launch_rays on their plain versions. Then the CLI renders of phases 5
-    and 10 (their own settings, seed 7), median samples/s of
-    STAGE_RENDER_REPS. Prints one JSON line."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(tree))
-    from torch.profiler import ProfilerActivity, profile
-
-    from plutracer_tpu_torch import cli, rng
-    from plutracer_tpu_torch.render import renderer
-    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
-
-    assert pathlib.Path(renderer.__file__).resolve().is_relative_to(tree.resolve())
-    dev = torch.device("cuda")
-    base = rng.key_words(rng.PRNGKey(7))
-    out = {"tree": str(tree), "stage": {}, "samples_per_s": {}}
-    for name, (w, h), S, n in R2_CASES:
-        sc = compile_scene(load_scene_file(str(ROOT / "scenes" / f"{name}.urn"),
-                                           ["/res", f"{w}x{h}"]), device=dev)
-        strata = [(5 * j + 3) % (n * n) for j in range(S)]
-        px0, words = renderer.pixel_centers(w, h, dev), [rng.fold_in_words(base, j)
-                                                          for j in range(S)]
-
-        def stage():
-            return renderer.launch_rays(sc, px0, renderer.launch_draws(words, w * h, 0, dev)[0],
-                                        strata, n)
-
-        wrapper = time_ms(stage, STAGE_REPS)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(STAGE_REPS):
-                stage()
-            torch.cuda.synchronize()
-        kernel = sum(getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
-                     for ev in prof.key_averages()
-                     if any(k in ev.key for k in R1_KERNELS + R2_KERNELS)) / 1e3 / STAGE_REPS
-        real = rng.uniform_block, renderer.launch_rays
-        rng.uniform_block = lambda keys, n_, device="cpu": rng.uniform_block_plain(keys, n_, device)
-        renderer.launch_rays = lambda scene, p0, x, st, n_: renderer.camera_rays_plain(
-            scene.camera, p0, x, st, n_)
-        try:
-            plain = time_ms(stage, reps=10)
-        finally:
-            rng.uniform_block, renderer.launch_rays = real
-        out["stage"][f"{name} {w}x{h}, {S} strata"] = {"ms": wrapper, "kernel_ms": kernel,
-                                                        "plain_ms": plain}
-        del sc, px0
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, samples in STAGE_RENDERS:
-            secs = [cli.run([str(ROOT / "scenes" / f"{name}.urn"), "/o", f"{tmp}/o.bmp",
-                             "/seed", "7"]).render_seconds for _ in range(STAGE_RENDER_REPS)]
-            out["samples_per_s"][name] = samples / statistics.median(secs)
-    print(json.dumps(out))
-    return 0
-
-
-def camera_stage_turns(parent: pathlib.Path, card: str):
-    """The camera stage and the CLI renders of the package in `parent`
-    and of this tree, each in its own process (camera_stage_figures), in
-    turns: parent, this tree, this tree, parent. Prints both trees'
-    figures side by side; the readings of each tree's two turns."""
-    runs = []
-    for tree in (parent, ROOT, ROOT, parent):
-        done = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--camera-stage",
-                               str(tree)], capture_output=True, text=True, timeout=600)
-        assert done.returncode == 0, f"--camera-stage {tree}:\n{done.stdout}\n{done.stderr}"
-        runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
-    turns = {"parent": (runs[0], runs[3]), "this tree": (runs[1], runs[2])}
-    fmt = lambda xs: " / ".join(f"{x:.4f}" for x in xs)
-    for case in runs[0]["stage"]:
-        for who, (a, b) in turns.items():
-            got = [(r["stage"][case]["ms"], r["stage"][case]["kernel_ms"],
-                    r["stage"][case]["plain_ms"]) for r in (a, b)]
-            print(f"camera stage {case}, {who} (launch_draws + launch_rays, turns 1 / 2): "
-                  f"wrapper {fmt(g[0] for g in got)} ms, kernels {fmt(g[1] for g in got)} ms a "
-                  f"call (torch.profiler), plain {fmt(g[2] for g in got)} ms ({card})")
-    for name in runs[0]["samples_per_s"]:
-        for who, (a, b) in turns.items():
-            print(f"CLI render {name}, {who}: samples/s "
-                  f"{a['samples_per_s'][name]:.1f} / {b['samples_per_s'][name]:.1f} "
-                  f"(turns 1 / 2, medians of {STAGE_RENDER_REPS}) ({card})")
+    return entry("R2 camera stage, jitter and rays (ms: kernel-only, a demo-box 512x512 "
+                 "stratum; launches: the CLI renders of demo-box, mesh1 and mesh2)", R2_SOURCE,
+                 R2_REPLACES, main_launches, err, r2_ms, r2_plain_ms, bound)
 
 
 def g1_case(B, R, W, dev, seed=5):
@@ -3321,6 +3173,4 @@ def row_grad_phase(phase, dev, card):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--camera-stage"]:
-        sys.exit(camera_stage_figures(pathlib.Path(sys.argv[2])))
     sys.exit(main())

@@ -8,17 +8,16 @@
 // the jittered sample positions, the camera basis, the normalisations and
 // the thin lens into device code. This kernel is that fusion whole for a
 // launch of S strata of B pixels: from each stratum's cell and its k_px
-// and k_lens keys, all passed by value, it writes o and d of all S * B
-// rays, stratum j at rows j*B..(j+1)*B. A second entry point reads the
-// same cells and key words from a small table on the card instead
-// (camera_rays_table): a launch inside a captured CUDA graph, whose
-// parameters are fixed when it is captured, takes its strata from there.
+// and k_lens keys, read from a small table on the card (a launch's words,
+// render/renderer.launch_words, written there before it runs, as a
+// captured CUDA graph's are before each replay), it writes o and d of all
+// S * B rays, stratum j at rows j*B..(j+1)*B.
 //
-// What it computes for pixel p of stratum j, cell c = strata.cell[j], as
-// plutracer_tpu_torch.render.renderer.camera_rays_plain does on the card
-// (the same words and the same IEEE float32 operations in the same order;
-// built without FMA contraction and without fast math, so each rounds as
-// torch's elementwise kernel does):
+// What it computes for pixel p of stratum j, cell c = table[j][0], as
+// plutracer_tpu_torch.render.renderer.camera_rays_table_plain does on the
+// card (the same words and the same IEEE float32 operations in the same
+// order; built without FMA contraction and without fast math, so each
+// rounds as torch's elementwise kernel does):
 //   jit_px = (words 2p and 2p+1 of k_px's stream), jit_lens likewise of
 //   k_lens: plu_uniform_word (threefry.cuh), so uniform(k, (B, 2))[p];
 //   px = px0[p] + (cell + jit_px * 0.999) / n, lens = (cell + jit_lens * 0.999) / n
@@ -40,32 +39,23 @@
 // L2); its jitter costs 2 hashes (pinhole) or 4 (lens) of 75 integer
 // operations, and the ray about 45 float operations (90 with the lens).
 // The design: one thread a ray, its hashes independent (instruction-level
-// parallelism, as R1's 4 words a thread); no jitter in device memory and
-// no key table: a stratum's cell and key words arrive in the launch's
-// parameters (__grid_constant__: indexed there by the stratum, never
-// copied to local memory); the camera from a small table on the card
-// (ops/cuda/camera_kernel.camera_table); the grid's y axis walks the
-// strata, so no thread divides to find its stratum; three scalar stores
-// a ray and array (a warp's cover 384 contiguous bytes, which L2 merges):
-// staging a block's rays in shared memory for 16-byte vector stores took
-// 1.2-1.4x as long on an H100 (more registers, a barrier;
-// tools/experiments/r2_stores.py).
+// parallelism, as R1's 4 words a thread); no jitter in device memory; a
+// stratum's cell and key words are one row of 20 bytes that every thread
+// of the stratum reads (one cached line); the camera from a small table
+// on the card (ops/cuda/camera_kernel.camera_table); the grid's y axis
+// walks the strata, so no thread divides to find its stratum; three
+// scalar stores a ray and array (a warp's cover 384 contiguous bytes,
+// which L2 merges): staging a block's rays in shared memory for 16-byte
+// vector stores took 1.2-1.4x as long on an H100 (more registers, a
+// barrier; PERF.md).
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
 
 constexpr int PLU_MAX_STRATA = 16;  // renderer.MAX_STRATA: the most strata a launch
-// int32 words a stratum of a table on the card: its cell, then its jitter
-// keys' four words (ops/cuda/camera_kernel.STRATUM_WORDS)
+// int32 words a stratum of the table: its cell, then its jitter keys'
+// four words (ops/cuda/camera_kernel.STRATUM_WORDS)
 constexpr int STRATUM_WORDS = 5;
-
-// a launch's strata, passed by value (ops/cuda/camera_kernel.Strata): each
-// stratum's cell and its jitter keys' words (k_px's two, then k_lens's);
-// outside the unnamed namespace, so the C entry point keeps its linkage
-struct PluStrata {
-  int cell[PLU_MAX_STRATA];
-  uint32_t key[PLU_MAX_STRATA][4];
-};
 
 namespace {
 
@@ -119,7 +109,7 @@ __device__ __forceinline__ float2 jitter(uint32_t k0, uint32_t k1, uint32_t p) {
 __device__ __forceinline__ void camera_ray(const float* __restrict__ cam, float2 q, float cx,
                                            float cy, float nf, float2 jp, float2 jl, float* ro,
                                            float* rd) {
-  // renderer._sample_positions
+  // the jittered sample positions (renderer.camera_rays_table_plain)
   const float sx = q.x + (cx + jp.x * JITTER_SCALE) / nf;
   const float sy = q.y + (cy + jp.y * JITTER_SCALE) / nf;
   const float lx = (cx + jl.x * JITTER_SCALE) / nf;
@@ -162,21 +152,27 @@ __device__ __forceinline__ void camera_ray(const float* __restrict__ cam, float2
   rd[2] = dz;
 }
 
-// Ray p of stratum j of cell c, jittered by the stream of key words k
-// (k_px's two, then k_lens's), written at row j * B + p of o and d: one
-// body for both entry points, so they give the same bits.
-__device__ __forceinline__ void stratum_ray(const float* __restrict__ cam,
-                                            const float2* __restrict__ px0, int p, int j, int c,
-                                            const uint32_t* key, int B, int n,
-                                            float* __restrict__ o, float* __restrict__ d) {
+// cam: the camera table; px0: (B, 2); table: (S, STRATUM_WORDS) int32,
+// each stratum's cell, then k_px's and k_lens's words; o, d: (S * B, 3)
+__global__ void __launch_bounds__(BLOCK) camera_rays_table(const float* __restrict__ cam,
+                                                           const float2* __restrict__ px0,
+                                                           const int* __restrict__ table,
+                                                           int B, int n,
+                                                           float* __restrict__ o,
+                                                           float* __restrict__ d) {
+  const int p = blockIdx.x * BLOCK + threadIdx.x;
+  if (p >= B) return;
+  const int j = blockIdx.y;
+  const int* row = table + j * STRATUM_WORDS;
+  const int c = row[0];
   // the hashes first, independent of each other; a pinhole camera never
   // reads the lens jitter
   float2 jp, jl = make_float2(0.0f, 0.0f);
   if (cam[LENS] > 0.0f) {
-    jp = jitter(key[0], key[1], (uint32_t)p);
-    jl = jitter(key[2], key[3], (uint32_t)p);
+    jp = jitter((uint32_t)row[1], (uint32_t)row[2], (uint32_t)p);
+    jl = jitter((uint32_t)row[3], (uint32_t)row[4], (uint32_t)p);
   } else {
-    jp = jitter(key[0], key[1], (uint32_t)p);
+    jp = jitter((uint32_t)row[1], (uint32_t)row[2], (uint32_t)p);
   }
   float ro[3], rd[3];
   camera_ray(cam, px0[p], (float)(c % n), (float)(c / n), (float)n, jp, jl, ro, rd);
@@ -188,58 +184,12 @@ __device__ __forceinline__ void stratum_ray(const float* __restrict__ cam,
   }
 }
 
-// cam: the camera table; px0: (B, 2); o, d: (S * B, 3)
-__global__ void __launch_bounds__(BLOCK) camera_rays(const float* __restrict__ cam,
-                                                     const float2* __restrict__ px0,
-                                                     const __grid_constant__ PluStrata strata,
-                                                     int B, int n,
-                                                     float* __restrict__ o,
-                                                     float* __restrict__ d) {
-  const int p = blockIdx.x * BLOCK + threadIdx.x;
-  if (p >= B) return;
-  const int j = blockIdx.y;
-  stratum_ray(cam, px0, p, j, strata.cell[j], strata.key[j], B, n, o, d);
-}
-
-// The same rays with each stratum's cell and key words read from a table
-// on the card, (S, STRATUM_WORDS) int32: cell, then k_px's and k_lens's
-// words (ops/cuda/camera_kernel.camera_rays_table_cuda). A launch whose
-// strata are written on the card before it runs, as a captured graph's
-// are, takes this one.
-__global__ void __launch_bounds__(BLOCK) camera_rays_table(const float* __restrict__ cam,
-                                                           const float2* __restrict__ px0,
-                                                           const int* __restrict__ table,
-                                                           int B, int n,
-                                                           float* __restrict__ o,
-                                                           float* __restrict__ d) {
-  const int p = blockIdx.x * BLOCK + threadIdx.x;
-  if (p >= B) return;
-  const int j = blockIdx.y;
-  const int* row = table + j * STRATUM_WORDS;
-  const uint32_t key[4] = {(uint32_t)row[1], (uint32_t)row[2], (uint32_t)row[3],
-                           (uint32_t)row[4]};
-  stratum_ray(cam, px0, p, j, row[0], key, B, n, o, d);
-}
-
 }  // namespace
 
 // cam: the camera table on the card; px0: B pixel positions (x, y);
-// strata: S cells and jitter keys by value, 1 <= S <= PLU_MAX_STRATA;
-// o, d: S * B rays each. cam and px0 8-byte aligned, o and d 4-byte.
-// Returns a cudaError_t.
-extern "C" int plu_camera_rays(const void* cam, const void* px0, PluStrata strata, int S, int B,
-                               int n, void* o, void* d, void* stream) {
-  if (B <= 0) return 0;
-  if (S < 1 || S > PLU_MAX_STRATA || n < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((B + BLOCK - 1) / BLOCK), (unsigned)S);
-  camera_rays<<<grid, BLOCK, 0, (cudaStream_t)stream>>>((const float*)cam, (const float2*)px0,
-                                                        strata, B, n, (float*)o, (float*)d);
-  return (int)cudaGetLastError();
-}
-
-// The same launch with the strata's cells and jitter keys read from table,
-// (S, STRATUM_WORDS) int32 on the card (4-byte aligned), instead of by
-// value. Returns a cudaError_t.
+// table: the strata's cells and jitter keys, (S, STRATUM_WORDS) int32 on
+// the card, 1 <= S <= PLU_MAX_STRATA; o, d: S * B rays each. cam and px0
+// 8-byte aligned, table, o and d 4-byte. Returns a cudaError_t.
 extern "C" int plu_camera_rays_table(const void* cam, const void* px0, const void* table, int S,
                                      int B, int n, void* o, void* d, void* stream) {
   if (B <= 0) return 0;

@@ -26,7 +26,6 @@ import time
 
 import torch
 
-from plutracer_tpu_torch.ops.cuda.camera_kernel import Strata
 from plutracer_tpu_torch.utils import profiling
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
@@ -68,8 +67,6 @@ _SIGNATURES = {
                                  _i, _i, _i, _i, _i, _i, _i, _vp],
     # keys (K x 2 uint32 words), K, n words a key, out (K x n float32), stream
     "plu_threefry_uniform": [_vp, _i, ctypes.c_longlong, _vp, _vp],
-    # camera table, px0, the strata's cells and jitter keys (by value), S, B, n, o, d, stream
-    "plu_camera_rays": [_vp, _vp, Strata, _i, _i, _i, _vp, _vp, _vp],
     # camera table, px0, the strata's table on the card (S x 5 int32), S, B, n, o, d, stream
     "plu_camera_rays_table": [_vp, _vp, _vp, _i, _i, _i, _vp, _vp, _vp],
     # idx, grad, part (or null), out, arrivals (or null), B, R, W, chunk, chunks, stream

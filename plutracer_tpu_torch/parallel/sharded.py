@@ -21,20 +21,25 @@ adds those samples in (its valid mask is stratum < spp, which a padding
 
 A train step's layers are spans of utils/profiling (recorded while a
 profiler runs): ``plu.train.step`` (one step, a request), and inside it
-``plu.train.forward`` (the plain forward under autograd, K1's queries),
-``plu.train.backward`` (torch.autograd.grad), ``plu.train.filter`` (the
-mask, the non-finite count, nan_to_num), ``plu.train.reduce`` (the gather
-and the reduction over positions) and ``plu.train.optimizer``.
+``plu.render.keys`` (the step's key words, renderer.launch_words a
+pass), ``plu.train.forward`` (the plain forward under autograd, K1's
+queries), ``plu.train.backward`` (torch.autograd.grad),
+``plu.train.filter`` (the mask, the non-finite count, nan_to_num),
+``plu.train.reduce`` (the gather and the reduction over positions) and
+``plu.train.optimizer``.
 
-When every position of the mesh lies on the scene's one card in this
-process, the step is captured as two CUDA graphs at its first call and
-replayed at every call (``_Graphed``): one replay of each a step in place
-of the tens of thousands of launches an eager step issues from Python,
-the same kernels on the same words, so the same bits. A replayed step
-records ``plu.train.forward`` (the forward graph's replay) and
-``plu.train.backward`` (the rest's: the backward, the filter, the
-reduction and the optimiser) and counts ``train.graph_replays``; a
-capture counts ``train.graph_captures``. No C entry is called on a
+A step is two functions: the forward (each position's passes traced
+from its key words on its device, renderer.trace_launch, and its loss)
+and the rest (the backward, the filter, the reduction and the
+optimiser). When every position of the mesh lies on the scene's one card
+in this process, the step is captured as two CUDA graphs of those
+functions at its first call and replayed at every call (``_Graphed``):
+one replay of each a step in place of the tens of thousands of launches
+an eager step issues from Python, the same kernels on the same words, so
+the same bits. A replayed step records ``plu.train.forward`` (the
+forward graph's replay) and ``plu.train.backward`` (the rest's: the
+backward, the filter, the reduction and the optimiser) and counts
+``train.graph_replays``; a capture counts ``train.graph_captures``. No C entry is called on a
 replay, so the ``launches.*`` counters do not move. A mesh over several
 cards or processes, and a CPU scene, run the step eagerly.
 """
@@ -56,12 +61,11 @@ from plutracer_tpu_torch.diff.optim import Adam, apply_updates
 from plutracer_tpu_torch.parallel.mesh import Mesh, gather, make_mesh, scene_replicas, single
 from plutracer_tpu_torch.render.integrator import DIFF_LEAVES
 from plutracer_tpu_torch.render.renderer import (
-    _trace_stratum,
+    launch_words,
     over,
     pixel_centers,
     stratum_launches,
-    stratum_words,
-    trace_stratum_table,
+    trace_launch,
 )
 from plutracer_tpu_torch.semantics import DEFAULT_OPTIONS, RenderOptions
 from plutracer_tpu_torch.utils import profiling
@@ -226,12 +230,10 @@ class _Graphed:
     outside the capture; its results are dropped, the caller's tensors
     are only read), and the two halves are captured on that stream. Each
     call then writes its inputs into those buffers (copies on the card;
-    the step's key words through a pinned host slot and one asynchronous
-    copy), replays both graphs and returns copies of their outputs, never
-    the graphs' own buffers. The graphs keep the shapes, dtypes and
-    structure of the first call's inputs; another raises."""
-
-    SLOTS = 4  # pinned slots for the key words, used in turn
+    the step's key words by rng.device_words), replays both graphs and
+    returns copies of their outputs, never the graphs' own buffers. The
+    graphs keep the shapes, dtypes and structure of the first call's
+    inputs; another raises."""
 
     def __init__(self, home, forward, rest, params, opt_state, target, words):
         self.home = home
@@ -239,11 +241,8 @@ class _Graphed:
         self.params, self.state = _map(held, params), _map(held, opt_state)
         self.target = held(target)
         self.words = torch.empty(words.shape, dtype=torch.int32, device=home)
-        self.slots = [(torch.empty(words.size, dtype=torch.int32, pin_memory=True),
-                       torch.cuda.Event()) for _ in range(self.SLOTS)]
-        self.turn = 0
         with torch.cuda.device(home):
-            self._write_words(words)
+            rng.device_words(words, home, out=self.words)
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
@@ -257,22 +256,12 @@ class _Graphed:
                 self.out = rest(fwd, self.params, self.state)
         profiling.count("train.graph_captures")
 
-    def _write_words(self, words: np.ndarray) -> None:
-        """The step's key words to the card: into the next pinned slot once
-        its last copy has left it, then one asynchronous copy."""
-        slot, done = self.slots[self.turn]
-        self.turn = (self.turn + 1) % len(self.slots)
-        done.synchronize()
-        slot.numpy()[:] = words.reshape(-1)
-        self.words.view(-1).copy_(slot, non_blocking=True)
-        done.record()
-
     def __call__(self, params, opt_state, target, words):
         with torch.cuda.device(self.home):
             _map(_copy_into, self.params, params)
             _map(_copy_into, self.state, opt_state)
             _copy_into(self.target, target)
-            self._write_words(words)
+            rng.device_words(words, self.home, out=self.words)
             with profiling.span("plu.train.forward"):
                 self.forward_graph.replay()
             with profiling.span("plu.train.backward"):
@@ -342,7 +331,9 @@ def make_train_step(
     step.ab_loss(xa, xb, target_rows) is a position's ab loss of two passes.
     step.loss_and_grads(params, target_flat, key, stratum) -> (loss, grads,
     nonfinite fraction) and step.apply(params, opt_state, grads, nf_frac)
-    -> (params, opt_state) are the step's two halves, always eager.
+    -> (params, opt_state) are the step's two halves, always eager:
+    loss_and_grads is the forward and the rest's backward and reduction,
+    apply the rest's optimiser.
     """
     optimizer = optimizer if optimizer is not None else Adam(1e-2)
     options = options.replace(integrator_backend="plain")
@@ -440,16 +431,6 @@ def make_train_step(
             nf_count = _sum(list(cols[1][:, 0]))
             return loss, grads, over(nf_count, n_entries * d_tiles * d_spp)
 
-    def loss_and_grads(params, target, key, stratum):
-        target_pad = _pad_rows(target, d_tiles)
-        partials = {}
-        for ti, si, dev in mesh.local():
-            keys = pass_keys(key, ti, si)
-            trace = lambda sc, px, j: _trace_stratum(sc, px, keys[j], stratum, n, options)
-            leaves, loss = position_forward(params, target_pad, trace, ti, dev)
-            partials[(ti, si)] = position_backward(leaves, loss, dev)
-        return reduce(partials)
-
     def apply(params, opt_state, grads, nf_frac):
         with profiling.span("plu.train.optimizer"):
             updates, new_state = optimizer.update(grads, opt_state)
@@ -461,28 +442,40 @@ def make_train_step(
             bad = nf_frac > 0.0
             return _keep(bad, params, new_params), _keep(bad, opt_state, new_state)
 
-    # the graph's halves: the positions' forwards reading their key words
-    # from a table on the card (renderer.trace_stratum_table: the same
-    # draws as _trace_stratum), then everything after them
-    def graph_forward(params, target, words):
+    def step_words(key, stratum):
+        """The int32 key words of a step, (positions, passes, words a pass):
+        launch_words of each pass's key at `stratum`, derived on the host."""
+        with profiling.span("plu.render.keys"):
+            return np.stack([np.stack([launch_words([rng.key_words(k)], [stratum],
+                                                    options.max_bounces)
+                                       for k in pass_keys(key, ti, si)])
+                             for ti, si, _ in mesh.local()])
+
+    # the step's two functions, which the eager executor calls and
+    # _Graphed captures: the forward, each position's passes traced from
+    # its words ((passes, words a pass) int32 on its device), then the rest
+    def forward(params, target, words):
         target_pad = _pad_rows(target, d_tiles)
         out = {}
         for p, (ti, si, dev) in enumerate(mesh.local()):
-            trace = lambda sc, px, j, w=words[p]: trace_stratum_table(sc, px, w[j], n, options)
+            trace = lambda sc, px, j, w=words[p]: trace_launch(sc, px, w[j], 1, n, options)
             out[(ti, si)] = (dev, *position_forward(params, target_pad, trace, ti, dev))
         return out
 
-    def graph_rest(fwd, params, opt_state):
-        loss, grads, nf_frac = reduce({p: position_backward(leaves, loss, dev)
-                                       for p, (dev, leaves, loss) in fwd.items()})
+    def backward(fwd):
+        return reduce({p: position_backward(leaves, loss, dev)
+                       for p, (dev, leaves, loss) in fwd.items()})
+
+    def rest(fwd, params, opt_state):
+        loss, grads, nf_frac = backward(fwd)
         return (*apply(params, opt_state, grads, nf_frac), loss, nf_frac)
 
-    def step_words(key, stratum):
-        """The int32 key words of a step, (positions, passes, words a pass),
-        derived on the host."""
-        return np.array([[stratum_words(k, stratum, options.max_bounces)
-                          for k in pass_keys(key, ti, si)] for ti, si, _ in mesh.local()],
-                        dtype=np.int32)
+    def on_devices(words):
+        """Each position's words on its device."""
+        return [rng.device_words(w, dev) for w, (_, _, dev) in zip(words, mesh.local())]
+
+    def loss_and_grads(params, target, key, stratum):
+        return backward(forward(params, target, on_devices(step_words(key, stratum))))
 
     # one card holds every position, in this process: the step is captured
     # once and replayed
@@ -492,14 +485,11 @@ def make_train_step(
 
     def one(params, opt_state, target, key, stratum):
         with profiling.span("plu.train.step", request=True):
-            if not graphed:
-                loss, grads, nf_frac = loss_and_grads(params, target, key, stratum)
-                params, opt_state = apply(params, opt_state, grads, nf_frac)
-                return params, opt_state, loss, nf_frac
             words = step_words(key, stratum)
+            if not graphed:
+                return rest(forward(params, target, on_devices(words)), params, opt_state)
             if not graph:
-                graph.append(_Graphed(home, graph_forward, graph_rest, params, opt_state,
-                                      target, words))
+                graph.append(_Graphed(home, forward, rest, params, opt_state, target, words))
             return graph[0](params, opt_state, target, words)
 
     def step(params, opt_state, target_flat, key, stratum: int):

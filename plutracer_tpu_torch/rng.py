@@ -11,16 +11,18 @@ Keys are tiny int64 CPU tensors of shape (2,) (or (n, 2) from ``split``),
 derived on Python ints (``threefry2x32`` takes ints as well as tensors):
 deriving a key issues no tensor op and never touches the device.
 
-Draws: ``uniform_block(keys, n, device)`` fills a (K, n) float32 block,
-row k being ``uniform(keys[k], (n,))``. On a CUDA device that is one
-launch of the R1 kernel (csrc/threefry.cu, ops/cuda/rng_kernel.py); on
-the CPU it is ``uniform_block_plain``, the same hash on int64 tensors
-(torch's uint32 lacks most arithmetic, so every uint32 word is held in an
-int64 tensor and masked back to 32 bits after each add or shift).
-``uniform`` is a block of one key. ``uniform_block_words(words, n)`` is
-the same block from a table of key words that already lies on the
-device ((K, 2) int32 bit patterns): R1 reading it where it lies on a
-card, ``uniform_block_plain`` of the same words on the CPU.
+Draws: ``uniform_block_words(words, n)`` fills a (K, n) float32 block,
+row k being ``uniform`` of key k, from a (K, 2) int32 table of the keys'
+uint32 words (their bit patterns) on the device that draws: on a card
+one launch of the R1 kernel reading the table where it lies
+(csrc/threefry.cu, ops/cuda/rng_kernel.py), on the CPU
+``uniform_block_plain``, the same hash on int64 tensors (torch's uint32
+lacks most arithmetic, so every uint32 word is held in an int64 tensor
+and masked back to 32 bits after each add or shift). Key words reach a
+device one way, ``device_words``: on a card one non-blocking copy from
+pinned host memory. ``uniform_block(keys, n, device)`` is the block of a
+table of keys, its words sent by ``device_words``; ``uniform`` a block
+of one key.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import math
 import operator
 from typing import Sequence
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -148,15 +151,30 @@ def uniform_block_plain(keys, n: int, device="cpu") -> torch.Tensor:
     return _bits_to_uniform(_block_bits(key_table(keys), n, device))
 
 
+def device_words(words: np.ndarray, device, out=None) -> torch.Tensor:
+    """The int32 array `words` on `device`, the one way key words reach a
+    device: on the CPU the tensor over the array itself; on a card one
+    non-blocking copy from pinned host memory into `out` (a new tensor
+    where None). torch's caching host allocator keeps the pinned block
+    until the copy has run, so the host enqueues on without waiting."""
+    host = torch.from_numpy(words)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return host
+    if out is None:
+        out = torch.empty(host.shape, dtype=torch.int32, device=dev)
+    return out.copy_(host.pin_memory(), non_blocking=True)
+
+
 def uniform_block(keys, n: int, device="cpu") -> torch.Tensor:
     """(K, n) float32 on `device`: row k is uniform(keys[k], (n,)). A CUDA
-    device takes one launch of the R1 kernel (it raises where it cannot
-    launch), the CPU uniform_block_plain."""
+    device takes the table's words (device_words) and one R1 launch
+    (uniform_block_words; it raises where it cannot launch), the CPU
+    uniform_block_plain."""
     dev = torch.device(device)
     if dev.type == "cuda":
-        from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
-
-        return uniform_block_cuda(key_table(keys), n, dev)
+        table = key_table(keys).numpy().astype(np.uint32).view(np.int32)
+        return uniform_block_words(device_words(table, dev), n)
     if dev.type != "cpu":
         raise ValueError(f"uniform_block: no draw for device {dev}")
     return uniform_block_plain(keys, n, dev)

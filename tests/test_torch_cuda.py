@@ -572,15 +572,20 @@ def test_divisions_are_ieee_on_card(dev):
     operations on CPU tensors of the same values: torch divides by a
     tensor on the card, where a Python number would become a product with
     its reciprocal."""
-    from plutracer_tpu_torch.render.renderer import _sample_positions, over
+    from plutracer_tpu_torch.render.renderer import over
+
+    def positions(px0, u_px, u_lens, cell):
+        # camera_rays_table_plain's jittered positions
+        return px0 + over(cell + u_px * 0.999, 3), over(cell + u_lens * 0.999, 3)
 
     k_px, k_lens = rng.split(rng.PRNGKey(5), 2)
     B = 64 * 48
     for stratum in range(9):
-        got = _sample_positions(pixel_centers(64, 48, dev), rng.uniform(k_px, (B, 2), dev),
-                                rng.uniform(k_lens, (B, 2), dev), stratum, 3)
-        want = _sample_positions(pixel_centers(64, 48), rng.uniform(k_px, (B, 2)),
-                                 rng.uniform(k_lens, (B, 2)), stratum, 3)
+        cell = torch.tensor([stratum % 3, stratum // 3], dtype=torch.float32)
+        got = positions(pixel_centers(64, 48, dev), rng.uniform(k_px, (B, 2), dev),
+                        rng.uniform(k_lens, (B, 2), dev), cell.to(dev))
+        want = positions(pixel_centers(64, 48), rng.uniform(k_px, (B, 2)),
+                         rng.uniform(k_lens, (B, 2)), cell)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w), stratum
     g = torch.Generator().manual_seed(0)
@@ -832,11 +837,16 @@ def test_r1_equals_cpu_draws(dev):
     assert torch.equal(rng.uniform_block(keys, 4099, dev).cpu(), rng.uniform_block(keys, 4099))
 
 
+def plain_words(words, n):
+    """R1's plain twin: uniform_block_plain of the words' keys on their
+    device."""
+    return rng.uniform_block_plain(words.to(torch.int64) & 0xFFFFFFFF, n, words.device)
+
+
 def plain_drawn(monkeypatch):
-    """The draws as they were before R1: uniform_block's plain version on
-    every device."""
-    monkeypatch.setattr(rng, "uniform_block",
-                        lambda keys, n, device="cpu": rng.uniform_block_plain(keys, n, device))
+    """The draws as they were before R1: uniform_block_words' plain twin
+    on every device."""
+    monkeypatch.setattr(rng, "uniform_block_words", plain_words)
 
 
 @pytest.mark.parametrize("name", ["demo-box", "mesh1"])
@@ -886,27 +896,18 @@ def test_r1_train_step_equals_plain_draws(dev, monkeypatch):
 # version, and every camera ray of the pass loop and the train step through it
 
 
-def r2_launch(name, w, h, S, B, dev, seed=7):
-    """A scene at w x h, the first B of its pixels and the jitter keys
-    (k_px, k_lens) of a launch of S strata of them, as launch_draws hands
-    them back (stratum keys fold_in(PRNGKey(seed), j))."""
-    from plutracer_tpu_torch.render.renderer import launch_draws
+def r2_launch(name, w, h, strata, B, dev, seed=7):
+    """A scene at w x h, the first B of its pixels and the R2 rows of a
+    launch of the cells `strata` of them (launch_words with no bounces,
+    stratum keys fold_in(PRNGKey(seed), j)) on the card."""
+    from plutracer_tpu_torch.render.renderer import launch_words
 
     s = compile_scene(load_scene_file(str(REPO / "scenes" / f"{name}.urn"), ["/res", f"{w}x{h}"]),
                       device=dev)
     px0 = pixel_centers(w, h, dev)[:B].contiguous()
-    words = [rng.fold_in_words(rng.key_words(rng.PRNGKey(seed)), j) for j in range(S)]
-    return s, px0, launch_draws(words, B, 0, dev)[0]
-
-
-def r1_drawn_rays(s, px0, keys, strata, n):
-    """The oracle: the jitter drawn by R1 (one block of the launch's k_px
-    then k_lens keys), then the plain version's jitter-taking stage."""
-    from plutracer_tpu_torch.render.renderer import jittered_rays
-
-    B = px0.shape[0]
-    jit = rng.uniform_block([k[0] for k in keys] + [k[1] for k in keys], 2 * B, px0.device)
-    return jittered_rays(s.camera, px0, jit.reshape(2, len(keys), B, 2), strata, n)
+    keys = [rng.fold_in_words(rng.key_words(rng.PRNGKey(seed)), j) for j in range(len(strata))]
+    table = torch.from_numpy(launch_words(keys, strata, 0)).view(len(strata), -1)
+    return s, px0, table.to(dev)
 
 
 def int_bits(x):
@@ -918,40 +919,38 @@ def int_bits(x):
                                      (4, "shuffled"), (16, "shuffled")])
 @pytest.mark.parametrize("B", [64 * 48, 1, 127, 64 * 48 - 77])
 def test_r2_bit_equal_to_plain(dev, name, S, order, B):
-    """R2's o and d (keys to rays, the jitter drawn inside) equal, on the
-    card and on every lane, bit for bit, the R1-drawn jitter through the
-    plain version's jitter-taking stage and camera_rays_plain itself
-    (pinhole and thin lens, cells in any order, ragged B); one launch a
-    call."""
+    """R2's o and d (keys to rays, the jitter drawn inside, the rows read
+    on the card) equal, on the card and on every lane, bit for bit, its
+    plain twin camera_rays_table_plain (pinhole and thin lens, cells in
+    any order, ragged B); one launch a call."""
     import random
 
-    from plutracer_tpu_torch.render.renderer import camera_rays_plain, launch_rays
+    from plutracer_tpu_torch.render.renderer import camera_rays_table_plain, launch_rays_table
 
     n = 4 if S < 16 else 5
     strata = list(range(S)) if order == "in order" else random.Random(S).sample(range(n * n), S)
-    s, px0, keys = r2_launch(name, 64, 48, S, B, dev)
+    s, px0, table = r2_launch(name, 64, 48, strata, B, dev)
     before = launches("r2")
-    o, d = launch_rays(s, px0, keys, strata, n)
+    o, d = launch_rays_table(s, px0, table, n)
     assert launches("r2") == before + 1
-    for po, pd in (r1_drawn_rays(s, px0, keys, strata, n),
-                   camera_rays_plain(s.camera, px0, keys, strata, n)):
-        assert o.shape == d.shape == po.shape == (S * B, 3)
-        assert torch.equal(int_bits(o), int_bits(po)) and torch.equal(int_bits(d), int_bits(pd))
+    po, pd = camera_rays_table_plain(s.camera, px0, table, n)
+    assert o.shape == d.shape == po.shape == (S * B, 3)
+    assert torch.equal(int_bits(o), int_bits(po)) and torch.equal(int_bits(d), int_bits(pd))
 
 
 def test_r2_equals_cpu_plain(dev):
-    """R2 on the card against camera_rays_plain on the CPU (the version
+    """R2 on the card against camera_rays_table_plain on the CPU (the twin
     the CPU tests hold against the JAX package): a pinhole camera's o (its
     position) bit-equal; a lens camera's o within tests/test_torch_ops.py's
     default (rtol 1e-5, atol 1e-5) and every d within test_generate_rays'
     (rtol 1e-5, atol 1e-6): the CPU's norm, cos and sin round apart from
     the card's by an ulp."""
-    from plutracer_tpu_torch.render.renderer import camera_rays_plain, launch_rays
+    from plutracer_tpu_torch.render.renderer import camera_rays_table_plain, launch_rays_table
 
     for name in ("demo-box", "dof"):
-        s, px0, keys = r2_launch(name, 64, 48, 3, 64 * 48, dev)
-        o, d = launch_rays(s, px0, keys, [4, 0, 8], 3)
-        po, pd = camera_rays_plain(s.to("cpu").camera, px0.cpu(), keys, [4, 0, 8], 3)
+        s, px0, table = r2_launch(name, 64, 48, [4, 0, 8], 64 * 48, dev)
+        o, d = launch_rays_table(s, px0, table, 3)
+        po, pd = camera_rays_table_plain(s.to("cpu").camera, px0.cpu(), table.cpu(), 3)
         if name == "demo-box":
             assert torch.equal(o.cpu(), po)
         np.testing.assert_allclose(o.cpu().numpy(), po.numpy(), rtol=1e-5, atol=1e-5)
@@ -959,12 +958,12 @@ def test_r2_equals_cpu_plain(dev):
 
 
 def plain_camera(monkeypatch):
-    """The camera rays as they were before R2: camera_rays_plain on every
-    device."""
+    """The camera rays as they were before R2: camera_rays_table_plain on
+    every device."""
     from plutracer_tpu_torch.render import renderer
 
-    monkeypatch.setattr(renderer, "launch_rays", lambda scene, px0, keys, strata, n: (
-        renderer.camera_rays_plain(scene.camera, px0, keys, strata, n)))
+    monkeypatch.setattr(renderer, "launch_rays_table", lambda scene, px0, table, n: (
+        renderer.camera_rays_table_plain(scene.camera, px0, table, n)))
 
 
 def no_eager_camera(monkeypatch):
@@ -1041,13 +1040,13 @@ def test_one_r1_and_one_r2_launch_a_pass_loop_launch(dev, tmp_path, monkeypatch)
     (every R1 block is max_bounces keys a stratum of 12 words a ray)."""
     from plutracer_tpu_torch.parallel import sharded
 
-    real, blocks = rng.uniform_block, []
+    real, blocks = rng.uniform_block_words, []
 
-    def recorded(keys, n, device="cpu"):
-        blocks.append((rng.key_table(keys).shape[0], n))
-        return real(keys, n, device)
+    def recorded(words, n):
+        blocks.append((words.shape[0], n))
+        return real(words, n)
 
-    monkeypatch.setattr(rng, "uniform_block", recorded)
+    monkeypatch.setattr(rng, "uniform_block_words", recorded)
     mb = DEFAULT_OPTIONS.max_bounces
     # 25 strata: chunks of 16 and 9, one launch each
     profiling.reset()
@@ -1106,8 +1105,7 @@ def two_cards():
 
 
 def _launch_cases(dev):
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
-    from plutracer_tpu_torch.render.renderer import launch_rays
+    from plutracer_tpu_torch.render.renderer import launch_rays_table, launch_words
 
     demo, o, d = scene_and_rays("demo-box", 32, dev)
     mesh1, mo, md = scene_and_rays("mesh1", 32, dev)
@@ -1123,11 +1121,9 @@ def _launch_cases(dev):
         "K3": lambda: ray_color_stream_cuda(mesh1, mo, md, u, DEFAULT_OPTIONS),
         "K4": lambda: ray_color_wavefront(mesh1, mo, md, u, wf),
         "K5": lambda: ray_color_stream_cuda(mesh1, mo, md, u, DEFAULT_OPTIONS, debug=True),
-        "R1": lambda: uniform_block_cuda(rng.key_table([rng.PRNGKey(1), rng.PRNGKey(2)]),
-                                         100003, dev),
-        "R2": lambda: launch_rays(demo, pixel_centers(32, 32, dev),
-                                  [tuple(rng.split_words((5, j), 3)[:2]) for j in range(4)],
-                                  [3, 0, 1, 2], 2),
+        "R1": lambda: rng.uniform_block([rng.PRNGKey(1), rng.PRNGKey(2)], 100003, dev),
+        "R2": lambda: launch_rays_table(demo, pixel_centers(32, 32, dev), torch.from_numpy(
+            launch_words([(5, j) for j in range(4)], [3, 0, 1, 2], 0)).view(4, -1).to(dev), 2),
     }
 
 
@@ -1436,47 +1432,41 @@ def test_g1_train_steps_equal_across_processes(dev, tmp_path):
             assert torch.equal(run["params"][k], v), k
 
 
-# R1 and R2 reading their keys from tables on the card: the entries a
-# captured graph launches, bit-equal to the entries that take the keys
-# from the host
-
-
-def table_rows(keys, strata):
-    """The (S, 5) int32 R2 table of a launch's cells and jitter keys."""
-    rows = [[c, *k_px, *k_lens] for c, (k_px, k_lens) in zip(strata, keys)]
-    return torch.tensor(rows, dtype=torch.int64).to(torch.int32)
+# a launch's words on the card: one copy of its launch_words block, R1 and
+# R2 reading views of that buffer, bit-equal to their plain twins
 
 
 @pytest.mark.parametrize("name", ["demo-box", "dof"])
 @pytest.mark.parametrize("S", [1, 4, 16])
 @pytest.mark.parametrize("B", [64 * 48, 1, 127])
 def test_r1_r2_table_entries_equal_by_value(dev, name, S, B):
-    """R2's table entry (cells and key words read on the card) gives the
-    by-value entry's o and d and its plain twin's, bit for bit, in one
-    launch (pinhole and thin lens, shuffled cells, ragged B); R1 on a
-    word table already on the card gives uniform_block_cuda's block."""
+    """A launch's launch_words block sent to the card by rng.device_words
+    (one copy), traced by renderer.launch_inputs: R1's uniforms and R2's
+    o and d, each read from its view of that buffer in one launch, equal
+    their plain twins of the same words, bit for bit (pinhole and thin
+    lens, shuffled cells, ragged B), and the same launch traced from the
+    block on the host."""
     import random
 
-    from plutracer_tpu_torch.ops.cuda.camera_kernel import (
-        camera_rays_cuda, camera_rays_table_cuda,
+    from plutracer_tpu_torch.render.renderer import (
+        camera_rays_table_plain, launch_inputs, launch_words,
     )
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda, uniform_block_words
-    from plutracer_tpu_torch.render.renderer import camera_rays_table_plain
 
-    n = 5
+    n, mb = 5, DEFAULT_OPTIONS.max_bounces
     strata = random.Random(S + B).sample(range(n * n), S)
-    s, px0, keys = r2_launch(name, 64, 48, S, B, dev)
-    table = table_rows(keys, strata).to(dev)
-    before = launches("r2")
-    o, d = camera_rays_table_cuda(s.camera, px0, table, n)
-    assert launches("r2") == before + 1
-    for po, pd in (camera_rays_cuda(s.camera, px0, keys, strata, n),
-                   camera_rays_table_plain(s.camera, px0, table, n)):
-        assert torch.equal(int_bits(o), int_bits(po)) and torch.equal(int_bits(d), int_bits(pd))
-    words = rng.key_table([k for pair in keys for k in pair])
-    signed = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32).to(dev)
-    got = uniform_block_words(signed, 12 * B)
-    assert torch.equal(int_bits(got), int_bits(uniform_block_cuda(words, 12 * B, dev)))
+    s, px0, _ = r2_launch(name, 64, 48, strata, B, dev)
+    keys = [rng.fold_in_words(rng.key_words(rng.PRNGKey(7)), j) for j in range(S)]
+    block = launch_words(keys, strata, mb)
+    words = rng.device_words(block, dev)
+    before = (launches("r1"), launches("r2"))
+    o, d, u = launch_inputs(s, px0, words, S, n, DEFAULT_OPTIONS)
+    assert (launches("r1"), launches("r2")) == (before[0] + 1, before[1] + 1)
+    po, pd = camera_rays_table_plain(s.camera, px0, words[2 * S * mb:].view(S, -1), n)
+    assert torch.equal(int_bits(o), int_bits(po)) and torch.equal(int_bits(d), int_bits(pd))
+    pu = plain_words(words[:2 * S * mb].view(S * mb, 2), 12 * B).reshape(mb, S * B, 12)
+    assert torch.equal(int_bits(u), int_bits(pu))
+    for got, want in zip(launch_inputs(s, px0, block, S, n, DEFAULT_OPTIONS), (o, d, u)):
+        assert torch.equal(int_bits(got), int_bits(want))
 
 
 # the train step on one card: captured as two CUDA graphs at its first

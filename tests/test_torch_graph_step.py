@@ -4,13 +4,14 @@ On one card the train step is captured as two CUDA graphs and replayed
 (parallel/sharded._Graphed; held bit-equal to the eager step by
 tests/test_torch_cuda.py). A replay takes nothing from the host but what
 is written into its buffers, so the step's key words come from a table on
-the card (renderer.stratum_words, trace_stratum_table) and the
-optimiser's constants are built once a device. Here, on the CPU:
+the card (renderer.launch_words of each pass, traced by
+renderer.trace_launch, as every launch is) and the optimiser's constants
+are built once a device. Here, on the CPU:
 
-- stratum_words lays out exactly the keys launch_draws derives for one
-  stratum, and trace_stratum_table over them (R1's and R2's plain twins
-  reading the words from a tensor) gives _trace_stratum's radiance, bit
-  for bit;
+- a pass's words are the keys JAX derives for one stratum (split and
+  fold_in), and trace_launch of one stratum (R1's and R2's plain twins
+  reading the words from a tensor) gives that stratum's radiance inside
+  a launch of several, bit for bit;
 - Adam and exponential_decay with their constants built once give the
   updates of the same arithmetic with every constant made anew a call
   (the code before), bit for bit, over the recipe's phase-1 schedule
@@ -19,6 +20,7 @@ optimiser's constants are built once a device. Here, on the CPU:
   equals its two eager halves bit for bit.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -44,40 +46,48 @@ def scene(name):
 
 
 def words_of(key, stratum, mb):
-    return torch.tensor(renderer.stratum_words(key, stratum, mb), dtype=torch.int32)
+    """A pass's words: launch_words of the one stratum, as a tensor."""
+    return torch.from_numpy(renderer.launch_words([rng.key_words(key)], [stratum], mb))
 
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_stratum_words_are_launch_draws_keys(seed):
-    """stratum_words: the max_bounces path keys of launch_draws' one-stratum
-    block (fold_in(k_path, i)), then the cell and the jitter keys (k_px,
-    k_lens) it hands R2, every uint32 word as its int32 bit pattern."""
+    """A pass's words: the max_bounces path keys fold_in(k_path, i), then
+    the cell and the jitter keys (k_px, k_lens), with (k_px, k_lens,
+    k_path) = split(key, 3) as JAX derives them, every uint32 word as its
+    int32 bit pattern; R1's plain twin draws JAX's path uniforms from
+    them."""
     mb, stratum = DEFAULT_OPTIONS.max_bounces, 3
     key = rng.fold_in(rng.PRNGKey(seed), 5)
     got = words_of(key, stratum, mb)
-    assert got.shape == (2 * mb + 5,)
-    unsigned = (got.to(torch.int64) & 0xFFFFFFFF).tolist()
-    k_px, k_lens, k_path = rng.split_words(rng.key_words(key), 3)
-    assert unsigned[:2 * mb] == [w for i in range(mb) for w in rng.fold_in_words(k_path, i)]
-    assert unsigned[2 * mb:] == [stratum, *k_px, *k_lens]
-    keys, u = renderer.launch_draws([rng.key_words(key)], 10, mb, "cpu")
-    assert keys == [(k_px, k_lens)]
-    assert torch.equal(rng.uniform_block_words(got[:2 * mb].view(mb, 2), 120).reshape(mb, 10, 12),
-                       u)
+    assert got.shape == (2 * mb + 5,) and got.dtype == torch.int32
+    unsigned = got.numpy().view(np.uint32)
+    jkey = jax.random.fold_in(jax.random.PRNGKey(seed), 5)
+    k_px, k_lens, k_path = jax.random.split(jkey, 3)
+    path = [jax.random.fold_in(k_path, i) for i in range(mb)]
+    assert unsigned[:2 * mb].tolist() == np.concatenate([np.asarray(k) for k in path]).tolist()
+    assert unsigned[2 * mb:].tolist() == [stratum, *np.asarray(k_px), *np.asarray(k_lens)]
+    u = rng.uniform_block_words(got[:2 * mb].view(mb, 2), 12 * 10)
+    want = np.stack([np.asarray(jax.random.uniform(k, (10 * 12,))) for k in path])
+    np.testing.assert_array_equal(u.numpy().view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.parametrize("name", ["demo-box", "dof"])
 @pytest.mark.parametrize("seed", SEEDS)
 def test_trace_stratum_table_equals_key_path(name, seed):
-    """trace_stratum_table over a stratum's words (the graph's forward)
-    gives _trace_stratum's radiance from the key on the host, bit for bit
-    (a pinhole camera and a thin lens)."""
+    """trace_launch of one stratum's words (the graph's forward, and
+    _trace_stratum) gives that stratum's radiance traced inside a launch
+    of four (launch_words of four keys and cells, the stratum third), bit
+    for bit (a pinhole camera and a thin lens)."""
     s = scene(name)
     px0 = renderer.pixel_centers(W, H)
+    B, mb = px0.shape[0], DEFAULT_OPTIONS.max_bounces
     key, stratum, n = rng.fold_in(rng.PRNGKey(seed), 2), 7, 3
-    got = renderer.trace_stratum_table(s, px0, words_of(key, stratum, DEFAULT_OPTIONS.max_bounces),
-                                       n, DEFAULT_OPTIONS)
-    want = renderer._trace_stratum(s, px0, key, stratum, n, DEFAULT_OPTIONS)
+    got = renderer.trace_launch(s, px0, words_of(key, stratum, mb), 1, n, DEFAULT_OPTIONS)
+    assert torch.equal(got, renderer._trace_stratum(s, px0, key, stratum, n, DEFAULT_OPTIONS))
+    keys = [rng.key_words(rng.fold_in(rng.PRNGKey(seed), j)) for j in (0, 1, 2, 3)]
+    launch = renderer.launch_words(keys, [4, 0, stratum, 8], mb)
+    want = renderer.trace_launch(s, px0, launch, 4, n, DEFAULT_OPTIONS)[2 * B:3 * B]
     assert got.abs().sum() > 0
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 

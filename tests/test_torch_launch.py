@@ -3,7 +3,8 @@
 The kernels' wrappers are driven here on the CPU, without a card: their
 tensors are CPU tensors that report a CUDA device (``CudaLike``, made by
 the ``HostAsCard`` function mode from any factory or ``.to`` call that
-names a CUDA device), ``build.load`` returns a fake library that records
+names a CUDA device; ``pin_memory`` makes a stand-in for pinned memory,
+whose copies are recorded), ``build.load`` returns a fake library that records
 each C call, and ``torch.cuda.device`` / ``torch.cuda.current_stream``
 are replaced by recorders. Each wrapper must make the tensors' card the
 current device before each of its C calls (K1's plan included) and hand
@@ -57,12 +58,26 @@ def _names_cuda(x) -> bool:
     return isinstance(x, (str, torch.device)) and torch.device(x).type == "cuda"
 
 
+class Pinned(torch.Tensor):
+    """A CPU tensor that stands for one in pinned host memory."""
+
+
 class HostAsCard(TorchFunctionMode):
     """Factories and .to() that name a CUDA device make CudaLike tensors
-    on the CPU instead."""
+    on the CPU instead; pin_memory() makes a Pinned copy, and each copy_
+    from one is kept in `copies` as (destination, source, non_blocking)."""
+
+    def __init__(self):
+        super().__init__()
+        self.copies = []
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = dict(kwargs or {})
+        if func is torch.Tensor.pin_memory:
+            return args[0].clone().as_subclass(Pinned)
+        if func is torch.Tensor.copy_ and isinstance(args[1], Pinned):
+            self.copies.append((args[0], args[1], kwargs.get("non_blocking", False)))
+            args = (args[0], args[1].as_subclass(torch.Tensor), *args[2:])
         moved = _names_cuda(kwargs.get("device"))
         if moved:
             kwargs["device"] = "cpu"
@@ -168,15 +183,7 @@ def k4(name):
 
 
 def r1(_name):
-    keys = rng.key_table([rng.PRNGKey(0), rng.PRNGKey(1)])
-    return rng_kernel.uniform_block_cuda(keys, 24, CARD)
-
-
-def r2(name):
-    s, _, _, _ = _scene(name)
-    keys = [tuple(rng.split_words((0, j), 3)[:2]) for j in range(3)]
-    return camera_kernel.camera_rays_cuda(s.camera, pixel_centers(8, 8).to(CARD), keys, [2, 0, 1],
-                                          2)
+    return rng.uniform_block([rng.PRNGKey(0), rng.PRNGKey(1)], 24, CARD)
 
 
 def r1_words(_name):
@@ -214,7 +221,6 @@ WRAPPERS = {
                       ["plu_megakernel_stream"]),
     "K4": (k4, "sphere-grid", ["plu_megakernel_onebounce"]),
     "R1": (r1, None, ["plu_threefry_uniform"]),
-    "R2": (r2, "dof", ["plu_camera_rays"]),
     "R1 words": (r1_words, None, ["plu_threefry_uniform"]),
     "R2 table": (r2_table, "dof", ["plu_camera_rays_table"]),
     "G1": (g1, None, ["plu_row_grad"]),
@@ -304,6 +310,5 @@ def test_every_c_call_inside_the_launch_helper():
                 c_calls += 1
                 assert _inside_on_device(node, parents), (
                     f"{path.name}:{node.lineno}: {node.attr} called outside build.on_device")
-    # K1's plan and launch, the K3 query, K2, K3, K4, R1, R2 and its table entry, G1 and
-    # its sorted kernel
-    assert c_calls == len(build._SIGNATURES) == 11
+    # K1's plan and launch, the K3 query, K2, K3, K4, R1, R2, G1 and its sorted kernel
+    assert c_calls == len(build._SIGNATURES) == 10

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from plutracer_tpu_torch import rng
+from plutracer_tpu_torch.render.renderer import launch_words
 from torch_cpu import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -163,18 +164,49 @@ def launch_keys(seed=42, strata=(5, 6, 7)):
     return words, jkeys
 
 
+def launch_parts(words, S, mb):
+    """A launch_words block's R1 key table ((S * mb, 2) int32) and R2 rows
+    ((S, 5) int32), as tensors."""
+    w = torch.from_numpy(words)
+    return w[:2 * S * mb].view(S * mb, 2), w[2 * S * mb:].view(S, -1)
+
+
+@pytest.mark.parametrize("S", [1, 4, 16])
+def test_launch_words_are_jax_key_schedule(S):
+    """launch_words of S strata (keys fold_in(PRNGKey(seed), j), cells out
+    of order, max_bounces 8): R1's rows, bounce-major, are JAX's
+    fold_in(k_path_j, i) at row i * S + j, and R2's row j is the cell and
+    k_px_j, k_lens_j, with (k_px, k_lens, k_path) = split(key_j, 3), every
+    word as its int32 bit pattern."""
+    mb = 8
+    strata = list(range(3, 3 + S))[::-1]
+    words, jkeys = launch_keys(seed=2**31 + S, strata=range(S))
+    got = launch_words(words, strata, mb)
+    assert got.dtype == np.int32 and got.shape == (2 * S * mb + 5 * S,)
+    r1, r2 = launch_parts(got, S, mb)
+    trips = [jax.random.split(jk, 3) for jk in jkeys]
+    for i in range(mb):
+        for j, (_, _, k_path) in enumerate(trips):
+            assert (r1[i * S + j].numpy().view(np.uint32)
+                    == np.asarray(jax.random.fold_in(k_path, i))).all(), (i, j)
+    for j, (k_px, k_lens, _) in enumerate(trips):
+        assert r2[j].numpy().view(np.uint32).tolist() == [
+            strata[j], *np.asarray(k_px).tolist(), *np.asarray(k_lens).tolist()]
+
+
 @pytest.mark.parametrize("B", [37, 1000])
 def test_launch_block_equals_per_stratum_draws_and_jax(B):
-    """The path uniforms of a launch of S = 3 strata (max_bounces 8) in one
-    block equal each stratum's draw_uniforms concatenated along the rays,
-    and JAX's uniform(fold_in(k_path, i), (B, 12)) per bounce."""
+    """The path uniforms of a launch of S = 3 strata (max_bounces 8), one
+    uniform_block_words call on its launch_words' R1 rows, equal each
+    stratum's draw_uniforms concatenated along the rays, and JAX's
+    uniform(fold_in(k_path, i), (B, 12)) per bounce."""
     from plutracer_tpu_torch.render.integrator import draw_uniforms
-    from plutracer_tpu_torch.render.renderer import launch_draws
 
     mb = 8
     words, jkeys = launch_keys()
-    _, u = launch_draws(words, B, mb, "cpu")
-    assert u.dtype == torch.float32 and tuple(u.shape) == (mb, 3 * B, 12) and u.is_contiguous()
+    r1, _ = launch_parts(launch_words(words, [0, 1, 2], mb), 3, mb)
+    u = rng.uniform_block_words(r1, 12 * B).reshape(mb, 3 * B, 12)
+    assert u.dtype == torch.float32 and u.is_contiguous()
     per = [draw_uniforms(rng.split(torch.tensor(w), 3)[2], B, mb, "cpu") for w in words]
     assert torch.equal(u, torch.cat(per, 1))
     want = np.concatenate([
@@ -185,38 +217,35 @@ def test_launch_block_equals_per_stratum_draws_and_jax(B):
 
 
 def test_launch_jitter_equals_sample_position_draws():
-    """The jitter of a launch, drawn from the keys launch_draws hands back
-    (the plain version's jitter_plain block): row (0, j) is uniform(k_px_j,
-    (B, 2)) and row (1, j) uniform(k_lens_j, (B, 2)), as JAX draws them,
-    and _sample_positions turns them into (cell + u*0.999)/n exactly as the
-    per-stratum draw did."""
-    from plutracer_tpu_torch.render.renderer import (
-        _sample_positions,
-        jitter_plain,
-        launch_draws,
-        over,
-        pixel_centers,
-    )
+    """The jitter of a launch, drawn from its launch_words' R2 rows: the
+    uniforms of row j's key words are uniform(k_px_j, (B, 2)) and
+    uniform(k_lens_j, (B, 2)), as JAX draws them, and the plain twin
+    (camera_rays_table_plain) turns them into the positions (cell +
+    u*0.999)/n of each stratum drawn alone, ray for ray, bit for bit."""
+    from plutracer_tpu_torch.ops.camera import generate_rays
+    from plutracer_tpu_torch.render.renderer import camera_rays_table_plain, over, pixel_centers
+    from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
     B, n = 48, 3
     words, jkeys = launch_keys()
-    keys, _ = launch_draws(words, B, 0, "cpu")
-    assert keys == [tuple(rng.split_words(w, 3)[:2]) for w in words]
-    jit = jitter_plain(keys, B, "cpu")
-    assert tuple(jit.shape) == (2, 3, B, 2)
+    strata = [4, 5, 6]
+    _, r2 = launch_parts(launch_words(words, strata, 0), 3, 0)
     px0 = pixel_centers(8, 6)
+    cam = compile_scene(load_scene_file(str(REPO / "scenes" / "dof.urn"), ["/res", "8x6"]),
+                        device="cpu").camera
+    o, d = camera_rays_table_plain(cam, px0, r2, n)
     for j, (w, jk) in enumerate(zip(words, jkeys)):
         k_px, k_lens, _ = rng.split(torch.tensor(w), 3)
         j_px, j_lens, _ = jax.random.split(jk, 3)
-        for row, key, jkey in ((0, k_px, j_px), (1, k_lens, j_lens)):
-            assert torch.equal(jit[row, j], rng.uniform_plain(key, (B, 2)))
-            np.testing.assert_array_equal(jit[row, j].numpy(),
-                                          np.asarray(jax.random.uniform(jkey, (B, 2))))
-        s = 4 + j
-        px, lens = _sample_positions(px0, jit[0, j], jit[1, j], s, n)
-        cell = torch.tensor([s % n, s // n], dtype=torch.float32)
-        assert torch.equal(px, px0 + over(cell + rng.uniform_plain(k_px, (B, 2)) * 0.999, n))
-        assert torch.equal(lens, over(cell + rng.uniform_plain(k_lens, (B, 2)) * 0.999, n))
+        for cols, key, jkey in ((slice(1, 3), k_px, j_px), (slice(3, 5), k_lens, j_lens)):
+            jit = rng.uniform_block_words(r2[j:j + 1, cols].contiguous(), 2 * B).reshape(B, 2)
+            assert torch.equal(jit, rng.uniform_plain(key, (B, 2)))
+            np.testing.assert_array_equal(jit.numpy(), np.asarray(jax.random.uniform(jkey, (B, 2))))
+        cell = torch.tensor([strata[j] % n, strata[j] // n], dtype=torch.float32)
+        px = px0 + over(cell + rng.uniform_plain(k_px, (B, 2)) * 0.999, n)
+        lens = over(cell + rng.uniform_plain(k_lens, (B, 2)) * 0.999, n)
+        wo, wd = generate_rays(cam, px, lens)
+        assert torch.equal(o[j * B:(j + 1) * B], wo) and torch.equal(d[j * B:(j + 1) * B], wd)
 
 
 def test_uniform_block_plain_rows_and_guards():
@@ -238,21 +267,23 @@ def test_uniform_block_plain_rows_and_guards():
 
 
 def test_kernel_wrapper_refuses_the_cpu():
-    """R1's wrapper launches on CUDA devices only and checks the table and
-    the count; nothing is launched here."""
-    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+    """R1's wrapper checks the table and the count, and launches on CUDA
+    devices only; nothing is launched here."""
+    from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_words
 
     from plutracer_tpu_torch.utils import profiling
 
-    keys = rng.split(rng.PRNGKey(0), 2)
+    words = torch.zeros((2, 2), dtype=torch.int32)
     with profiling.recording():
         before = profiling.counter("launches.r1")
         with pytest.raises(ValueError, match="CUDA"):
-            uniform_block_cuda(keys, 8, "cpu")
+            uniform_block_words(words, 8)
         with pytest.raises(ValueError, match="2\\*\\*32"):
-            uniform_block_cuda(keys, 2**32, "cuda")
+            uniform_block_words(words, 2**32)
         with pytest.raises(ValueError, match="at most"):
-            uniform_block_cuda(torch.zeros((65536, 2), dtype=torch.int64), 8, "cuda")
+            uniform_block_words(torch.zeros((65536, 2), dtype=torch.int32), 8)
+        with pytest.raises(ValueError, match="int32 table"):
+            uniform_block_words(words.to(torch.int64), 8)
         assert profiling.counter("launches.r1") == before
 
 

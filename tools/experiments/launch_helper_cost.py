@@ -23,7 +23,7 @@ from plutracer_tpu_torch import rng
 from plutracer_tpu_torch.ops.camera import generate_rays
 from plutracer_tpu_torch.ops.cuda import build
 from plutracer_tpu_torch.ops.cuda.intersect_kernel import closest_hit_cuda
-from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_cuda
+from plutracer_tpu_torch.ops.cuda.rng_kernel import uniform_block_words
 from plutracer_tpu_torch.render.renderer import pixel_centers
 from plutracer_tpu_torch.scene import compile_scene, load_scene_file
 
@@ -71,12 +71,13 @@ B = 512 * 512
 px = pixel_centers(512, 512, dev)
 o, d = generate_rays(scene.camera, px, torch.zeros_like(px))
 keys = rng.key_table([rng.PRNGKey(k) for k in range(8)])
+words = rng.device_words(keys.numpy().astype("uint32").view("int32"), dev)
 calls = {
     "K1 demo-box primary": lambda: closest_hit_cuda(scene.prims_packed, o, d,
                                                     scene.packed_type_rows),
     "K1 train query (3 x 65,536)": lambda: closest_hit_cuda(
         scene.prims_packed, o[:196608], d[:196608], scene.packed_type_rows),
-    "R1 demo-box stratum": lambda: uniform_block_cuda(keys, 12 * B, dev),
+    "R1 demo-box stratum": lambda: uniform_block_words(words, 12 * B),
 }
 
 
